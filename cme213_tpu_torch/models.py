@@ -1,0 +1,53 @@
+"""Workload registry of the port: ``python -m cme213_tpu_torch <workload>``.
+
+Counterpart of ``cme213_tpu/models.py``; holds the workloads ported so far.
+"""
+
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass
+from typing import Callable
+
+
+@dataclass(frozen=True)
+class Workload:
+    name: str
+    reference_unit: str
+    summary: str
+    run: Callable[[list[str]], int]
+
+
+def _heat2d(argv: list[str]) -> int:
+    from .apps import heat2d
+
+    return heat2d.main(["heat2d", *argv])
+
+
+WORKLOADS: dict[str, Workload] = {
+    w.name: w
+    for w in (
+        Workload("heat2d", "hw2", "2-D heat diffusion: plain PyTorch "
+                 "stencil + the hand-written CUDA kernel, golden ULP-10 "
+                 "check (--device=cpu runs the plain versions)", _heat2d),
+    )
+}
+
+
+def usage() -> str:
+    lines = ["usage: python -m cme213_tpu_torch <workload> [args...]", "",
+             "workloads:"]
+    for w in WORKLOADS.values():
+        lines.append(f"  {w.name:<10} [{w.reference_unit}] {w.summary}")
+    return "\n".join(lines)
+
+
+def dispatch(argv: list[str]) -> int:
+    if not argv or argv[0] in ("-h", "--help"):
+        print(usage())
+        return 0
+    w = WORKLOADS.get(argv[0])
+    if w is None:
+        print(f"unknown workload {argv[0]!r}\n\n{usage()}", file=sys.stderr)
+        return 2
+    return w.run(argv[1:])
