@@ -1,9 +1,10 @@
 """Carry the JAX package's state across to the port.
 
-The heat solve has no weights: its state is the parameters and the halo
-grid.  Both cross as plain data, so the port never imports the JAX
-package: the parameters as the dict of a ``cme213_tpu.config.SimParams``'s
-init fields, the grid as a numpy array.
+No workload has weights.  The heat solve's state is the parameters and the
+halo grid; the SpMV-scan engine's is its ``Problem`` (values, segment
+starts, gather indices, x, iterations).  Everything crosses as plain data,
+so the port never imports the JAX package: the parameters as the dict of a
+``cme213_tpu.config.SimParams``'s init fields, arrays as numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .apps.spmv_scan import Problem
 from .config import GridMethod, SimParams
 from .core.platform import resolve_device
 
@@ -37,3 +39,14 @@ def grid_from_reference(u: np.ndarray, device) -> torch.Tensor:
     """The reference's halo grid as a tensor on ``device`` (``None`` means
     ``cuda``), same dtype and values."""
     return torch.from_numpy(np.array(u, copy=True)).to(resolve_device(device))
+
+
+def problem_from_reference(a, s, k, x, iters: int) -> Problem:
+    """The port's SpMV-scan ``Problem`` from the arrays of a reference
+    ``cme213_tpu.apps.spmv_scan.Problem`` (``prob.a, prob.s, prob.k,
+    prob.x, prob.iters``): copies with the same dtypes and values,
+    validated like a loaded problem."""
+    prob = Problem(*(np.array(v, copy=True) for v in (a, s, k, x)),
+                   int(iters))
+    prob.validate()
+    return prob

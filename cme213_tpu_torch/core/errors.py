@@ -16,7 +16,20 @@ class FrameworkError(RuntimeError):
 
 
 class DataValidationError(FrameworkError):
-    """External input data failed an invariant check at ingestion."""
+    """External input data failed an invariant check at ingestion (corrupt
+    or truncated matrix file, inconsistent header, out-of-range indices,
+    non-finite values).  ``.record`` holds the structured
+    ``data-validation`` record (source, invariant, detail)."""
+
+
+def data_error(source: str, invariant: str, detail: str) -> DataValidationError:
+    """A ``DataValidationError`` carrying its ``data-validation`` record:
+    where, which invariant, what.  (The reference also emits the record
+    as a trace event; the port's trace sinks come with ``core/trace.py``.)"""
+    err = DataValidationError(f"{source}: {invariant}: {detail}")
+    err.record = {"event": "data-validation", "source": source,
+                  "invariant": invariant, "detail": detail[:300]}
+    return err
 
 
 def check_op(name: str, *tensors):

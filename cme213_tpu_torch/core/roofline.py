@@ -1,7 +1,7 @@
 """Roofline attribution for the port: cost models and the card's peaks.
 
-Counterpart of ``cme213_tpu/core/roofline.py``, cut to what the heat solve
-needs.  The peak table holds NVIDIA's data-sheet figures for the H100
+Counterpart of ``cme213_tpu/core/roofline.py``, cut to what the ported
+workloads need (the heat solve and the SpMV-scan engine).  The peak table holds NVIDIA's data-sheet figures for the H100
 (dense, no sparsity), chosen by ``torch.cuda.get_device_name()``.  They
 assume the card's full power limit; a card set below it runs slower, so
 every measurement states the limit beside it.
@@ -16,9 +16,15 @@ import numpy as np
 from ..ops.stencil import flops_per_point
 
 
+_DTYPE_SIZES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2,
+                "i32": 4, "u32": 4, "u8": 1, "i8": 1}
+
+
 def elem_size(dtype) -> int:
-    """Element size in bytes for a torch dtype or anything ``np.dtype``
-    accepts."""
+    """Element size in bytes for a torch dtype, a short name ("f32") or
+    anything ``np.dtype`` accepts."""
+    if isinstance(dtype, str) and dtype in _DTYPE_SIZES:
+        return _DTYPE_SIZES[dtype]
     itemsize = getattr(dtype, "itemsize", None)  # torch.dtype
     if isinstance(itemsize, int):
         return itemsize
@@ -121,3 +127,28 @@ def heat_cost(ny: int, nx: int | None = None, *, order: int, iters: int,
     elem = elem_size(dtype)
     return Cost(2 * elem * ny * nx * iters,
                 flops_per_point(order) * ny * nx * iters)
+
+
+def spmv_scan_cost(n: int, iters: int, dtype="float32") -> Cost:
+    """Single-pass form of the iterated SpMV-scan engine (fp.cu): per
+    iteration read the value vector, the gathered ``xx`` vector and the
+    int32 head flags, write the value vector — ``(3·elem + 4)·n`` bytes;
+    one multiply and one scan add per element."""
+    elem = elem_size(dtype)
+    return Cost(n * (3 * elem + 4) * iters, 2 * n * iters)
+
+
+def segmented_scan_cost(n: int, dtype="float32") -> Cost:
+    """One segmented scan (the unfused kernel, B6): read the values and the
+    int32 head flags, write the values — ``(2·elem + 4)·n`` bytes; one add
+    per element."""
+    elem = elem_size(dtype)
+    return Cost(n * (2 * elem + 4), n)
+
+
+def scan_cost(n: int, dtype="float32") -> Cost:
+    """Single-pass scan family traffic: read and write each element once.
+    Multi-sweep forms (the flat log-n scan) are quoted against this same
+    useful-byte count, so their extra traffic shows as lost bandwidth."""
+    elem = elem_size(dtype)
+    return Cost(2 * elem * n, n)

@@ -24,12 +24,22 @@ def _heat2d(argv: list[str]) -> int:
     return heat2d.main(["heat2d", *argv])
 
 
+def _spmv_scan(argv: list[str]) -> int:
+    from .apps import spmv_scan
+
+    return spmv_scan.main(["spmv_scan", *argv])
+
+
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
         Workload("heat2d", "hw2", "2-D heat diffusion: plain PyTorch "
                  "stencil + the hand-written CUDA kernel, golden ULP-10 "
                  "check (--device=cpu runs the plain versions)", _heat2d),
+        Workload("spmv_scan", "hw_final", "iterated multiply + segmented "
+                 "scan: plain torch scans + the hand-written CUDA kernel "
+                 "(--kernel=pallas|pallas-fused), f64 golden check",
+                 _spmv_scan),
     )
 }
 

@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-Counterpart of ``cme213_tpu/native/build.py``.  At the first launch on a
-CUDA tensor, ``nvcc`` compiles ``csrc/heat_stencil.cu`` for Hopper into a
-shared library with a plain C interface under ``core.platform.BUILD_DIR``,
-keyed by a hash of the source and the flags, and ``ctypes`` loads it.
-Importing this module builds nothing, so the CPU tests import it without a
-toolchain; a missing ``nvcc`` or a failed build raises ``FrameworkError``
-at that first launch.  Nothing falls back to another implementation.
+Counterpart of ``cme213_tpu/native/build.py``.  Each source in ``csrc/`` is
+compiled by ``nvcc`` for Hopper into its own shared library with a plain C
+interface under ``core.platform.BUILD_DIR``, keyed by a hash of the source
+and the flags, and loaded with ``ctypes``.  A library is built at the first
+launch on a CUDA tensor that needs it; ``build()`` builds several at once,
+one ``nvcc`` each, all started together.  Importing this module builds
+nothing, so the CPU tests import it without a toolchain; a missing ``nvcc``
+or a failed build raises ``FrameworkError`` at that first launch.  Nothing
+falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -23,17 +25,21 @@ import torch
 from ..core.errors import FrameworkError
 from ..core.platform import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "heat_stencil.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
-#: ``--fmad=false``: no multiply-add contraction anywhere in the library
-#: (the kernel also spells every operation with a round-to-nearest
+#: library name -> its CUDA source
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("heat_stencil", "segmented_scan")}
+
+#: ``--fmad=false``: no multiply-add contraction anywhere in the libraries
+#: (the kernels also spell every operation with a round-to-nearest
 #: intrinsic); ``-Xptxas -v`` writes registers, shared memory and spills of
 #: each kernel into the build log beside the library
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,55 +52,92 @@ def _nvcc() -> str:
             return str(Path(root) / "bin" / "nvcc")
     raise FrameworkError(
         "nvcc not found (PATH, CUDA_HOME, CUDA_PATH, /usr/local/cuda): the "
-        f"CUDA kernels are built from {SOURCE.name} at first use on a CUDA "
-        "tensor")
+        "CUDA kernels are built from cme213_tpu_torch/csrc at first use on "
+        "a CUDA tensor")
 
 
-def library_path() -> Path:
-    """Path of the built library for the current source and flags."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    """Path of library ``name``'s build for the current source and flags."""
+    tag = hashlib.sha256(SOURCES[name].read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{SOURCE.stem}-{tag}.so"
+    return BUILD_DIR / f"{name}-{tag}.so"
 
 
-def build() -> Path:
-    """Compile the source unless the library for it already exists.
+def build(*names: str) -> dict[str, Path]:
+    """Compile the named libraries (default: all) unless already built.
 
-    The compiler's output (``-Xptxas -v``) goes to a ``.log`` beside the
-    library.  Raises ``FrameworkError`` when ``nvcc`` is missing or fails.
+    One ``nvcc`` per missing library, all started together and all waited
+    for.  The compiler's output (``-Xptxas -v``) goes to a ``.log`` beside
+    each library.  Raises ``FrameworkError`` when ``nvcc`` is missing or any
+    build fails.
     """
-    out = library_path()
-    if out.exists():
+    names = names or tuple(SOURCES)
+    out = {name: library_path(name) for name in names}
+    todo = [name for name in names if not out[name].exists()]
+    if not todo:
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise FrameworkError(
-            f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    procs = {}
+    failed = []
+    try:
+        for name in todo:
+            tmp = out[name].with_name(f"{out[name].name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, (tmp, proc) in procs.items():
+            stdout, stderr = proc.communicate()
+            out[name].with_suffix(".log").write_text(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"{SOURCES[name].name} (rc "
+                              f"{proc.returncode}):\n{stderr[-4000:]}")
+            else:
+                os.replace(tmp, out[name])  # atomic: all or nothing
+    finally:  # an interrupted build leaves no compiler running
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise FrameworkError("nvcc failed on " + "\n".join(failed))
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, real in (("heat_ksteps_f32", ctypes.c_float),
-                           ("heat_ksteps_f64", ctypes.c_double)):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_int] * 11 + [real] * 6
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        lib.heat_error_string.argtypes = [ctypes.c_int]
-        lib.heat_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _bind_heat_stencil(lib: ctypes.CDLL) -> None:
+    for name, real in (("heat_ksteps_f32", ctypes.c_float),
+                       ("heat_ksteps_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * 11 + [real] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.heat_error_string.argtypes = [ctypes.c_int]
+    lib.heat_error_string.restype = ctypes.c_char_p
+
+
+def _bind_segmented_scan(lib: ctypes.CDLL) -> None:
+    lib.segmented_scan_geometry.argtypes = [ctypes.c_void_p]
+    lib.segmented_scan_geometry.restype = None
+    lib.segmented_scan_f32.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_void_p])
+    lib.segmented_scan_f32.restype = ctypes.c_int
+    lib.segmented_scan_error_string.argtypes = [ctypes.c_int]
+    lib.segmented_scan_error_string.restype = ctypes.c_char_p
+
+
+_BINDERS = {"heat_stencil": _bind_heat_stencil,
+            "segmented_scan": _bind_segmented_scan}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built on first call."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)[name]))
+        _BINDERS[name](lib)
+        _libs[name] = lib
+    return _libs[name]
 
 
 def heat_ksteps(src: torch.Tensor, dst: torch.Tensor, *, order: int, k: int,
@@ -125,7 +168,7 @@ def heat_ksteps(src: torch.Tensor, dst: torch.Tensor, *, order: int, k: int,
         raise ValueError("heat_ksteps takes contiguous grids")
     if src.data_ptr() == dst.data_ptr():
         raise ValueError("heat_ksteps cannot update a grid in place")
-    lib = library()
+    lib = library("heat_stencil")
     fn = lib.heat_ksteps_f32 if src.dtype == torch.float32 \
         else lib.heat_ksteps_f64
     H, W = src.shape
@@ -140,3 +183,52 @@ def heat_ksteps(src: torch.Tensor, dst: torch.Tensor, *, order: int, k: int,
             f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
             f"order={order} k={k} tile={tile_y}x{tile_x} grid={H}x{W} "
             f"{src.dtype})")
+
+
+def segmented_scan_geometry() -> tuple[int, int, int, int]:
+    """(items per thread, threads per tile, warp width, carry-pass threads)
+    as compiled into ``csrc/segmented_scan.cu``."""
+    buf = (ctypes.c_int * 4)()
+    library("segmented_scan").segmented_scan_geometry(buf)
+    return tuple(buf)
+
+
+def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
+                   flags: torch.Tensor, out: torch.Tensor,
+                   workspace: torch.Tensor) -> None:
+    """Enqueue one scan of ``csrc/segmented_scan.cu`` on the current stream:
+    ``out = segscan(values)`` (``xx`` None, B6) or ``segscan(values·xx)``
+    (B7).  ``out`` may be ``values``.
+
+    Every tensor is contiguous, 1-D and on one CUDA device: float32
+    ``values``, ``xx`` and ``out`` of n elements, int32 ``flags`` of n, and
+    a 32-bit ``workspace`` of at least 3 words per tile.  Raises
+    ``FrameworkError`` when the C entry refuses the call or a launch.
+    """
+    tensors = [values, flags, out, workspace] + ([] if xx is None else [xx])
+    if not all(t.is_cuda and t.device == values.device for t in tensors):
+        raise ValueError("segmented_scan takes tensors on one CUDA device")
+    if not all(t.dim() == 1 and t.is_contiguous() for t in tensors):
+        raise ValueError("segmented_scan takes contiguous 1-D tensors")
+    n = values.shape[0]
+    f32 = [values, out] + ([] if xx is None else [xx])
+    if any(t.dtype != torch.float32 for t in f32) \
+            or flags.dtype != torch.int32 or workspace.element_size() != 4:
+        raise TypeError("segmented_scan takes float32 values/xx/out, int32 "
+                        "flags and a 32-bit workspace")
+    if any(t.shape[0] != n for t in f32 + [flags]):
+        raise ValueError("segmented_scan takes values, xx, flags and out of "
+                         "one length")
+    lib = library("segmented_scan")
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = lib.segmented_scan_f32(
+            values.data_ptr(), None if xx is None else xx.data_ptr(),
+            flags.data_ptr(), out.data_ptr(), n, workspace.data_ptr(),
+            workspace.shape[0], stream)
+    if err != 0:
+        raise FrameworkError(
+            f"segmented_scan launch failed: "
+            f"{lib.segmented_scan_error_string(err).decode()} (cudaError "
+            f"{err}; n={n} fused={xx is not None} "
+            f"workspace={workspace.shape[0]} words)")

@@ -150,9 +150,9 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "_nvcc", lambda: "false")
     with pytest.raises(FrameworkError, match="nvcc failed"):
         _kernels.build()
-    assert (tmp_path / _kernels.library_path().with_suffix(".log").name
-            ).exists()
-    assert not _kernels.library_path().exists()
+    lib = _kernels.library_path("heat_stencil")
+    assert (tmp_path / lib.with_suffix(".log").name).exists()
+    assert not lib.exists()
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -166,9 +166,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_library_path_keys_on_source_and_flags(monkeypatch):
-    a = _kernels.library_path()
+    a = _kernels.library_path("heat_stencil")
     monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-g",))
-    assert _kernels.library_path() != a
+    assert _kernels.library_path("heat_stencil") != a
     assert a.parent == _kernels.BUILD_DIR
 
 
