@@ -54,23 +54,58 @@ fails:
    calls (no single PyTorch call computes a segmented scan, so
    ``library_ms`` is null).
 
-The main paths are what phases 2, 4, 5, 6 and 8 drive through the entry
-points a user calls: ``run_single`` at 512² and at 4000² (kernel B1), one
-solve of each of ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at
-each k, and the SpMV-scan runs (B6 through ``pallas``, B7 through
-``pallas-fused``).  Every launch count (``ops.stencil_pipeline.LAUNCHES``
-and ``ops.segmented_pallas.LAUNCHES``) is set to 0 just before each of
-these paths and read just after; each path must launch exactly its own
-kernel and no other, ``iters + 1`` times for ``run_single`` and
-``run_spmv_scan`` (one untimed step or iteration, then the solve) and
-``iters / k`` times for a heat solve; ``auto`` and ``flat`` launch none.
-The launches of phases 3 and 7's comparisons and of the timed repeats are
+9. B3, the shard kernel (``stencil_local_multistep``), against its plain
+   version on the same CUDA tensors: the K-padded shard blocks the
+   distributed solve assembles (``dist/heat._assemble_padded``) from a
+   seeded 2000² interior — corners of a 2×2 mesh, an edge stripe of a
+   1-D mesh of 4, the interior shard of a 3×3 mesh (2001²), a ghost-padded
+   shard of a 2×2 mesh over 1999×2001 — × order ∈ {2,4,8} × k ∈
+   {1,2,4,8} in f32, and two f64 cases.  The rows and columns ``[K, H−K)``
+   are compared; fails above 10 ULP (0 expected).
+10. The distributed heat solve (hw5) at the reference's largest size,
+   2000², order 8, 1000 iterations, on four shards of the one card
+   (``core.virtual_devices(4)``): ``apps.heat2d.run_distributed`` for 1-D
+   stripes and 2-D blocks × sync and async with the ``xla`` local step and
+   for 1-D and 2-D with ``pallas`` (B3); then ``run_distributed_heat`` on
+   the 2-D mesh at k ∈ {2, 4} with each local kernel, and with ``pallas``
+   on a 1-shard mesh.  Every result is held to ``ops.run_heat`` on the
+   card within ULP-10 (0 expected).  Each path is timed again through
+   ``prepare_distributed_heat`` (``iterate()`` times the step loop
+   between device synchronisations): ms/step, GB/s and % of the memory
+   peak by ``roofline.heat_cost``, and the bound.  Then B3 alone on the
+   2-D path's four padded blocks (ms per step at k ∈ {1,2,4}, CUDA
+   events), its plain version and ``library_ms``: ``conv2d`` over each
+   padded block with the cross-shaped stencil (TF32 off).  Last, the CLI,
+   ``heat2d.main([..., "examples/params_dist.in", "--distributed",
+   "--local-kernel=pallas"])`` in a temporary directory, a 1×1 mesh of
+   the physical card: its dumps must exist and its grid equal
+   ``ops.run_heat``'s within ULP-10.
+11. The sharded SpMV-scan at pwtk: ``run_spmv_scan_distributed`` over four
+   shards of the card (``ring`` carries), held to phase 8's f64 plain run
+   at ``auto``'s bound (rel L2 ≤ 1e-4, rel L∞ ≤ 1e-3: the per-shard scan
+   is the blocked one), ms per iteration.
+
+The main paths are what phases 2, 4, 5, 6, 8, 10 and 11 drive through the
+entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
+B1), one solve of each of ``run_heat_pipeline`` and ``run_heat_pipeline2d``
+(B2) at each k, the SpMV-scan runs (B6 through ``pallas``, B7 through
+``pallas-fused``), the distributed heat solves (B3 through ``pallas``) and
+the sharded SpMV-scan.  Every launch count
+(``ops.stencil_pipeline.LAUNCHES`` and ``ops.segmented_pallas.LAUNCHES``)
+is set to 0 just before each of these paths and read just after; each
+path must launch exactly its own kernel and no other, ``iters + 1`` times
+for ``run_single`` and ``run_spmv_scan`` (one untimed step or iteration,
+then the solve), ``iters / k`` times for a heat solve and ``shards × iters
+/ k`` for a distributed solve with ``pallas``; ``auto``, ``flat``, the
+``xla`` distributed solves and the sharded SpMV-scan launch none.  The
+launches of phases 3, 7 and 9's comparisons and of the timed repeats are
 not read.
 
 The lines before the last: the card's identity, then one JSON object
 ``{"kernels": [...]}`` with each kernel's launches on its full-size main
 path (``launches``) and on every path (``launches_by_path``), its error,
-times and bound (heat: ms per step at 4000² order 8 f32, k = 1; the scan:
+times and bound (B1, B2: ms per step at 4000² order 8 f32, k = 1; B3: ms
+per step of the 2-D pallas path at 2000², its four launches; the scan:
 ms per iteration or per scan at pwtk).  The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -89,14 +124,18 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = {"pipeline": "cme213_tpu_torch/csrc/heat_stencil.cu",
           "pipeline2d": "cme213_tpu_torch/csrc/heat_stencil.cu",
+          "local": "cme213_tpu_torch/csrc/heat_stencil.cu",
           "segscan": "cme213_tpu_torch/csrc/segmented_scan.cu",
           "spmv_fused": "cme213_tpu_torch/csrc/segmented_scan.cu"}
 REPLACES = {"pipeline": "cme213_tpu/ops/stencil_pipeline.py:169",
             "pipeline2d": "cme213_tpu/ops/stencil_pipeline.py:558",
+            "local": "cme213_tpu/ops/stencil_pipeline.py:656",
             "segscan": "cme213_tpu/ops/segmented_pallas.py:140",
             "spmv_fused": "cme213_tpu/ops/segmented_pallas.py:182"}
 MAX_ULPS = 10
 FULL_N, FULL_ORDER, FULL_ITERS = 4000, 8, 1000
+#: hw5's largest size (BASELINE.md, hw5 table), on four shards of the card
+DIST_N, DIST_ITERS, DIST_SHARDS = 2000, 1000, 4
 #: the SpMV-scan kernels by ``run_spmv_scan`` kernel name, and the full size
 SCAN_KERNELS = {"pallas-fused": "spmv_fused", "pallas": "segscan"}
 SUITE = "pwtk"
@@ -127,11 +166,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         import cme213_tpu_torch
-        from cme213_tpu_torch import config, core, grid, ops
+        from cme213_tpu_torch import config, core, dist, grid, ops
         from cme213_tpu_torch.apps import heat2d
         from cme213_tpu_torch.apps import spmv_scan as spmv
         from cme213_tpu_torch.apps.matrix_market import dense2_problem
         from cme213_tpu_torch.core import roofline
+        from cme213_tpu_torch.dist import heat as dheat
         from cme213_tpu_torch.ops import _kernels
         from cme213_tpu_torch.ops import segmented_pallas as segp
         from cme213_tpu_torch.ops import stencil_pipeline as sp
@@ -302,14 +342,19 @@ def main() -> int:
         print(f"  vs run_heat: {name:<10} k={k} {FULL_ITERS} iters: "
               f"max ULP {ulp}, max |err| {err:.3g}")
 
-    b = full.border_size
     torch.backends.cudnn.allow_tf32 = False
-    w = torch.zeros(2 * b + 1, 2 * b + 1, dtype=torch.float32)
-    coeffs = torch.tensor(ops.STENCIL_COEFFS[full.order])
-    w[b, :] += coeffs * full.xcfl
-    w[:, b] += coeffs * full.ycfl
-    w[b, b] += 1.0
-    w = w.to(dev)[None, None]
+
+    def cross_weight(p):
+        """``p``'s stencil step as a (1, 1, 2b+1, 2b+1) conv2d weight."""
+        b = p.border_size
+        w = torch.zeros(2 * b + 1, 2 * b + 1, dtype=torch.float32)
+        coeffs = torch.tensor(ops.STENCIL_COEFFS[p.order])
+        w[b, :] += coeffs * p.xcfl
+        w[:, b] += coeffs * p.ycfl
+        w[b, b] += 1.0
+        return w.to(dev)[None, None]
+
+    w = cross_weight(full)
     conv = torch.nn.functional.conv2d
     library_ms = core.time_fn(lambda v: conv(v[None, None], w), u,
                               warmup=2, iters=5)
@@ -476,12 +521,227 @@ def main() -> int:
         capture_output=True, text=True, timeout=60)
     print(f"card after the runs: {smi.stdout.strip()}")
 
-    # ---------------------------------------------------- 9. summary lines
+    # ---------------------------------------------------- 9. B3 vs plain
+    local_ulp, local_err = 0, 0.0
+
+    def note_local(ulp, err):
+        nonlocal local_ulp, local_err
+        local_ulp = max(local_ulp, ulp)
+        local_err = max(local_err, err)
+
+    def shard_blocks(p, mesh, K, dtype, seed=0):
+        """{(yi, xi): (K-padded block, gy0, gx0)} as the distributed solve
+        assembles them on the card from a seeded interior of ``p``."""
+        y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+        rng = np.random.default_rng(seed)
+        u = dheat._pad_interior_for_mesh(
+            p.ic + rng.uniform(0, 1, (p.ny, p.nx)), p, y_size, x_size)
+        blocks = dheat._scatter(torch.from_numpy(u).to(dtype),
+                                dheat._shard_devices(mesh, y_size, x_size),
+                                ny_loc, nx_loc)
+        padded = dheat._assemble_padded(blocks, p, border=K)
+        b = p.border_size
+        return {(yi, xi): (padded[yi][xi], yi * ny_loc + b - K,
+                           xi * nx_loc + b - K)
+                for yi in range(y_size) for xi in range(x_size)}
+
+    vdev = core.virtual_devices(DIST_SHARDS)
+    local_cases = {  # name: (ny, nx, mesh, shard)
+        "corner": (DIST_N, DIST_N, dist.make_mesh_2d(2, 2, devices=vdev),
+                   [(0, 0), (1, 1)]),
+        "edge": (DIST_N, DIST_N, dist.make_mesh_1d(4, devices=vdev),
+                 [(1, 0)]),
+        "interior": (2001, 2001,
+                     dist.make_mesh_2d(3, 3, devices=vdev * 3), [(1, 1)]),
+        "ghost": (1999, 2001, dist.make_mesh_2d(2, 2, devices=vdev),
+                  [(1, 1)])}
+    local_runs = [(order, k, torch.float32) for order in (2, 4, 8)
+                  for k in (1, 2, 4, 8)] + [(8, 4, torch.float64),
+                                            (2, 8, torch.float64)]
+    for seed, (order, k, dtype) in enumerate(local_runs):
+        for where, (ny, nx, mesh, shards) in local_cases.items():
+            p = config.SimParams(nx=nx, ny=ny, order=order, bc_top=1.5,
+                                 bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+            K = k * p.border_size
+            blocks = shard_blocks(p, mesh, K, dtype, seed)
+            for shard in shards:
+                blk, gy0, gx0 = blocks[shard]
+                args = (gy0, gx0, p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+                got = sp.stencil_local_multistep(blk, *args, k=k)
+                ref = sp.stencil_local_multistep_plain(blk, *args, k=k)
+                ulp, err = max_errors(got[K:-K, K:-K], ref[K:-K, K:-K])
+                note_local(ulp, err)
+                print(f"  vs plain: local {where} {shard} of {ny}x{nx} "
+                      f"order {order} k={k} {str(dtype)[6:]}: max ULP {ulp}, "
+                      f"max |err| {err:.3g}")
+
+    # ---------------------------------------------------- 10. hw5 full size
+    base = dict(nx=DIST_N, ny=DIST_N, order=8, iters=DIST_ITERS)
+    dist_p = config.SimParams(**base)
+    dist_ref = ops.run_heat(grid.make_initial_grid(dist_p, device=dev),
+                            DIST_ITERS, dist_p.order, dist_p.xcfl,
+                            dist_p.ycfl)
+    dist_step = roofline.heat_cost(DIST_N, DIST_N, order=8, iters=1)
+    dist_bound, dist_by = roofline.bound_ms(dist_step, peak, torch.float32)
+    method = {"1d": config.GridMethod.STRIPES_1D,
+              "2d": config.GridMethod.BLOCKS_2D}
+    dist_rows = {}
+
+    def dist_path(label, out, kernel, timed):
+        """Hold ``out`` (the full halo grid) to ``run_heat`` and time the
+        same solve again through ``timed`` (an ``iterate``)."""
+        ulp, err = max_errors(torch.from_numpy(out), dist_ref)
+        if kernel == "pallas":
+            note_local(ulp, err)
+        seconds, _ = timed()
+        ms = seconds * 1e3 / DIST_ITERS
+        gbs = dist_step.gbs(ms)
+        att = roofline.attribute(gbs, dist_step.gflops(ms), device=kind)
+        dist_rows[label] = {"ms": ms, "gbs": gbs,
+                            "pct_peak": att["pct_peak"],
+                            "bound_ms": dist_bound, "bound_by": dist_by,
+                            "max_ulp_vs_run_heat": ulp}
+        print(f"{label}: {ms:.6f} ms/step, {gbs:.1f} GB/s "
+              f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), bound "
+              f"{dist_bound:.6f} ms/step by {dist_by}; vs run_heat: max "
+              f"ULP {ulp}, max |err| {err:.3g}")
+
+    for dim, sync, kernel in [("1d", True, "xla"), ("1d", False, "xla"),
+                              ("2d", True, "xla"), ("2d", False, "xla"),
+                              ("1d", True, "pallas"), ("2d", True, "pallas")]:
+        p = config.SimParams(**base, grid_method=method[dim],
+                             synchronous=sync)
+        label = (f"run_distributed {DIST_N}x{DIST_N} {dim} "
+                 f"{'sync' if sync else 'async'} {kernel}")
+        n_local = DIST_SHARDS * DIST_ITERS if kernel == "pallas" else 0
+        out = counted(label, only("local", n_local),
+                      lambda p=p, kernel=kernel: heat2d.run_distributed(
+                          p, local_kernel=kernel, devices=vdev))
+        mesh = dist.mesh_for_method(p.grid_method, devices=vdev)
+        iterate, _, _ = dist.prepare_distributed_heat(p, mesh,
+                                                      local_kernel=kernel)
+        dist_path(label, out, kernel, iterate)
+    mesh2d = dist.make_mesh_2d(2, 2, devices=vdev)
+    mesh1 = dist.make_mesh_1d(1, devices=[dev])
+    for mesh, k, kernel in [(mesh2d, 2, "xla"), (mesh2d, 4, "xla"),
+                            (mesh2d, 2, "pallas"), (mesh2d, 4, "pallas"),
+                            (mesh1, 1, "pallas")]:
+        shards = mesh.devices.size
+        label = (f"run_distributed_heat {DIST_N}x{DIST_N} "
+                 f"{'x'.join(map(str, mesh.devices.shape))} {kernel} k={k}")
+        n_local = shards * DIST_ITERS // k if kernel == "pallas" else 0
+        out = counted(label, only("local", n_local),
+                      lambda mesh=mesh, k=k, kernel=kernel:
+                      dist.run_distributed_heat(
+                          dist_p, mesh, steps_per_exchange=k,
+                          local_kernel=kernel))
+        iterate, _, k_used = dist.prepare_distributed_heat(
+            dist_p, mesh, steps_per_exchange=k, local_kernel=kernel)
+        if k_used != k:
+            fail(f"{label}: ran k={k_used}")
+        dist_path(label, out, kernel, iterate)
+
+    # B3 alone on the 2-D path's four padded blocks, per step
+    local_timing = []
+    for k in (1, 2, 4):
+        K = k * dist_p.border_size
+        blocks = list(shard_blocks(dist_p, mesh2d, K,
+                                   torch.float32).values())
+        args = (dist_p.ny, dist_p.nx, dist_p.order, dist_p.xcfl,
+                dist_p.ycfl, dist_p.bc)
+
+        def launch_all(_, blocks=blocks, k=k):
+            return [sp.stencil_local_multistep(blk, gy0, gx0, *args, k=k)
+                    for blk, gy0, gx0 in blocks]
+
+        ms = per_call_ms(launch_all, blocks[0][0], 200) / k
+        nbytes = sum(2 * blk.numel() * blk.element_size()
+                     for blk, _, _ in blocks)
+        cost = roofline.Cost(nbytes, ops.flops_per_point(dist_p.order) * k
+                             * DIST_N * DIST_N)
+        b_ms, b_by = roofline.bound_ms(cost, peak, torch.float32)
+        local_timing.append({"k": k, "ms": ms, "bound_ms": b_ms / k,
+                             "bound_by": b_by,
+                             "gbs": dist_step.gbs(ms)})
+        print(f"B3 alone, 2x2 blocks of {DIST_N}x{DIST_N} k={k}: {ms:.6f} "
+              f"ms/step, bound {b_ms / k:.6f} ms/step by {b_by}")
+        if k == 1:
+            local_plain_ms = per_call_ms(
+                lambda _: [sp.stencil_local_multistep_plain(blk, gy0, gx0,
+                                                            *args, k=1)
+                           for blk, gy0, gx0 in blocks], blocks[0][0], 5)
+            w_dist = cross_weight(dist_p)
+            local_library_ms = per_call_ms(
+                lambda _: [conv(blk[None, None], w_dist)
+                           for blk, _, _ in blocks], blocks[0][0], 20)
+    print(f"B3 plain version {local_plain_ms:.6f} ms/step, conv2d "
+          f"yardstick over the 4 padded blocks {local_library_ms:.6f} ms")
+
+    # the CLI: a 1x1 mesh of the physical card; the grid it computes is
+    # caught on its way to the dumps
+    params_dist = os.path.join(HERE, "examples", "params_dist.in")
+    cli_p = config.SimParams.from_file(params_dist, distributed=True)
+    caught = {}
+    run_distributed = heat2d.run_distributed
+
+    def catch(*a, **kw):
+        caught["out"] = run_distributed(*a, **kw)
+        return caught["out"]
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        os.chdir(out_dir)
+        heat2d.run_distributed = catch
+        try:
+            rc = counted(f"heat2d CLI --distributed pallas {cli_p.nx}x"
+                         f"{cli_p.ny}", only("local", cli_p.iters
+                                             * torch.cuda.device_count()),
+                         lambda: heat2d.main(["heat2d", params_dist,
+                                              "--distributed",
+                                              "--local-kernel=pallas"]))
+            dumps = sorted(os.listdir(out_dir))
+        finally:
+            heat2d.run_distributed = run_distributed
+            os.chdir(cwd)
+    if rc != 0 or dumps != ["grid0_final.txt", "grid_final.txt",
+                            "grid_init.txt"]:
+        fail(f"heat2d --distributed CLI: rc {rc}, dumps {dumps}")
+    cli_ref = ops.run_heat(grid.make_initial_grid(cli_p, device=dev),
+                           cli_p.iters, cli_p.order, cli_p.xcfl, cli_p.ycfl)
+    ulp, err = max_errors(torch.from_numpy(caught["out"]), cli_ref)
+    note_local(ulp, err)
+    print(f"heat2d CLI --distributed --local-kernel=pallas: dumps {dumps}, "
+          f"vs run_heat max ULP {ulp}, max |err| {err:.3g}")
+
+    # ---------------------------------------------------- 11. sharded pwtk
+    timer = core.PhaseTimer()
+    label = f"run_spmv_scan_distributed {SUITE} {DIST_SHARDS} shards"
+    out = counted(label, only(None, 0),
+                  lambda: spmv.run_spmv_scan_distributed(
+                      prob, dist.make_mesh_1d(devices=vdev), timer=timer))
+    dist_scan_ms = timer.last_ms("spmv_scan_distributed") / n_it
+    rel_l2 = relative_l2_error(ref64, out)
+    rel_linf = relative_linf_error(ref64, out)
+    print(f"{label}: {dist_scan_ms:.6f} ms/iter (host clock after a sync), "
+          f"vs f64 plain: rel L2 {rel_l2:.3e}, rel Linf {rel_linf:.3e}")
+    tol_l2, tol_linf = PWTK_TOL["auto"]
+    if not (np.isfinite(out).all() and rel_l2 <= tol_l2
+            and rel_linf <= tol_linf):
+        fail(f"{label}: rel L2 {rel_l2:.3e} / rel Linf {rel_linf:.3e} "
+             f"(limits {tol_l2} / {tol_linf})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "power.limit,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(f"card after the runs: {smi.stdout.strip()}")
+
+    # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single, B2 through its own entry point at k = 1, B6 and B7 through
     # run_spmv_scan at pwtk)
     main_path = {"pipeline": full_path,
                  "pipeline2d": f"run_heat_pipeline2d {FULL_N}x{FULL_N} k=1",
+                 "local": f"run_distributed {DIST_N}x{DIST_N} 2d sync "
+                          f"pallas",
                  "segscan": f"run_spmv_scan {SUITE} pallas",
                  "spmv_fused": f"run_spmv_scan {SUITE} pallas-fused"}
     for name, path in main_path.items():
@@ -506,6 +766,20 @@ def main() -> int:
             "bound_by": k1["bound_by"], "library_ms": library_ms,
             "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
                     f"f32, k=1", "per_k": timings[name]})
+    k1 = local_timing[0]
+    kernels.append({
+        "name": "heat_ksteps (local)", "route": "cuda",
+        "source": SOURCE["local"], "replaces": REPLACES["local"],
+        "launches": paths[main_path["local"]]["local"],
+        "main_path": main_path["local"],
+        "launches_by_path": by_path("local"),
+        "max_abs_err": local_err, "max_ulp": local_ulp,
+        "ms": k1["ms"], "plain_ms": local_plain_ms,
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": local_library_ms,
+        "unit": f"ms per step (4 launches on the 2x2 mesh's padded blocks), "
+                f"{DIST_N}x{DIST_N} order 8 f32, k=1",
+        "per_k": local_timing, "paths": dist_rows})
     scan_rows = {
         "segscan": (b6_ms, b6_plain_ms, b6_bound, b6_by,
                     f"ms per scan, {SUITE} n={n} f32"),

@@ -1,11 +1,14 @@
-"""2-D heat-diffusion workload driver (reference hw2 single-device main).
+"""2-D heat-diffusion workload: the reference's hw2 single-device main and
+hw5 distributed main.
 
-Counterpart of ``cme213_tpu/apps/heat2d.py``, single device only.  The
+Counterpart of ``cme213_tpu/apps/heat2d.py``.  The single-device
 orchestration mirrors ``hw/hw2/programming/2dHeat.cu:674-714``: parse
 params → build grid → save the initial state → (optional) host golden →
 device solve with the plain PyTorch stencil ("global memory" phase) → ULP
 check → device solve with the hand-written kernel ("shared memory" phase)
-→ ULP check → save the finals and report bandwidth/GFLOPs for each.
+→ ULP check → save the finals and report bandwidth/GFLOPs for each.  The
+distributed entry (``run_distributed``, ``--distributed``) is the hw5 main
+(``2dHeat.cpp:817-851``): grid method and sync/async from the params file.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device=cpu``); with no device and no CUDA it raises.
@@ -16,8 +19,12 @@ from __future__ import annotations
 import sys
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from ..config import SimParams
 from ..core import PhaseTimer, bandwidth_gbs, check_op, gflops, resolve_device
+from ..dist import mesh_for_method, run_distributed_heat
+from ..dist.mesh import default_devices
 from ..grid import make_initial_grid, save_grid_to_file
 from ..ops import run_heat
 from ..ops.stencil import flops_per_point
@@ -97,16 +104,57 @@ def run_single(params: SimParams, check_cpu: bool = True,
     return result
 
 
+def run_distributed(params: SimParams, num_devices: int | None = None,
+                    save_files: bool = False, out_dir: str = ".",
+                    local_kernel: str = "xla", devices=None) -> np.ndarray:
+    """hw5 main: mesh from ``params.grid_method`` over ``devices`` (default
+    every CUDA device; ``core.virtual_devices`` puts several shards on one),
+    sync/overlap from ``params.synchronous``; writes init/final dumps and
+    the per-rank finals like the reference.  ``local_kernel="pallas"`` runs
+    the hand-written kernel per shard (B3)."""
+    mesh = mesh_for_method(params.grid_method, num_devices, devices=devices)
+    timer = PhaseTimer(verbose=True)
+    if save_files:
+        save_grid_to_file(make_initial_grid(params, device="cpu"),
+                          f"{out_dir}/grid_init.txt")
+    with timer.phase("distributed computation"):
+        out = run_distributed_heat(params, mesh, local_kernel=local_kernel)
+    if save_files:
+        save_grid_to_file(out, f"{out_dir}/grid_final.txt")
+        # per-rank interior dumps, like the reference's grid{rank}_final.txt
+        # (2dHeat.cpp:549-557), for offline N-vs-1 diffing
+        b = params.border_size
+        interior_grid = out[b:-b, b:-b]
+        y_size = mesh.shape.get("y", 1)
+        x_size = mesh.shape.get("x", 1)
+        ylocal = params.ny // y_size
+        xlocal = params.nx // x_size
+        for yi in range(y_size):
+            for xi in range(x_size):
+                save_grid_to_file(
+                    interior_grid[yi * ylocal:(yi + 1) * ylocal,
+                                  xi * xlocal:(xi + 1) * xlocal],
+                    f"{out_dir}/grid{yi * x_size + xi}_final.txt")
+    return out
+
+
 def main(argv: list[str]) -> int:
     paths = [a for a in argv[1:] if not a.startswith("--")]
     path = paths[0] if paths else "params.in"
-    if "--distributed" in argv:
+    if "--supervised" in argv:
         raise NotImplementedError(
-            "the distributed heat solve is not ported yet (ROADMAP.md, "
-            "queue A: dist on torch.distributed)")
+            "the supervised distributed solve is not ported yet "
+            "(ROADMAP.md, queue A: the multi-process gang)")
+    distributed = "--distributed" in argv
     device = next((a.split("=", 1)[1] for a in argv
                    if a.startswith("--device=")), None)
-    params = SimParams.from_file(path)
+    local_kernel = next((a.split("=", 1)[1] for a in argv
+                         if a.startswith("--local-kernel=")), "xla")
+    params = SimParams.from_file(path, distributed=distributed)
+    if distributed:
+        run_distributed(params, save_files=True, local_kernel=local_kernel,
+                        devices=default_devices(device))
+        return 0
     res = run_single(params, check_cpu=params.nx * params.ny <= 512 * 512,
                      save_files=True, device=device)
     return 0 if res.ok else 1

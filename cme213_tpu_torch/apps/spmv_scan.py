@@ -1,7 +1,7 @@
 """hw_final workload: iterated gather-multiply-segmented-scan "SpMV" engine.
 
-Counterpart of ``cme213_tpu/apps/spmv_scan.py``, single device.  N
-iterations of
+Counterpart of ``cme213_tpu/apps/spmv_scan.py``: one device, or a mesh of
+them (``run_spmv_scan_distributed``).  N iterations of
 
     a ← segmented_inclusive_scan(a · xx)        (xx[l] = x[k[l]], precomputed)
 
@@ -292,6 +292,52 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     return out.cpu().numpy()
 
 
+def run_spmv_scan_distributed(prob: Problem, mesh, dtype=torch.float32,
+                              timer: PhaseTimer | None = None) -> np.ndarray:
+    """Mesh-parallel pipeline: the value sequence is cut over the mesh's
+    first axis and each iteration runs the multi-device segmented scan
+    (``dist/scan.py``) with the ``ring`` carry combine, the rung the JAX
+    package's gate serves when its probe passes.  The per-shard scan keeps
+    the flat/blocked size dispatch.  Pads to a shard multiple with
+    zero-valued, own-segment tail elements (they never touch a real
+    segment).  One untimed iteration runs first; the timed phase is
+    "spmv_scan_distributed"."""
+    from ..dist.scan import make_iterated_sharded_scan
+
+    prob.validate()
+    a, xx, flags, n = _shard_problem(prob, mesh, dtype)
+    iterate = make_iterated_sharded_scan(mesh, carry_mode="ring")
+    timer = timer or PhaseTimer()
+    for s in iterate(a, xx, flags, 1):
+        check_op("spmv_scan.distributed", s)
+    with timer.phase("spmv_scan_distributed") as ph:
+        out = iterate(a, xx, flags, prob.iters)
+        ph.block(*out)
+    return torch.cat([s.cpu() for s in out]).numpy()[:n]
+
+
+def _shard_problem(prob: Problem, mesh, dtype):
+    """Pad and cut the problem state over the mesh's first axis: returns
+    ``(a, xx, flags, n)``, the first three lists of shards on the mesh's
+    devices."""
+    from ..dist.scan import shard_1d
+
+    nshards = mesh.devices.shape[0]
+    n = prob.n
+    padded = -(-n // nshards) * nshards
+    a = np.zeros(padded, dtype=np.float32)
+    a[:n] = prob.a
+    xx = np.zeros(padded, dtype=np.float32)
+    xx[:n] = prob.xx
+    flags = np.zeros(padded, dtype=np.int32)
+    flags[prob.s[:-1]] = 1
+    if padded > n:
+        flags[n] = 1  # quarantine the tail in its own segment
+    return (shard_1d(torch.from_numpy(a).to(dtype), mesh),
+            shard_1d(torch.from_numpy(xx).to(dtype), mesh),
+            shard_1d(torch.from_numpy(flags), mesh), n)
+
+
 # ------------------------------------------------------------------ checking
 
 def external_check(prob: Problem, result: np.ndarray) -> dict:
@@ -358,7 +404,7 @@ def main(argv: list[str]) -> int:
 
         spmv_scan a.txt x.txt [cpu_check]
                   [--kernel=auto|flat|blocked|pallas|pallas-fused|dense]
-                  [--device=cuda|cpu]
+                  [--device=cuda|cpu] [--distributed]
         spmv_scan gen a.txt x.txt [n p q [iters]] [--seed=S]
         spmv_scan mtx matrix.mtx|dense2 [cpu_check] [--kernel=...]
                   [--seed=S] [--device=...]
@@ -367,12 +413,16 @@ def main(argv: list[str]) -> int:
     the spec-mandated timing line), writes ``b.txt`` (one value per line)
     into the working directory, and with ``cpu_check`` also writes
     ``b_cpu.txt`` and checks the result against the f64 golden (rel L2 ≤
-    1e-4 and rel L∞ ≤ 1e-3, exit 1 otherwise).
+    1e-4 and rel L∞ ≤ 1e-3, exit 1 otherwise).  ``--distributed`` runs
+    ``run_spmv_scan_distributed`` with one shard on each physical device
+    (every CUDA device, or the CPU with ``--device=cpu``) in place of
+    ``--kernel``.
     """
     args = [a for a in argv[1:] if not a.startswith("--")]
     kernel = "auto"
     seed = 0
     device = None
+    distributed = False
     for a in argv[1:]:
         if a.startswith("--kernel="):
             kernel = a.split("=", 1)[1]
@@ -381,9 +431,7 @@ def main(argv: list[str]) -> int:
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
         elif a == "--distributed":
-            raise NotImplementedError(
-                "the distributed SpMV-scan is not ported yet (ROADMAP.md, "
-                "queue A: dist on torch.distributed)")
+            distributed = True
         elif a == "--canonical":
             raise NotImplementedError(
                 "--canonical needs the program cache and the bucket gate, "
@@ -442,7 +490,18 @@ def main(argv: list[str]) -> int:
         except (OSError, ValueError, IndexError) as e:
             print(f"error: cannot load problem: {e}")
             return 2
-    out = run_spmv_scan(prob, kernel=kernel, device=device)
+    if distributed:
+        from ..dist.mesh import default_devices, make_mesh_1d
+
+        devices = default_devices(device)
+        timer = PhaseTimer()
+        out = run_spmv_scan_distributed(prob, make_mesh_1d(devices=devices),
+                                        timer=timer)
+        ms = timer.last_ms("spmv_scan_distributed")
+        print(f"The running time of my code for {prob.iters} iterations "
+              f"is: {ms} milliseconds. ({len(devices)} devices)")
+    else:
+        out = run_spmv_scan(prob, kernel=kernel, device=device)
 
     _write_floats("b.txt", out)
     rc = 0

@@ -31,6 +31,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def virtual_devices(n: int, device=None) -> list[torch.device]:
+    """``n`` entries naming one device (default ``cuda``, resolved by
+    :func:`resolve_device`): a mesh over them puts ``n`` shards on one
+    device.  Counterpart of ``cme213_tpu/core/platform.force_cpu_devices``,
+    which splits the host into virtual devices; here the shards of a
+    single-process mesh simply share the device."""
+    return [resolve_device(device)] * n
+
+
 def card_identity() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them
     (``name, power.limit`` per line)."""

@@ -9,8 +9,12 @@
 //   accx = sum_kk c_kk * u[y][x+kk-b],  accy = sum_kk c_kk * u[y+kk-b][x]
 //   u'   = (u + xcfl*accx) + ycfl*accy
 // each followed by the Dirichlet bands on global coordinates (rows first,
-// then columns over the corners).  One kernel serves both: the two host
-// entry points differ only in the tile width.
+// then columns over the corners).  One kernel serves all three: the two
+// single-grid entry points differ only in the tile width, and the
+// distributed solve (ops/stencil_pipeline.py:stencil_local_multistep)
+// launches it on one shard's K-padded block, with (gy0, gx0) the shard's
+// global offsets and (ny, nx) the global interior, so a shard's bands fall
+// where the whole grid's would and interior shards mask nothing.
 //
 // What bounds it.  One order-8 f32 step of a 4000^2 grid moves 128 MB
 // (one read and one write of every point), more than the 50 MB L2, so at

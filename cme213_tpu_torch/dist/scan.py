@@ -1,0 +1,146 @@
+"""Multi-device segmented scan — long-sequence parallelism.
+
+Counterpart of ``cme213_tpu/dist/scan.py``: the reference's block-scan
+decomposition (``hw/hw4/programming/radixsort.cpp:44-108``) at mesh scale.
+A sequence cut into one shard per device of a mesh axis is scanned per
+shard (the plain ``ops.segmented.segmented_scan``, as the JAX package
+leaves it to XLA), the shard carries are combined with the segmented-scan
+operator across shards, and each shard adds its incoming carry to the
+elements before its first segment head.  One process holds the shards as a
+list of tensors in mesh order, each on its device.
+
+Two carry-combine backends, with the JAX package's association:
+
+- ``ring`` (default): the segmented Hillis–Steele sweep over the shard
+  axis, log2(P) rounds of distance-d shifts (``lax.ppermute`` there, a
+  copy to the receiving shard's device here);
+- ``gather``: every carry to one device and an unrolled exclusive prefix
+  (``lax.all_gather`` there), fine for small P.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.segmented import segmented_scan
+from .mesh import Mesh
+
+
+def _axis_devices(mesh: Mesh, axis_name: str | None) -> list[torch.device]:
+    """The devices along ``axis_name`` (default the first axis), the other
+    axes at index 0: the shards of a sequence cut over that axis."""
+    axis = mesh.axis_names.index(axis_name or mesh.axis_names[0])
+    index = [0] * mesh.devices.ndim
+    index[axis] = slice(None)
+    return list(mesh.devices[tuple(index)])
+
+
+def _carry_gather(carry_v: list[torch.Tensor], carry_f: list[torch.Tensor]
+                  ) -> list[torch.Tensor]:
+    """Exclusive segmented prefix of the shard carries: all of them on the
+    first shard's device, an unrolled combine, each prefix sent back."""
+    dev = carry_v[0].device
+    vs = [v.to(dev) for v in carry_v]
+    fs = [f.to(dev) for f in carry_f]
+    prefixes_v = [torch.zeros_like(vs[0])]
+    for j in range(len(vs) - 1):
+        pv = prefixes_v[-1]
+        prefixes_v.append(vs[j] + torch.where(fs[j] > 0,
+                                              torch.zeros_like(pv), pv))
+    return [p.to(v.device) for p, v in zip(prefixes_v, carry_v)]
+
+
+def _carry_ring(carry_v: list[torch.Tensor], carry_f: list[torch.Tensor]
+                ) -> list[torch.Tensor]:
+    """Exclusive segmented prefix of the shard carries by log2(P)
+    distance-d shifts.  A shard with no source at distance d adds 0 and
+    keeps its flag, as ``ppermute``'s zero fill does in the JAX package."""
+    inc_v, inc_f = list(carry_v), list(carry_f)  # inclusive through shard i
+    n = len(inc_v)
+    d = 1
+    while d < n:
+        new_v, new_f = [], []
+        for i in range(n):
+            v, f = inc_v[i], inc_f[i]
+            if i >= d:
+                pv = inc_v[i - d].to(v.device)
+                pf = inc_f[i - d].to(v.device)
+                new_v.append(v + torch.where(f == 0, pv,
+                                             torch.zeros_like(pv)))
+                new_f.append(f | pf)
+            else:
+                new_v.append(v + torch.zeros_like(v))
+                new_f.append(f)
+        inc_v, inc_f = new_v, new_f
+        d *= 2
+    # exclusive = inclusive of the previous shard, shifted one along
+    return [torch.zeros_like(inc_v[0])] + [
+        inc_v[i - 1].to(inc_v[i].device) for i in range(1, n)]
+
+
+def _local_with_carry(values: list[torch.Tensor], flags: list[torch.Tensor],
+                      carry_mode: str = "ring") -> list[torch.Tensor]:
+    local = [segmented_scan(v, f) for v, f in zip(values, flags)]
+    # shard carry: (last partial sum, does the shard hold a head?)
+    carry_v = [s[-1] for s in local]
+    carry_f = [f.max().to(torch.int32) for f in flags]
+    combine = _carry_ring if carry_mode == "ring" else _carry_gather
+    incoming = combine(carry_v, carry_f)
+    # the incoming open segment covers the positions before the first head
+    # (JAX's cummax(flags) == 0; a cumsum of the 0/1 flags says the same,
+    # and torch's cummax of one long row runs in a single CUDA block)
+    out = []
+    for s, f, c in zip(local, flags, incoming):
+        no_head_yet = torch.cumsum(f, dim=0) == 0
+        out.append(s + torch.where(no_head_yet, c, torch.zeros_like(c)))
+    return out
+
+
+def shard_1d(x: torch.Tensor, mesh: Mesh,
+             axis_name: str | None = None) -> list[torch.Tensor]:
+    """Cut ``x`` into equal shards along dim 0, one copied to each device
+    of the mesh axis.  Raises ``ValueError`` when the length does not
+    divide."""
+    devices = _axis_devices(mesh, axis_name)
+    if x.shape[0] % len(devices):
+        raise ValueError("sequence length must divide over the mesh axis")
+    return [c.to(d, copy=True)
+            for c, d in zip(torch.chunk(x, len(devices)), devices)]
+
+
+def make_iterated_sharded_scan(mesh: Mesh, axis_name: str | None = None,
+                               carry_mode: str = "ring"):
+    """The iterated form of the sharded scan — the ``a ← segmented_scan(a
+    · xx)`` loop of ``apps/spmv_scan`` over shards.
+
+    Returns ``iterate(a, xx, flags, iters)``; each argument is a list of
+    shards (``shard_1d``) over ``axis_name``, and so is the result.  The
+    shards of ``a`` are not modified.
+    """
+    if carry_mode not in ("ring", "gather"):
+        raise ValueError(f"unknown carry_mode {carry_mode!r}")
+
+    def iterate(a, xx, flags, iters: int):
+        for _ in range(iters):
+            a = _local_with_carry([v * w for v, w in zip(a, xx)], flags,
+                                  carry_mode)
+        return a
+
+    return iterate
+
+
+def distributed_segmented_scan(values: torch.Tensor, head_flags: torch.Tensor,
+                               mesh: Mesh, axis_name: str | None = None,
+                               carry_mode: str = "ring") -> torch.Tensor:
+    """Segmented inclusive scan of a sequence sharded over one mesh axis.
+
+    ``len(values)`` must divide evenly over the axis.  Returns the whole
+    scanned sequence on the first shard's device.  ``carry_mode``:
+    ``"ring"`` (log-P shift sweep) or ``"gather"`` (one device combines).
+    """
+    v = shard_1d(values, mesh, axis_name)
+    f = shard_1d(head_flags.to(torch.int32), mesh, axis_name)
+    if carry_mode not in ("ring", "gather"):
+        raise ValueError(f"unknown carry_mode {carry_mode!r}")
+    out = _local_with_carry(v, f, carry_mode)
+    return torch.cat([s.to(out[0].device) for s in out])

@@ -33,12 +33,15 @@ def _spmv_scan(argv: list[str]) -> int:
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
-        Workload("heat2d", "hw2", "2-D heat diffusion: plain PyTorch "
+        Workload("heat2d", "hw2/hw5", "2-D heat diffusion: plain PyTorch "
                  "stencil + the hand-written CUDA kernel, golden ULP-10 "
-                 "check (--device=cpu runs the plain versions)", _heat2d),
+                 "check; --distributed runs the hw5 domain decomposition "
+                 "over every card (--local-kernel=xla|pallas; "
+                 "--device=cpu runs the plain versions)", _heat2d),
         Workload("spmv_scan", "hw_final", "iterated multiply + segmented "
                  "scan: plain torch scans + the hand-written CUDA kernel "
-                 "(--kernel=pallas|pallas-fused), f64 golden check",
+                 "(--kernel=pallas|pallas-fused), f64 golden check; "
+                 "--distributed shards the sequence over every card",
                  _spmv_scan),
     )
 }

@@ -7,7 +7,8 @@ test harness in ``tests/conftest.py``:
 
 This file imports nothing of JAX.  Each kernel is held bitwise against its
 plain version on the same CUDA tensors (both round every operation alike,
-in the same order).
+in the same order), and the distributed solve on a mesh of virtual devices
+against ``run_heat``.
 """
 
 import numpy as np
@@ -17,11 +18,16 @@ import torch
 from cme213_tpu_torch.apps import heat2d
 from cme213_tpu_torch.apps import spmv_scan as spmv
 from cme213_tpu_torch.config import SimParams
-from cme213_tpu_torch.core import FrameworkError, ulp_distance
+from cme213_tpu_torch.core import (FrameworkError, ulp_distance,
+                                   virtual_devices)
+from cme213_tpu_torch.dist import (make_mesh_1d, make_mesh_2d,
+                                   run_distributed_heat)
 from cme213_tpu_torch.grid import make_initial_grid
 from cme213_tpu_torch.ops import (LAUNCHES, run_heat, run_heat_pipeline,
                                   run_heat_pipeline2d,
-                                  run_heat_pipeline_plain)
+                                  run_heat_pipeline_plain,
+                                  stencil_local_multistep,
+                                  stencil_local_multistep_plain)
 from cme213_tpu_torch.ops import _kernels
 from cme213_tpu_torch.ops import segmented_pallas as segp
 
@@ -160,3 +166,78 @@ def test_run_spmv_scan_on_card(cuda, kernel):
     assert segp.LAUNCHES[other] == before[other]
     errs = spmv.external_check(prob, out)
     assert errs["rel_l2"] <= 1e-5 and errs["rel_linf"] <= 1e-3
+
+
+# ------------------------------------------------ shard kernel (B3)
+
+
+def _shard_block(p, K, yi, xi, h, w, dtype, device, seed=0):
+    """Shard (yi, xi) of an (h, w)-shard decomposition of ``p``'s seeded
+    interior, ghost-padded to whole shards (top/right BCs), with K halo
+    padded y first, then x, with the BC fills, as ``dist/heat`` assembles
+    it; and its global offsets (gy0, gx0)."""
+    b = p.border_size
+    rng = np.random.default_rng(seed)
+    ny_pad, nx_pad = -(-p.ny // h) * h, -(-p.nx // w) * w
+    g = np.full((ny_pad, nx_pad), p.bc_top)
+    g[:, p.nx:] = p.bc_right
+    g[:p.ny, :p.nx] = p.ic + rng.uniform(0, 1, (p.ny, p.nx))
+    g = np.pad(g, ((K, 0), (0, 0)), constant_values=p.bc_bottom)
+    g = np.pad(g, ((0, K), (0, 0)), constant_values=p.bc_top)
+    g = np.pad(g, ((0, 0), (K, 0)), constant_values=p.bc_left)
+    g = np.pad(g, ((0, 0), (0, K)), constant_values=p.bc_right)
+    blk = g[yi * h:(yi + 1) * h + 2 * K, xi * w:(xi + 1) * w + 2 * K]
+    t = torch.from_numpy(np.ascontiguousarray(blk)).to(device, dtype)
+    return t, yi * h + b - K, xi * w + b - K
+
+
+@pytest.mark.parametrize("where", [(0, 0), (0, 1), (1, 1), (2, 2)],
+                         ids=["corner", "edge", "interior", "ghost"])
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_local_kernel_bitwise_vs_plain(cuda, where, order, k, dtype):
+    # a 3x3 decomposition of 299x401: 100x134 shards, the last row and
+    # column of shards ghost-padded
+    p = SimParams(nx=401, ny=299, order=order, bc_top=1.5, bc_left=0.5,
+                  bc_bottom=2.0, bc_right=0.25)
+    K = k * p.border_size
+    blk, gy0, gx0 = _shard_block(p, K, *where, 100, 134, dtype, cuda,
+                                 seed=order * k)
+    args = (gy0, gx0, p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+    before = LAUNCHES["local"]
+    out = stencil_local_multistep(blk, *args, k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["local"] - before == 1
+    ref = stencil_local_multistep_plain(blk, *args, k=k)
+    torch.testing.assert_close(out[K:-K, K:-K], ref[K:-K, K:-K], rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("kernel,k,overlap", [
+    ("pallas", 1, False), ("pallas", 2, False), ("pallas", 4, False),
+    ("xla", 1, False), ("xla", 1, True), ("xla", 2, False)])
+def test_distributed_2x2_virtual_mesh_equals_run_heat(cuda, kernel, k,
+                                                      overlap):
+    p = SimParams(nx=300, ny=200, order=8, iters=16, bc_top=1.5,
+                  bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+    mesh = make_mesh_2d(2, 2, devices=virtual_devices(4))
+    before = LAUNCHES["local"]
+    out = run_distributed_heat(p, mesh, overlap=overlap,
+                               steps_per_exchange=k, local_kernel=kernel)
+    launched = LAUNCHES["local"] - before
+    assert launched == (4 * p.iters // k if kernel == "pallas" else 0)
+    ref = run_heat(make_initial_grid(p, device=cuda), p.iters, p.order,
+                   p.xcfl, p.ycfl).cpu().numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_distributed_pallas_failed_build_raises(cuda, monkeypatch,
+                                                tmp_path):
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_kernels, "_libs", {})
+    p = SimParams(nx=64, ny=64, order=4, iters=2)
+    mesh = make_mesh_1d(2, devices=virtual_devices(2))
+    with pytest.raises(FrameworkError, match="nvcc failed"):
+        run_distributed_heat(p, mesh, local_kernel="pallas")

@@ -274,7 +274,7 @@ def test_run_single_cpu_matches_jax_dumps(tmp_path):
     np.testing.assert_array_equal(
         _dump_values(ours_dir / "grid_init.txt"),
         _dump_values(ref_dir / "grid_init.txt"))
-    assert LAUNCHES == {"pipeline": 0, "pipeline2d": 0}
+    assert LAUNCHES == {"pipeline": 0, "pipeline2d": 0, "local": 0}
 
 
 def test_cli_runs_on_cpu_when_asked(tmp_path, monkeypatch, capsys):
@@ -303,10 +303,11 @@ def test_cli_module_entry(tmp_path):
     assert "pipeline:" in proc.stdout
 
 
-def test_cli_distributed_not_ported(tmp_path):
+def test_cli_supervised_not_ported(tmp_path):
     path = _write_params(tmp_path / "p.in", nx=16, ny=12, iters=4, order=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        heat2d.main(["heat2d", path, "--distributed", "--device=cpu"])
+        heat2d.main(["heat2d", path, "--distributed", "--supervised",
+                     "--device=cpu"])
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
@@ -321,7 +322,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         convert.grid_from_reference(np.zeros((3, 3), np.float32), None)
     assert resolve_device("cpu") == torch.device("cpu")
-    assert LAUNCHES == {"pipeline": 0, "pipeline2d": 0}
+    assert LAUNCHES == {"pipeline": 0, "pipeline2d": 0, "local": 0}
 
 
 def test_golden_failure_makes_run_not_ok(monkeypatch, capsys):

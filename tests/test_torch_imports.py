@@ -46,7 +46,7 @@ def test_first_component_rule(tmp_path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, cme213_tpu_torch.apps.heat2d, cme213_tpu_torch.convert,"
             " cme213_tpu_torch.apps.spmv_scan, cme213_tpu_torch.apps.matrix_market,"
-            " cme213_tpu_torch.models;"
+            " cme213_tpu_torch.models, cme213_tpu_torch.dist;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

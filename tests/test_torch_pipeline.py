@@ -28,7 +28,9 @@ from cme213_tpu_torch.core import FrameworkError
 from cme213_tpu_torch.grid import make_initial_grid
 from cme213_tpu_torch.ops import (LAUNCHES, pick_pipeline_tile,
                                   run_heat_pipeline, run_heat_pipeline2d,
-                                  run_heat_pipeline_plain)
+                                  run_heat_pipeline_plain,
+                                  stencil_local_multistep,
+                                  stencil_local_multistep_plain)
 from cme213_tpu_torch.ops import _kernels
 from cme213_tpu_torch.ops import stencil_pipeline as sp
 from cme213_tpu_torch.ops.stencil import BORDER_FOR_ORDER, STENCIL_COEFFS
@@ -108,7 +110,7 @@ def test_pipeline_leaves_input_and_checks_k():
         run_heat_pipeline2d(u, 3, 4, p.xcfl, p.ycfl, p.bc, k=2)
     with pytest.raises(TypeError):
         run_heat_pipeline(u.half(), 4, 4, p.xcfl, p.ycfl, p.bc)
-    assert LAUNCHES == {"pipeline": 0, "pipeline2d": 0}
+    assert LAUNCHES == {"pipeline": 0, "pipeline2d": 0, "local": 0}
 
 
 # ------------------------------------------------ tiles and shared memory
@@ -176,13 +178,19 @@ def test_library_path_keys_on_source_and_flags(monkeypatch):
 
 
 def _kernel_model(u: np.ndarray, iters: int, order: int, xcfl, ycfl, bc,
-                  k: int, tile_y: int, tile_x: int) -> np.ndarray:
-    """numpy model of one ``csrc/heat_stencil.cu`` launch per k steps."""
+                  k: int, tile_y: int, tile_x: int, gy0: int = 0,
+                  gx0: int = 0, ny: int | None = None,
+                  nx: int | None = None) -> np.ndarray:
+    """numpy model of one ``csrc/heat_stencil.cu`` launch per k steps.
+    ``(gy0, gx0)``: global halo-grid coordinates of ``u[0, 0]``; ``(ny,
+    nx)``: the global interior extents (default: ``u`` is the whole
+    grid)."""
     f = u.dtype.type
     b = BORDER_FOR_ORDER[order]
     K = k * b
     H, W = u.shape
-    ny, nx = H - 2 * b, W - 2 * b
+    ny = H - 2 * b if ny is None else ny
+    nx = W - 2 * b if nx is None else nx
     coeffs = [f(c) for c in STENCIL_COEFFS[order]]
     top, left, bottom, right = (f(v) for v in bc)
     xcfl, ycfl = f(xcfl), f(ycfl)
@@ -207,8 +215,8 @@ def _kernel_model(u: np.ndarray, iters: int, order: int, xcfl, ycfl, bc,
                         accx = accx + c * win[ys, lo + kk - b:WX - lo + kk - b]
                         accy = accy + c * win[lo + kk - b:WY - lo + kk - b, xs]
                     new = win[ys, xs] + xcfl * accx + ycfl * accy
-                    gr = rows[ys, None]
-                    gc = cols[None, xs]
+                    gr = gy0 + rows[ys, None]
+                    gc = gx0 + cols[None, xs]
                     new = np.where(gr < b, bottom, new)
                     new = np.where(gr >= b + ny, top, new)
                     new = np.where(gc < b, left, new)
@@ -232,3 +240,78 @@ def test_kernel_decomposition_bitwise_vs_plain(order, k, tile_y, tile_x):
     plain = run_heat_pipeline_plain(torch.from_numpy(u0), iters, order,
                                     p.xcfl, p.ycfl, p.bc, k=k)
     np.testing.assert_array_equal(model, plain.numpy())
+
+
+# ------------------------------------------------ the shard kernel (B3)
+
+
+def _padded_window(g: np.ndarray, p, K: int, y0: int, x0: int, h: int,
+                   w: int) -> np.ndarray:
+    """Rows [y0, y0 + h) and columns [x0, x0 + w) of the interior ``g``
+    with K halo on every side, padded y first, then x, with the BC fills
+    (what ``dist/heat._assemble_padded`` gives a shard)."""
+    g = np.pad(g, ((K, 0), (0, 0)), constant_values=p.bc_bottom)
+    g = np.pad(g, ((0, K), (0, 0)), constant_values=p.bc_top)
+    g = np.pad(g, ((0, 0), (K, 0)), constant_values=p.bc_left)
+    g = np.pad(g, ((0, 0), (0, K)), constant_values=p.bc_right)
+    return g[y0:y0 + h + 2 * K, x0:x0 + w + 2 * K]
+
+
+def _ghost_padded(u: np.ndarray, p, ny_pad: int, nx_pad: int) -> np.ndarray:
+    """The interior of halo grid ``u`` ghost-padded to (ny_pad, nx_pad)
+    with the top/right BC values (``dist/heat._pad_interior_for_mesh``)."""
+    b = p.border_size
+    g = np.full((ny_pad, nx_pad), p.bc_top, u.dtype)
+    g[:, p.nx:] = p.bc_right
+    g[:p.ny, :p.nx] = u[b:-b, b:-b]
+    return g
+
+
+#: (yi, xi) of a shard of a 3x3 mesh over a 62x74 interior (21x25 shards;
+#: the last row and column of shards hold one ghost row / column)
+SHARDS = {"corner": (0, 0), "edge": (0, 1), "interior": (1, 1),
+          "ghost": (2, 2)}
+
+
+@pytest.mark.parametrize("where", list(SHARDS))
+@pytest.mark.parametrize("order,k,tile_y,tile_x",
+                         [(2, 1, 8, 16), (4, 2, 5, 7), (8, 2, 16, 8),
+                          (8, 4, 8, 32), (2, 4, 3, 11)])
+def test_shard_plain_bitwise_vs_kernel_model_and_run_heat(where, order, k,
+                                                          tile_y, tile_x):
+    p, u0 = _probe(order, ny=62, nx=74, seed=3 * order + k)
+    b = p.border_size
+    K = k * b
+    yi, xi = SHARDS[where]
+    h, w = 21, 25
+    g = _ghost_padded(u0, p, 3 * h, 3 * w)
+    blk = _padded_window(g, p, K, yi * h, xi * w, h, w)
+    gy0, gx0 = yi * h + b - K, xi * w + b - K
+    args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+    plain = stencil_local_multistep_plain(torch.from_numpy(blk), gy0, gx0,
+                                          *args, k=k).numpy()
+    model = _kernel_model(blk, k, order, p.xcfl, p.ycfl, p.bc, k, tile_y,
+                          tile_x, gy0=gy0, gx0=gx0, ny=p.ny, nx=p.nx)
+    valid = (slice(K, K + h), slice(K, K + w))
+    np.testing.assert_array_equal(model[valid], plain[valid])
+    # the whole grid k steps on, cut to the shard: the same cells
+    whole = host_heat(u0, k, order, p.xcfl, p.ycfl)
+    np.testing.assert_array_equal(
+        plain[valid], _ghost_padded(whole, p, 3 * h, 3 * w)[
+            yi * h:(yi + 1) * h, xi * w:(xi + 1) * w])
+    # on the CPU the wrapper is the plain version and launches nothing
+    out = stencil_local_multistep(torch.from_numpy(blk), gy0, gx0, *args,
+                                  k=k)
+    np.testing.assert_array_equal(out.numpy(), plain)
+    assert LAUNCHES["local"] == 0
+
+
+def test_shard_wrapper_refuses_bad_arguments():
+    p = torch.zeros(16, 16)
+    args = (0, 0, 14, 14, 2, 0.1, 0.1, BC)
+    with pytest.raises(TypeError):
+        stencil_local_multistep(p.half(), *args)
+    with pytest.raises(TypeError):
+        stencil_local_multistep(p[0], *args)
+    with pytest.raises(ValueError, match="no kernel"):
+        stencil_local_multistep(p.to("meta"), *args)

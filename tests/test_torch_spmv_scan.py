@@ -256,9 +256,8 @@ def test_cli_mtx_and_errors(tmp_path, monkeypatch, capsys):
     assert spmv.main(["spmv_scan", "mtx", "missing.mtx",
                       "--device=cpu"]) == 2
     assert spmv.main(["spmv_scan", "gen", "a.txt"]) == 2
-    for flag in ("--distributed", "--canonical"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            spmv.main(["spmv_scan", "a.txt", "x.txt", flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spmv.main(["spmv_scan", "a.txt", "x.txt", "--canonical"])
 
 
 def test_cli_module_entry(tmp_path):
