@@ -85,34 +85,64 @@ fails:
    at ``auto``'s bound (rel L2 ≤ 1e-4, rel L∞ ≤ 1e-3: the per-shard scan
    is the blocked one), ms per iteration.
 
-The main paths are what phases 2, 4, 5, 6, 8, 10 and 11 drive through the
-entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
+12. B4 and B5, the band-staged stencil (``ops.stencil_pallas``), against
+   their plain versions on the same CUDA tensors: ``run_heat_pallas`` (B4,
+   k = 1) and ``run_heat_multistep`` (B5) × order ∈ {2,4,8} × k ∈
+   {1,2,3,4,8} at the sweeps' tiles (40, 80, 200, 400 at 2000²; a cell
+   whose window fits no block is listed and skipped), the main path's
+   4000² tile 200 at k ∈ {1,2,4,8}, an awkward shape (255×121, tile 85),
+   f64, and B4 (and ``stencil_interior_pallas``) on a halo that does not
+   hold the boundary values.  Fails above 10 ULP; 0 is expected.  Prints
+   each sweep cell's decomposition (strip width, buffers, blocks).
+13. B8, the tiled transpose (``ops.transpose.transpose_pallas``), against
+   ``x.t().contiguous()``: 4096² f32 with tile 256, a non-square shape and
+   1-, 2-, 4- and 8-byte dtypes; bit for bit.
+14. The sweep harness at full size, the slice's main path:
+   ``bench.run_all.main(["--out", tmp, "--only",
+   "heat_kernels,pallas_tile,scan_bandwidth"])`` (4000² order 8 × 64
+   iterations of every heat kernel; 2000² order 8 × 100 iterations at
+   tiles 40, 80, 200, 400; 2^26-float scans and the 4096² transpose).
+   Every CSV row must have an empty ``error``.  Then one full-size
+   ``run_heat_pallas`` and one ``run_heat_multistep`` per k, held to
+   ``ops.run_heat`` within ULP-10; B4 and B5 per step and B8 per call
+   (CUDA events) beside their bounds, plain versions and library calls
+   (``conv2d``, phase 4's; ``x.t().contiguous()``); and the other ported
+   sweeps at ``--quick`` as a coverage run (exit 0, no error row).
+
+The main paths are what phases 2, 4, 5, 6, 8, 10, 11 and 14 drive through
+the entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
 B1), one solve of each of ``run_heat_pipeline`` and ``run_heat_pipeline2d``
 (B2) at each k, the SpMV-scan runs (B6 through ``pallas``, B7 through
-``pallas-fused``), the distributed heat solves (B3 through ``pallas``) and
-the sharded SpMV-scan.  Every launch count
-(``ops.stencil_pipeline.LAUNCHES`` and ``ops.segmented_pallas.LAUNCHES``)
-is set to 0 just before each of these paths and read just after; each
-path must launch exactly its own kernel and no other, ``iters + 1`` times
-for ``run_single`` and ``run_spmv_scan`` (one untimed step or iteration,
-then the solve), ``iters / k`` times for a heat solve and ``shards × iters
-/ k`` for a distributed solve with ``pallas``; ``auto``, ``flat``, the
-``xla`` distributed solves and the sharded SpMV-scan launch none.  The
-launches of phases 3, 7 and 9's comparisons and of the timed repeats are
-not read.
+``pallas-fused``), the distributed heat solves (B3 through ``pallas``),
+the sharded SpMV-scan, the full-size sweeps (B4, B5, B8, and B1, B2 through
+their rows) and the full-size solves of phase 14.  Every launch count
+(``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
+``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
+just before each of these paths and read just after; each path must launch
+exactly its own kernels, ``iters + 1`` times for ``run_single`` and
+``run_spmv_scan`` (one untimed step or iteration, then the solve), ``iters
+/ k`` times for a heat solve, ``shards × iters / k`` for a distributed solve
+with ``pallas``, and for the sweeps what their loops imply (each heat row
+runs its solve twice, warm-up and timed; the transpose row calls its kernel
+``1 + sweeps.TIME_ITERS`` times); ``auto``, ``flat``, the ``xla``
+distributed solves and the sharded SpMV-scan launch none.  The launches of
+phases 3, 7, 9, 12 and 13's comparisons and of the timed repeats are not
+read.
 
 The lines before the last: the card's identity, then one JSON object
 ``{"kernels": [...]}`` with each kernel's launches on its full-size main
 path (``launches``) and on every path (``launches_by_path``), its error,
-times and bound (B1, B2: ms per step at 4000² order 8 f32, k = 1; B3: ms
-per step of the 2-D pallas path at 2000², its four launches; the scan:
-ms per iteration or per scan at pwtk).  The last line:
+times and bound (B1, B2, B4, B5: ms per step at 4000² order 8 f32, k = 1
+and for B5 k = 2, with every k in ``per_k``; B3: ms per step of the 2-D
+pallas path at 2000², its four launches; the scan: ms per iteration or per
+scan at pwtk; B8: ms per 4096² f32 transpose).  The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
 import io
 import json
 import os
@@ -126,12 +156,18 @@ SOURCE = {"pipeline": "cme213_tpu_torch/csrc/heat_stencil.cu",
           "pipeline2d": "cme213_tpu_torch/csrc/heat_stencil.cu",
           "local": "cme213_tpu_torch/csrc/heat_stencil.cu",
           "segscan": "cme213_tpu_torch/csrc/segmented_scan.cu",
-          "spmv_fused": "cme213_tpu_torch/csrc/segmented_scan.cu"}
+          "spmv_fused": "cme213_tpu_torch/csrc/segmented_scan.cu",
+          "stencil_full": "cme213_tpu_torch/csrc/heat_band.cu",
+          "multistep": "cme213_tpu_torch/csrc/heat_band.cu",
+          "transpose": "cme213_tpu_torch/csrc/transpose.cu"}
 REPLACES = {"pipeline": "cme213_tpu/ops/stencil_pipeline.py:169",
             "pipeline2d": "cme213_tpu/ops/stencil_pipeline.py:558",
             "local": "cme213_tpu/ops/stencil_pipeline.py:656",
             "segscan": "cme213_tpu/ops/segmented_pallas.py:140",
-            "spmv_fused": "cme213_tpu/ops/segmented_pallas.py:182"}
+            "spmv_fused": "cme213_tpu/ops/segmented_pallas.py:182",
+            "stencil_full": "cme213_tpu/ops/stencil_pallas.py:115",
+            "multistep": "cme213_tpu/ops/stencil_pallas.py:241",
+            "transpose": "cme213_tpu/ops/transpose.py:34"}
 MAX_ULPS = 10
 FULL_N, FULL_ORDER, FULL_ITERS = 4000, 8, 1000
 #: hw5's largest size (BASELINE.md, hw5 table), on four shards of the card
@@ -140,6 +176,12 @@ DIST_N, DIST_ITERS, DIST_SHARDS = 2000, 1000, 4
 SCAN_KERNELS = {"pallas-fused": "spmv_fused", "pallas": "segscan"}
 SUITE = "pwtk"
 NO_LIBRARY = "no single PyTorch call computes a segmented scan"
+#: the sweeps the slice's main path runs at full size (phase 14), and the
+#: others, run at --quick as a coverage run
+SWEEP_PATH = ("heat_kernels", "pallas_tile", "scan_bandwidth")
+#: the band kernel's main-path tile at 4000² (heat_kernel_sweep's
+#: pick_tile(4000, 200)) and the transpose's side and tile (scan_sweep)
+BAND_TILE, SIDE, SIDE_TILE = 200, 4096, 256
 #: (rel L2, rel L∞) of each pwtk result from the f64 plain run.  ``auto`` is
 #: the blocked scan, whose local sums are cumsums over 4096-element blocks
 #: minus the cumsum before the segment's head; that cancellation costs
@@ -173,8 +215,11 @@ def main() -> int:
         from cme213_tpu_torch.core import roofline
         from cme213_tpu_torch.dist import heat as dheat
         from cme213_tpu_torch.ops import _kernels
+        from cme213_tpu_torch.bench import run_all, sweeps
         from cme213_tpu_torch.ops import segmented_pallas as segp
+        from cme213_tpu_torch.ops import stencil_pallas as spl
         from cme213_tpu_torch.ops import stencil_pipeline as sp
+        from cme213_tpu_torch.ops import transpose as tp
         from cme213_tpu_torch.verify.checkers import (relative_l2_error,
                                                       relative_linf_error)
     except ImportError as e:
@@ -226,7 +271,7 @@ def main() -> int:
     # ---------------------------------------------------- 2. the example
     paths: dict[str, dict[str, int]] = {}
 
-    counters = (sp.LAUNCHES, segp.LAUNCHES)
+    counters = (sp.LAUNCHES, segp.LAUNCHES, spl.LAUNCHES, tp.LAUNCHES)
 
     def counted(label, expect, run):
         """Drive one path with every count set to 0 just before it; fail
@@ -734,6 +779,196 @@ def main() -> int:
         capture_output=True, text=True, timeout=60)
     print(f"card after the runs: {smi.stdout.strip()}")
 
+    # ---------------------------------------------------- 12. B4/B5 vs plain
+    band_ulp = {"stencil_full": 0, "multistep": 0}
+    band_err = {"stencil_full": 0.0, "multistep": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def band_note(name, got, ref, label):
+        ulp, err = max_errors(got, ref)
+        band_ulp[name] = max(band_ulp[name], ulp)
+        band_err[name] = max(band_err[name], err)
+        print(f"  vs plain: {label}: max ULP {ulp}, max |err| {err:.3g}")
+
+    def band_case(n_y, n_x, order, k, tile, dtype, seed):
+        p = config.SimParams(nx=n_x, ny=n_y, order=order, bc_top=1.5,
+                             bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+        try:
+            geo = spl.band_geometry(p.ny, p.nx, tile, k, order,
+                                    torch.finfo(dtype).bits // 8, sms)
+        except ValueError as e:
+            print(f"  skipped: {n_y}x{n_x} order {order} k={k} tile {tile}: "
+                  f"{e}")
+            return
+        u = seeded_grid(p, dtype, seed)
+        args = (2 * k, order, p.xcfl, p.ycfl)
+        label = (f"{n_y}x{n_x} order {order} k={k} tile {tile} "
+                 f"{str(dtype)[6:]} (TX {geo.tile_x}, nbuf {geo.nbuf}, run "
+                 f"{geo.run}, grid {geo.grid})")
+        band_note("multistep", spl.run_heat_multistep(u, *args, p.bc, k=k,
+                                                      tile_y=tile),
+                  spl.run_heat_multistep_plain(u, *args, p.bc, k=k),
+                  f"B5 {label}")
+        if k == 1:
+            band_note("stencil_full", spl.run_heat_pallas(u, 3, *args[1:],
+                                                          tile_y=tile),
+                      spl.run_heat_pallas_plain(u, 3, *args[1:]),
+                      f"B4 {label}")
+
+    seed = 0
+    for tile in (40, 80, 200, 400):
+        for order in (2, 4, 8):
+            for k in (1, 2, 3, 4, 8):
+                seed += 1
+                band_case(DIST_N, DIST_N, order, k, tile, torch.float32,
+                          seed)
+    for k in (1, 2, 4, 8):
+        band_case(FULL_N, FULL_N, FULL_ORDER, k, BAND_TILE, torch.float32,
+                  100 + k)
+    band_case(255, 121, 8, 1, 85, torch.float32, 110)
+    band_case(255, 121, 4, 3, 85, torch.float32, 111)
+    band_case(DIST_N, DIST_N, 8, 1, 80, torch.float64, 112)
+    band_case(DIST_N, DIST_N, 8, 2, 80, torch.float64, 113)
+    # B4 on a halo that does not hold the boundary values: it passes through
+    p = config.SimParams(nx=DIST_N, ny=DIST_N, order=8)
+    u = seeded_grid(p, torch.float32, 114)
+    u[:4] += 3.0
+    u[:, -4:] -= 2.0
+    band_note("stencil_full",
+              spl.run_heat_pallas(u, 3, 8, p.xcfl, p.ycfl, tile_y=40),
+              spl.run_heat_pallas_plain(u, 3, 8, p.xcfl, p.ycfl),
+              f"B4 {DIST_N}x{DIST_N} foreign halo tile 40")
+    band_note("stencil_full",
+              spl.stencil_interior_pallas(u, 8, p.xcfl, p.ycfl, tile_y=40),
+              spl.stencil_interior_pallas_plain(u, 8, p.xcfl, p.ycfl),
+              f"B4 stencil_interior_pallas {DIST_N}x{DIST_N} foreign halo")
+    for n_sq, tile, k in [(DIST_N, t, 1) for t in (40, 80, 200, 400)] + [
+            (FULL_N, BAND_TILE, k) for k in (1, 2, 4, 8)]:
+        geo = spl.band_geometry(n_sq, n_sq, tile, k, 8, 4, sms)
+        blocks = geo.grid[0] * geo.grid[1]
+        print(f"decomposition {n_sq}^2 order 8 f32 tile_y {tile} k={k}: TX "
+              f"{geo.tile_x}, nbuf {geo.nbuf}, {geo.run} tiles a block, "
+              f"grid {geo.grid} = {blocks} blocks, smem {geo.smem} B, "
+              f"{geo.blocks_per_sm} a SM -> {blocks / (sms * geo.blocks_per_sm):.2f} "
+              f"waves on {sms} SMs")
+
+    # ---------------------------------------------------- 13. B8 vs library
+    def transpose_case(shape, dtype, tile):
+        gen = torch.Generator().manual_seed(shape[0] + shape[1])
+        width = shape[1] * torch.empty(0, dtype=dtype).element_size()
+        x = torch.randint(0, 256, (shape[0], width), dtype=torch.uint8,
+                          generator=gen).to(dev).view(dtype)
+        got = tp.transpose_pallas(x, tile=tile)
+        ref = x.t().contiguous()
+        same = torch.equal(got.flatten().view(torch.uint8),
+                           ref.flatten().view(torch.uint8))
+        print(f"  vs x.t().contiguous(): B8 {shape[0]}x{shape[1]} "
+              f"{str(dtype)[6:]} tile {tile}: bitwise {same}")
+        if not same:
+            fail(f"B8 {shape} {dtype}: not bit for bit x.t().contiguous()")
+
+    transpose_case((SIDE, SIDE), torch.float32, SIDE_TILE)
+    transpose_case((1024, 3072), torch.float32, SIDE_TILE)
+    for dtype in (torch.uint8, torch.bfloat16, torch.int32, torch.float64):
+        transpose_case((2048, 768), dtype, SIDE_TILE)
+
+    # ---------------------------------------------------- 14. the sweeps
+    hk = run_all.JOBS["heat_kernels"][2]
+    pt = run_all.JOBS["pallas_tile"][2]
+    # each heat row runs its solve twice (warm-up, timed)
+    fused = [k for k in hk["ks"] if hk["iters"] % k == 0]
+    per_pipe = 2 * sum(hk["iters"] // k for k in [1] + fused)
+    expect = only(None, 0)
+    expect.update({
+        "pipeline": per_pipe, "pipeline2d": per_pipe,
+        "stencil_full": 2 * hk["iters"] + 2 * pt["iters"] * len(
+            [t for t in pt["tiles"] if pt["size"] % t == 0]),
+        "multistep": 2 * sum(hk["iters"] // k for k in fused),
+        "transpose": 1 + sweeps.TIME_ITERS})
+    sweep_path = f"run_all --only {','.join(SWEEP_PATH)} (full)"
+    csv_rows = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        rc = counted(sweep_path, expect, lambda: run_all.main(
+            ["--out", out_dir, "--only", ",".join(SWEEP_PATH)]))
+        for name in SWEEP_PATH:
+            with open(os.path.join(out_dir, f"{name}.csv")) as f:
+                csv_rows[name] = list(csv.DictReader(f))
+        with open(os.path.join(out_dir, "failures.json")) as f:
+            failures = json.load(f)
+    if rc != 0 or failures != {"failed": [], "retried": []}:
+        fail(f"{sweep_path}: rc {rc}, failures {failures}")
+    for name, rows in csv_rows.items():
+        print(f"{name}.csv ({len(rows)} rows):")
+        for row in rows:
+            print(f"  {json.dumps(row)}")
+            if row.get("error"):
+                fail(f"{name}.csv: error row {row}")
+
+    iters = hk["iters"]
+    args = (iters, full.order, full.xcfl, full.ycfl)
+    u = grid.make_initial_grid(full, device="cuda")
+    ref = ops.run_heat(u, *args)
+    solves = [("stencil_full", 1, lambda: spl.run_heat_pallas(
+        u, *args, tile_y=BAND_TILE))] + [
+        ("multistep", k, lambda k=k: spl.run_heat_multistep(
+            u, *args, full.bc, k=k, tile_y=BAND_TILE)) for k in fused]
+    for name, k, solve in solves:
+        label = (f"{'run_heat_pallas' if k == 1 else 'run_heat_multistep'} "
+                 f"{FULL_N}x{FULL_N} k={k}")
+        out = counted(label, only(name, iters // k), solve)
+        band_note(name, out, ref, f"{label} {iters} iters vs run_heat")
+
+    n_band = 200
+    band_timing = {}
+    for name, k, _ in solves:
+        if k == 1:
+            fn = lambda v: spl.run_heat_pallas(  # noqa: E731
+                v, n_band, *args[1:], tile_y=BAND_TILE)
+        else:
+            fn = lambda v, k=k: spl.run_heat_multistep(  # noqa: E731
+                v, n_band, *args[1:], full.bc, k=k, tile_y=BAND_TILE)
+        ms = core.time_fn(fn, u, warmup=1, iters=2) / n_band
+        launch = roofline.Cost(step.nbytes, step.flops * k)
+        b_ms, b_by = roofline.bound_ms(launch, peak, torch.float32)
+        band_timing.setdefault(name, []).append(
+            {"k": k, "ms": ms, "bound_ms": b_ms / k, "bound_by": b_by,
+             "gbs": step.gbs(ms)})
+        print(f"full {name} k={k} tile {BAND_TILE}: {ms:.6f} ms/step, "
+              f"{step.gbs(ms):.1f} GB/s, bound {b_ms / k:.6f} ms/step by "
+              f"{b_by}")
+
+    m = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (SIDE, SIDE)).astype(np.float32)).to(dev)
+    t_cost = roofline.transpose_cost(SIDE, SIDE)
+    t_bound, t_by = roofline.bound_ms(t_cost, peak, torch.float32)
+    t_ms = per_call_ms(lambda v: tp.transpose_pallas(v, tile=SIDE_TILE), m,
+                       100)
+    t_plain_ms = per_call_ms(tp.transpose_pallas_plain, m, 100)
+    t_library_ms = per_call_ms(lambda v: v.t().contiguous(), m, 100)
+    print(f"B8 {SIDE}x{SIDE} f32: {t_ms:.6f} ms, {t_cost.gbs(t_ms):.1f} "
+          f"GB/s, bound {t_bound:.6f} ms by {t_by}; plain version "
+          f"{t_plain_ms:.6f} ms, x.t().contiguous() {t_library_ms:.6f} ms")
+
+    coverage = [name for name in run_all.JOBS if name not in SWEEP_PATH]
+    with tempfile.TemporaryDirectory() as out_dir:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_all.main(["--out", out_dir, "--quick", "--only",
+                               ",".join(coverage)])
+        for name in coverage:
+            with open(os.path.join(out_dir, f"{name}.csv")) as f:
+                for row in csv.DictReader(f):
+                    if row.get("error") or row.get("ok") == "False":
+                        fail(f"--quick {name}.csv: {row}")
+    print(f"run_all --quick --only {','.join(coverage)}: rc {rc}")
+    if rc != 0:
+        fail(f"run_all --quick coverage run: rc {rc}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "power.limit,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(f"card after the runs: {smi.stdout.strip()}")
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single, B2 through its own entry point at k = 1, B6 and B7 through
@@ -743,7 +978,9 @@ def main() -> int:
                  "local": f"run_distributed {DIST_N}x{DIST_N} 2d sync "
                           f"pallas",
                  "segscan": f"run_spmv_scan {SUITE} pallas",
-                 "spmv_fused": f"run_spmv_scan {SUITE} pallas-fused"}
+                 "spmv_fused": f"run_spmv_scan {SUITE} pallas-fused",
+                 "stencil_full": sweep_path, "multistep": sweep_path,
+                 "transpose": sweep_path}
     for name, path in main_path.items():
         if paths[path][name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -798,6 +1035,36 @@ def main() -> int:
             "library_ms": None, "library_note": NO_LIBRARY,
             "cumsum_yardstick_ms": cumsum_ms, "unit": unit})
     kernels[-1]["paths"] = spmv_rows  # B7's row: every kernel at pwtk
+    # B4 and B5: per step at 4000² order 8 f32 tile 200 (B5 at k = 2);
+    # their plain versions are run_heat and run_heat_roll, phase 4's
+    band_rows = {"stencil_full": (band_timing["stencil_full"], torch_ms),
+                 "multistep": (band_timing["multistep"], plain_ms)}
+    for name, (per_k, p_ms) in band_rows.items():
+        first = per_k[0]
+        kernels.append({
+            "name": f"heat_band ({name})", "route": "cuda",
+            "source": SOURCE[name], "replaces": REPLACES[name],
+            "launches": paths[main_path[name]][name],
+            "main_path": main_path[name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": band_err[name], "max_ulp": band_ulp[name],
+            "ms": first["ms"], "plain_ms": p_ms,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": library_ms,
+            "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
+                    f"f32, tile_y {BAND_TILE}, k={first['k']}",
+            "per_k": per_k})
+    kernels[-2]["sweep_rows"] = csv_rows  # B4's row: the sweeps' CSVs
+    kernels.append({
+        "name": "transpose_tiles", "route": "cuda",
+        "source": SOURCE["transpose"], "replaces": REPLACES["transpose"],
+        "launches": paths[main_path["transpose"]]["transpose"],
+        "main_path": main_path["transpose"],
+        "launches_by_path": by_path("transpose"),
+        "max_abs_err": 0.0, "max_ulp": 0,
+        "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
+        "bound_by": t_by, "library_ms": t_library_ms,
+        "unit": f"ms per transpose, {SIDE}x{SIDE} f32"})
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Roofline attribution for the port: cost models and the card's peaks.
 
 Counterpart of ``cme213_tpu/core/roofline.py``, cut to what the ported
-workloads need (the heat solve and the SpMV-scan engine).  The peak table holds NVIDIA's data-sheet figures for the H100
+workloads need (the heat solve, the SpMV-scan engine, the scans, the
+transpose and the host transfers of the sweeps).  The peak table holds
+NVIDIA's data-sheet figures for the H100
 (dense, no sparsity), chosen by ``torch.cuda.get_device_name()``.  They
 assume the card's full power limit; a card set below it runs slower, so
 every measurement states the limit beside it.
@@ -152,3 +154,15 @@ def scan_cost(n: int, dtype="float32") -> Cost:
     useful-byte count, so their extra traffic shows as lost bandwidth."""
     elem = elem_size(dtype)
     return Cost(2 * elem * n, n)
+
+
+def transpose_cost(rows: int, cols: int, dtype="float32") -> Cost:
+    """Transpose of a (rows, cols) matrix: read and write each element
+    once; no arithmetic."""
+    elem = elem_size(dtype)
+    return Cost(2 * elem * rows * cols, 0)
+
+
+def transfer_cost(nbytes: int) -> Cost:
+    """Host↔device copy: the bytes themselves, no flops."""
+    return Cost(int(nbytes), 0)

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: library name -> its CUDA source
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("heat_stencil", "segmented_scan")}
+           for name in ("heat_stencil", "segmented_scan", "heat_band",
+                        "transpose")}
 
 #: ``--fmad=false``: no multiply-add contraction anywhere in the libraries
 #: (the kernels also spell every operation with a round-to-nearest
@@ -127,8 +128,31 @@ def _bind_segmented_scan(lib: ctypes.CDLL) -> None:
     lib.segmented_scan_error_string.restype = ctypes.c_char_p
 
 
+def _bind_heat_band(lib: ctypes.CDLL) -> None:
+    for name, real in (("heat_band_f32", ctypes.c_float),
+                       ("heat_band_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * 12 + [real] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.heat_band_error_string.argtypes = [ctypes.c_int]
+    lib.heat_band_error_string.restype = ctypes.c_char_p
+
+
+def _bind_transpose(lib: ctypes.CDLL) -> None:
+    lib.transpose_tiles.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_longlong,
+                                    ctypes.c_int, ctypes.c_void_p]
+    lib.transpose_tiles.restype = ctypes.c_int
+    lib.transpose_error_string.argtypes = [ctypes.c_int]
+    lib.transpose_error_string.restype = ctypes.c_char_p
+
+
 _BINDERS = {"heat_stencil": _bind_heat_stencil,
-            "segmented_scan": _bind_segmented_scan}
+            "segmented_scan": _bind_segmented_scan,
+            "heat_band": _bind_heat_band,
+            "transpose": _bind_transpose}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -232,3 +256,81 @@ def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
             f"{lib.segmented_scan_error_string(err).decode()} (cudaError "
             f"{err}; n={n} fused={xx is not None} "
             f"workspace={workspace.shape[0]} words)")
+
+
+def heat_band(src: torch.Tensor, dst: torch.Tensor, *, order: int, k: int,
+              tile_y: int, tile_x: int, run: int, nbuf: int, smem_bytes: int,
+              xcfl: float, ycfl: float,
+              bc: tuple[float, float, float, float]) -> None:
+    """Enqueue one launch of ``csrc/heat_band.cu:heat_band``: ``k`` fused
+    heat steps of the (gy, gx) halo grid ``src`` into the (ny, nx) = (gy −
+    order, gx − order) interior ``dst`` on the current stream.
+
+    ``src`` is a contiguous float32/float64 grid on a CUDA device; ``dst``
+    a 2-D tensor of the same type and device, rows of unit stride at any
+    row stride (a view of another grid's interior, or a bare array), in
+    other storage than ``src``.  ``(tile_y, tile_x)`` is the output tile,
+    ``run`` the tiles a block walks, ``nbuf`` its staging buffers and
+    ``smem_bytes`` its shared memory (``stencil_pallas.band_geometry``).
+    Raises ``FrameworkError`` when the launch is refused.
+    """
+    if not (src.is_cuda and dst.device == src.device):
+        raise ValueError("heat_band takes two tensors on one CUDA device")
+    if src.dtype not in (torch.float32, torch.float64) \
+            or dst.dtype != src.dtype:
+        raise TypeError(f"heat_band takes float32 or float64 grids, got "
+                        f"{src.dtype} -> {dst.dtype}")
+    if src.dim() != 2 or not src.is_contiguous():
+        raise ValueError("heat_band takes a contiguous 2-D source grid")
+    H, W = src.shape
+    if dst.dim() != 2 or tuple(dst.shape) != (H - order, W - order) \
+            or dst.stride(1) != 1:
+        raise ValueError(f"heat_band writes a ({H - order}, {W - order}) "
+                         f"interior with unit column stride, got "
+                         f"{tuple(dst.shape)} strides {dst.stride()}")
+    if dst.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+        raise ValueError("heat_band cannot update a grid in place")
+    lib = library("heat_band")
+    fn = lib.heat_band_f32 if src.dtype == torch.float32 \
+        else lib.heat_band_f64
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = fn(src.data_ptr(), dst.data_ptr(), H, W, dst.stride(0),
+                 H - order, W - order, order, k, tile_y, tile_x, run, nbuf,
+                 smem_bytes, xcfl, ycfl, *bc, stream)
+    if err != 0:
+        raise FrameworkError(
+            f"heat_band launch failed: "
+            f"{lib.heat_band_error_string(err).decode()} (cudaError {err}; "
+            f"order={order} k={k} tile={tile_y}x{tile_x} run={run} "
+            f"nbuf={nbuf} smem={smem_bytes} grid={H}x{W} {src.dtype})")
+
+
+def transpose_tiles(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Enqueue one launch of ``csrc/transpose.cu``: ``dst = src.T`` for a
+    contiguous (M, N) ``src`` and a contiguous (N, M) ``dst`` of one dtype
+    of 1, 2, 4 or 8 bytes on one CUDA device.  Raises ``FrameworkError``
+    when the launch is refused."""
+    if not (src.is_cuda and dst.device == src.device):
+        raise ValueError("transpose_tiles takes two tensors on one CUDA "
+                         "device")
+    if dst.dtype != src.dtype or src.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"transpose_tiles moves elements of 1, 2, 4 or 8 "
+                        f"bytes of one dtype, got {src.dtype} -> "
+                        f"{dst.dtype}")
+    if src.dim() != 2 or tuple(dst.shape) != tuple(src.shape[::-1]) \
+            or not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError(f"transpose_tiles takes a contiguous (M, N) source "
+                         f"and a contiguous (N, M) output, got "
+                         f"{tuple(src.shape)} -> {tuple(dst.shape)}")
+    lib = library("transpose")
+    M, N = src.shape
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.transpose_tiles(src.data_ptr(), dst.data_ptr(), M, N,
+                                  src.element_size(), stream)
+    if err != 0:
+        raise FrameworkError(
+            f"transpose_tiles launch failed: "
+            f"{lib.transpose_error_string(err).decode()} (cudaError {err}; "
+            f"{M}x{N} {src.dtype})")

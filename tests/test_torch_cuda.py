@@ -241,3 +241,110 @@ def test_distributed_pallas_failed_build_raises(cuda, monkeypatch,
     mesh = make_mesh_1d(2, devices=virtual_devices(2))
     with pytest.raises(FrameworkError, match="nvcc failed"):
         run_distributed_heat(p, mesh, local_kernel="pallas")
+
+
+# ------------------------------------------------ band-staged stencil (B4, B5)
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_band_kernel_bitwise_vs_plain(cuda, order, k, dtype):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    # 200 x 261: a ragged last strip; tile_y 40, a tile of the sweeps
+    p = SimParams(nx=261, ny=200, order=order, bc_top=1.5, bc_left=0.5,
+                  bc_bottom=2.0, bc_right=0.25)
+    u = _grid(p, dtype, cuda, seed=order * k + 1)
+    args = (2 * k, order, p.xcfl, p.ycfl)
+    before = dict(spl.LAUNCHES)
+    out = spl.run_heat_multistep(u, *args, p.bc, k=k, tile_y=40)
+    b4 = spl.run_heat_pallas(u, *args, tile_y=40)
+    torch.cuda.synchronize()
+    assert spl.LAUNCHES["multistep"] - before["multistep"] == 2
+    assert spl.LAUNCHES["stencil_full"] - before["stencil_full"] == 2 * k
+    torch.testing.assert_close(
+        out, spl.run_heat_multistep_plain(u, *args, p.bc, k=k), rtol=0,
+        atol=0)
+    torch.testing.assert_close(b4, spl.run_heat_pallas_plain(u, *args),
+                               rtol=0, atol=0)
+
+
+def test_band_kernel_keeps_a_foreign_halo(cuda):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    p = SimParams(nx=150, ny=120, order=8)
+    u = _grid(p, torch.float32, cuda, seed=3)
+    u[:4] = 7.0
+    u[:, -4:] = -3.0
+    out = spl.run_heat_pallas(u, 5, 8, p.xcfl, p.ycfl, tile_y=40)
+    ref = spl.run_heat_pallas_plain(u, 5, 8, p.xcfl, p.ycfl)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    one = spl.stencil_interior_pallas(u, 8, p.xcfl, p.ycfl, tile_y=40)
+    torch.testing.assert_close(
+        one, spl.stencil_interior_pallas_plain(u, 8, p.xcfl, p.ycfl),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile_y", [40, 80, 200, 400])
+def test_band_kernel_at_the_sweeps_tiles(cuda, tile_y):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    p = SimParams(nx=2000, ny=2000, order=8)
+    u = make_initial_grid(p, device=cuda)
+    out = spl.run_heat_pallas(u, 4, 8, p.xcfl, p.ycfl, tile_y=tile_y)
+    torch.testing.assert_close(out, run_heat(u, 4, 8, p.xcfl, p.ycfl),
+                               rtol=0, atol=0)
+
+
+def test_band_tile_that_fits_nowhere_raises(cuda):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    p = SimParams(nx=400, ny=400, order=8)
+    u = make_initial_grid(p, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        spl.run_heat_multistep(u, 8, 8, p.xcfl, p.ycfl, p.bc, k=8,
+                               tile_y=400)
+
+
+def test_band_failed_build_raises(cuda, monkeypatch, tmp_path):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_kernels, "_libs", {})
+    p = SimParams(nx=64, ny=64, order=4)
+    u = make_initial_grid(p, device=cuda)
+    with pytest.raises(FrameworkError, match="nvcc failed"):
+        spl.run_heat_pallas(u, 2, 4, p.xcfl, p.ycfl, tile_y=32)
+
+
+# ------------------------------------------------ tiled transpose (B8)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (256, 512), (96, 160),
+                                   (33, 70), (1, 3000)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                   torch.float32, torch.int32,
+                                   torch.float64])
+def test_transpose_kernel_bitwise(cuda, shape, dtype):
+    from cme213_tpu_torch.ops import _kernels as kern
+    from cme213_tpu_torch.ops import transpose as tp
+
+    bits = torch.randint(0, 255, (shape[0], shape[1]
+                                  * torch.empty(0, dtype=dtype)
+                                  .element_size()),
+                         dtype=torch.uint8, generator=torch.Generator()
+                         .manual_seed(shape[0])).to(cuda)
+    x = bits.view(dtype)
+    if shape[0] % 32 == 0 and shape[1] % 32 == 0:
+        before = tp.LAUNCHES["transpose"]
+        out = tp.transpose_pallas(x, tile=32)
+        assert tp.LAUNCHES["transpose"] - before == 1
+    else:  # the kernel masks ragged edges; the wrapper keeps JAX's contract
+        out = torch.empty(shape[::-1], dtype=dtype, device=cuda)
+        kern.transpose_tiles(x, out)
+    ref = x.t().contiguous()
+    # flatten first: a (3000, 1) result is contiguous at stride 3000
+    assert torch.equal(out.flatten().view(torch.uint8),
+                       ref.flatten().view(torch.uint8))
