@@ -3,8 +3,10 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives the
 port (``cme213_tpu_torch``) and imports nothing of JAX or of the JAX
-package.  Phases, each of which fails the run (non-zero exit) when it
-fails:
+package.  ``--parent DIR`` adds phase 15, old-vs-new timing turns against
+the package of another tree (e.g. the parent commit, unpacked with ``git
+archive``) found at ``DIR/cme213_tpu_torch``.  Phases, each of which fails
+the run (non-zero exit) when it fails:
 
 1. Identity and build: the card's name and power limit (``nvidia-smi``),
    the torch and CUDA versions, and the time ``nvcc`` takes to build every
@@ -16,17 +18,20 @@ fails:
    numpy-golden ULP-10 check and the kernel was launched.
 3. Kernel against its plain version on the card, on the same CUDA
    tensors: ``run_heat_pipeline`` and ``run_heat_pipeline2d`` × k ∈
-   {1,2,4,8} × order ∈ {2,4,8} at 1000² f32 (8·k iterations), one f64
-   case, one awkward shape (257×121), and the main path's shapes (512²
-   and 4000², order 8).  Fails above 10 ULP; 0 is expected, since both
-   round every operation alike.
+   {1,2,3,4,8} × order ∈ {2,4,8} at 1000² f32 (8·k iterations), f64
+   cases, awkward shapes (257×121; 3999×4001, whose rows are not 16-byte
+   aligned; 5×7, smaller than one tile), and the main path's shapes (512²
+   and 4000², order 8).  Fails above 0 ULP: both round every operation
+   alike.
 4. Full size, the headline workload of ``bench.py``: 4000² order 8 f32.
    ``run_single`` with 1000 iterations, then each entry point at each k
    for 1000 iterations: ms/iter, GB/s and % of the card's memory peak, the
    bound, the plain version's and ``ops.stencil.run_heat``'s ms/iter, and
    ``library_ms``, one step of ``conv2d`` with the cross-shaped stencil
-   (TF32 off), a yardstick the port never calls.  Every kernel result is
-   held to ``run_heat`` within ULP-10.
+   (TF32 off), a yardstick the port never calls; each k's launch plan
+   (tile, blocks an SM from the occupancy calculator, registers and local
+   memory a thread).  Every kernel result is held to ``run_heat`` at 0
+   ULP.
 5. The SpMV-scan example (hw_final) through its CLI,
    ``apps.spmv_scan.main``, in a temporary directory: ``gen`` at its
    default size (n = 100,000, p = 1,000, q = 999, seed 0), then a run with
@@ -60,8 +65,10 @@ fails:
    seeded 2000² interior — corners of a 2×2 mesh, an edge stripe of a
    1-D mesh of 4, the interior shard of a 3×3 mesh (2001²), a ghost-padded
    shard of a 2×2 mesh over 1999×2001 — × order ∈ {2,4,8} × k ∈
-   {1,2,4,8} in f32, and two f64 cases.  The rows and columns ``[K, H−K)``
-   are compared; fails above 10 ULP (0 expected).
+   {1,2,3,4,8} in f32, and f64 cases, one launch a shard; then all nine
+   shards of the 3×3 mesh in one launch (``stencil_local_multistep_shards``,
+   exactly one launch counted).  The rows and columns ``[K, H−K)`` are
+   compared; fails above 0 ULP.
 10. The distributed heat solve (hw5) at the reference's largest size,
    2000², order 8, 1000 iterations, on four shards of the one card
    (``core.virtual_devices(4)``): ``apps.heat2d.run_distributed`` for 1-D
@@ -69,13 +76,21 @@ fails:
    for 1-D and 2-D with ``pallas`` (B3); then ``run_distributed_heat`` on
    the 2-D mesh at k ∈ {2, 4} with each local kernel, and with ``pallas``
    on a 1-shard mesh.  Every result is held to ``ops.run_heat`` on the
-   card within ULP-10 (0 expected).  Each path is timed again through
-   ``prepare_distributed_heat`` (``iterate()`` times the step loop
-   between device synchronisations): ms/step, GB/s and % of the memory
-   peak by ``roofline.heat_cost``, and the bound.  Then B3 alone on the
-   2-D path's four padded blocks (ms per step at k ∈ {1,2,4}, CUDA
-   events), its plain version and ``library_ms``: ``conv2d`` over each
-   padded block with the cross-shaped stencil (TF32 off).  Last, the CLI,
+   card within ULP-10 (the ``pallas`` paths at 0 ULP).  Each path is timed
+   again through ``prepare_distributed_heat`` (``iterate()`` times the
+   step loop between device synchronisations): ms/step, GB/s and % of the
+   memory peak by ``roofline.heat_cost``, and the bound.  Then B3 alone on
+   the 2-D path's four padded blocks (ms per step at k ∈ {1,2,4}, CUDA
+   events around many calls, so the host's work is in the time): the
+   batched call (one launch for the four), and for the record the loop of
+   four single-shard calls; its plain version and ``library_ms``:
+   ``conv2d`` over each padded block with the cross-shaped stencil (TF32
+   off).  Then the device's idle share of the 2-D ``pallas`` path's step
+   loop over a short ``torch.profiler`` window (CUDA activity only: 1 −
+   the union of the device's kernel and copy intervals ÷ the window's
+   host-clock length; also against the same loop's unprofiled length,
+   since the profiler's own host work stretches the window).  Last, the
+   CLI,
    ``heat2d.main([..., "examples/params_dist.in", "--distributed",
    "--local-kernel=pallas"])`` in a temporary directory, a 1×1 mesh of
    the physical card: its dumps must exist and its grid equal
@@ -109,6 +124,14 @@ fails:
    (``conv2d``, phase 4's; ``x.t().contiguous()``); and the other ported
    sweeps at ``--quick`` as a coverage run (exit 0, no error row).
 
+15. With ``--parent DIR``: the tentpole's old-vs-new turns, parent,
+   this tree, this tree, parent, in one process on one card: B1 and B2 at
+   4000² order 8 (ms per step at k ∈ {1,2,4,8}; B2 at k = 1), B3 alone on
+   the four 1008² blocks (the parent's loop of four launches against the
+   batched call) and the 2-D ``pallas`` distributed solve at 2000² (ms
+   per step by ``iterate()``).  The parent's package is imported under
+   another name and builds its kernels into its own tree.
+
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11 and 14 drive through
 the entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
 B1), one solve of each of ``run_heat_pipeline`` and ``run_heat_pipeline2d``
@@ -121,8 +144,8 @@ their rows) and the full-size solves of phase 14.  Every launch count
 just before each of these paths and read just after; each path must launch
 exactly its own kernels, ``iters + 1`` times for ``run_single`` and
 ``run_spmv_scan`` (one untimed step or iteration, then the solve), ``iters
-/ k`` times for a heat solve, ``shards × iters / k`` for a distributed solve
-with ``pallas``, and for the sweeps what their loops imply (each heat row
+/ k`` times for a heat solve, ``devices × iters / k`` for a distributed
+solve with ``pallas`` (one launch a device for all its shards), and for the sweeps what their loops imply (each heat row
 runs its solve twice, warm-up and timed; the transpose row calls its kernel
 ``1 + sweeps.TIME_ITERS`` times); ``auto``, ``flat``, the ``xla``
 distributed solves and the sharded SpMV-scan launch none.  The launches of
@@ -133,8 +156,9 @@ The lines before the last: the card's identity, then one JSON object
 ``{"kernels": [...]}`` with each kernel's launches on its full-size main
 path (``launches``) and on every path (``launches_by_path``), its error,
 times and bound (B1, B2, B4, B5: ms per step at 4000² order 8 f32, k = 1
-and for B5 k = 2, with every k in ``per_k``; B3: ms per step of the 2-D
-pallas path at 2000², its four launches; the scan: ms per iteration or per
+and for B5 k = 2, with every k in ``per_k``; B3: ms per step of the
+batched call, one launch on the 2-D pallas path's four 1008² blocks at
+2000²; the scan: ms per iteration or per
 scan at pwtk; B8: ms per 4096² f32 transpose).  The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -197,7 +221,168 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def main() -> int:
+def idle_share(dheat, config, dist, torch, devices, n, steps=100):
+    """The device's idle share over the step loop of the 2-D sync ``pallas``
+    distributed solve at n², order 8 (``steps`` steps after a warm-up):
+    1 − (union of the CUDA kernel and copy intervals the profiler saw) ÷
+    (the host-clock length of the loop, synchronised at both ends), over
+    the profiled loop and over the same loop run again unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = config.SimParams(nx=n, ny=n, order=8, iters=steps,
+                         grid_method=config.GridMethod.BLOCKS_2D)
+    mesh = dist.mesh_for_method(p.grid_method, devices=devices)
+    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+    u0 = torch.full((y_size * ny_loc, x_size * nx_loc), p.ic)
+    blocks = dheat._scatter(u0, dheat._shard_devices(mesh, y_size, x_size),
+                            ny_loc, nx_loc)
+
+    def run():
+        return dheat._run(blocks, p, steps, False, 1, "pallas")
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return {"idle_share": None, "window_ms": wall_us / 1e3,
+                "note": "not measured: the profiler saw no device activity"}
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the profiler's own host work stretches the window; the same loop
+    # unprofiled gives the share without it
+    return {"idle_share": 1 - busy / wall_us, "window_ms": wall_us / 1e3,
+            "busy_ms": busy / 1e3, "steps": steps,
+            "ms_per_step": wall_us / 1e3 / steps,
+            "unprofiled_ms_per_step": plain_us / 1e3 / steps,
+            "idle_share_unprofiled": 1 - busy / plain_us,
+            "device_events": len(device),
+            "top_device_ms": {name[:60]: us / 1e3 for name, us in top}}
+
+
+def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
+                  sp):
+    """Phase 15: parent, this tree, this tree, parent, each metric in turns
+    in this process (ms per step)."""
+    import importlib.util
+
+    pkg = os.path.join(parent, "cme213_tpu_torch")
+    if not os.path.isfile(os.path.join(pkg, "__init__.py")):
+        fail(f"--parent {parent}: no cme213_tpu_torch package there")
+    spec = importlib.util.spec_from_file_location(
+        "parent_cme213_tpu_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    old = importlib.util.module_from_spec(spec)
+    sys.modules["parent_cme213_tpu_torch"] = old
+    spec.loader.exec_module(old)
+    odist = importlib.import_module("parent_cme213_tpu_torch.dist")
+    oops = importlib.import_module("parent_cme213_tpu_torch.ops")
+    osp = importlib.import_module("parent_cme213_tpu_torch.ops."
+                                  "stencil_pipeline")
+    importlib.import_module("parent_cme213_tpu_torch.ops._kernels").build()
+
+    full = config.SimParams(nx=FULL_N, ny=FULL_N, order=FULL_ORDER)
+    u = grid.make_initial_grid(full, device="cuda")
+    n = 200
+    args = (n, full.order, full.xcfl, full.ycfl, full.bc)
+
+    def ms_of(fn, reps):
+        return core.time_fn(lambda _: fn(), u, warmup=1, iters=2) / reps
+
+    def turn(label, old_fn, new_fn, reps):
+        a, b, c, d = (ms_of(fn, reps)
+                      for fn in (old_fn, new_fn, new_fn, old_fn))
+        print(f"  turns {label}: parent {a:.6f}, new {b:.6f}, new {c:.6f}, "
+              f"parent {d:.6f} ms/step")
+        return {"parent": [a, d], "new": [b, c]}
+
+    out = {}
+    for k in (1, 2, 4, 8):
+        if not torch.equal(oops.run_heat_pipeline(u, 8, *args[1:], k=k),
+                           ops.run_heat_pipeline(u, 8, *args[1:], k=k)):
+            fail(f"turns: parent and new B1 differ at k={k}")
+        out[f"B1 k={k}"] = turn(
+            f"B1 {FULL_N}x{FULL_N} k={k}",
+            lambda k=k: oops.run_heat_pipeline(u, *args, k=k),
+            lambda k=k: ops.run_heat_pipeline(u, *args, k=k), n)
+    out["B2 k=1"] = turn(
+        f"B2 {FULL_N}x{FULL_N} k=1",
+        lambda: oops.run_heat_pipeline2d(u, *args, k=1),
+        lambda: ops.run_heat_pipeline2d(u, *args, k=1), n)
+    vdev = core.virtual_devices(DIST_SHARDS)
+    dp = config.SimParams(nx=DIST_N, ny=DIST_N, order=8)
+    mesh = dist.make_mesh_2d(2, 2, devices=vdev)
+    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(dp, mesh)
+    u0 = torch.from_numpy(dheat._pad_interior_for_mesh(
+        dp.ic + np.random.default_rng(0).uniform(0, 1, (dp.ny, dp.nx)), dp,
+        y_size, x_size)).float()
+    blocks = dheat._scatter(u0, dheat._shard_devices(mesh, y_size, x_size),
+                            ny_loc, nx_loc)
+    b = dp.border_size
+    for k in (1, 2, 4):
+        K = k * b
+        padded = dheat._assemble_padded(blocks, dp, border=K)
+        pads = [q for row in padded for q in row]
+        offs = [(yi * ny_loc + b - K, xi * nx_loc + b - K)
+                for yi in range(y_size) for xi in range(x_size)]
+        a = (dp.ny, dp.nx, dp.order, dp.xcfl, dp.ycfl, dp.bc)
+
+        def old_loop(k=k, pads=pads, offs=offs):
+            for _ in range(n):
+                for q, (gy0, gx0) in zip(pads, offs):
+                    osp.stencil_local_multistep(q, gy0, gx0, *a, k=k)
+
+        def new_batched(k=k, pads=pads, offs=offs):
+            for _ in range(n):
+                sp.stencil_local_multistep_shards(pads, offs, *a, k=k)
+
+        out[f"B3 k={k}"] = turn(
+            f"B3 alone, 2x2 blocks of {DIST_N}x{DIST_N} k={k} (parent: "
+            f"four launches, new: one)", old_loop, new_batched, n * k)
+    pd = config.SimParams(nx=DIST_N, ny=DIST_N, order=8, iters=400,
+                          grid_method=config.GridMethod.BLOCKS_2D)
+    it_new, _, _ = dist.prepare_distributed_heat(pd, mesh,
+                                                 local_kernel="pallas")
+    it_old, _, _ = odist.prepare_distributed_heat(
+        pd, odist.make_mesh_2d(2, 2, devices=old.core.virtual_devices(4)),
+        local_kernel="pallas")
+    if not torch.equal(it_new()[1].cpu(), it_old()[1].cpu()):
+        fail("turns: parent and new 2-D pallas solves differ")
+    rows = [fn()[0] * 1e3 / pd.iters
+            for fn in (it_old, it_new, it_new, it_old)]
+    print(f"  turns run_distributed {DIST_N}x{DIST_N} 2d sync pallas: parent "
+          f"{rows[0]:.6f}, new {rows[1]:.6f}, new {rows[2]:.6f}, parent "
+          f"{rows[3]:.6f} ms/step")
+    out["run_distributed 2d sync pallas"] = {"parent": [rows[0], rows[3]],
+                                             "new": [rows[1], rows[2]]}
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = os.path.abspath(argv[1])
+    elif argv:
+        fail(f"usage: chip_smoke.py [--parent DIR], got {argv}")
     try:
         import numpy as np
         import torch
@@ -237,12 +422,12 @@ def main() -> int:
     entries = {"pipeline": ops.run_heat_pipeline,
                "pipeline2d": ops.run_heat_pipeline2d}
 
-    def max_errors(a, b) -> tuple[int, float]:
+    def max_errors(a, b, limit=MAX_ULPS) -> tuple[int, float]:
         a, b = a.cpu().numpy(), b.cpu().numpy()
         ulp = int(core.ulp_distance(a, b).max())
         err = float(np.abs(a.astype(np.float64) - b).max())
-        if not (np.isfinite(a).all() and ulp <= MAX_ULPS):
-            fail(f"{ulp} ULP apart (limit {MAX_ULPS}) or not finite")
+        if not (np.isfinite(a).all() and ulp <= limit):
+            fail(f"{ulp} ULP apart (limit {limit}) or not finite")
         return ulp, err
 
     def seeded_grid(p, dtype, seed):
@@ -318,10 +503,19 @@ def main() -> int:
         worst_err[name] = max(worst_err[name], err)
 
     cases = [((1000, 1000), order, k, torch.float32)
-             for order in (2, 4, 8) for k in (1, 2, 4, 8)]
+             for order in (2, 4, 8) for k in (1, 2, 3, 4, 8)]
     cases += [((1000, 1000), 8, 4, torch.float64),
+              ((1000, 1000), 4, 1, torch.float64),
+              ((1000, 1000), 2, 3, torch.float64),
               ((257, 121), 8, 1, torch.float32),
               ((257, 121), 4, 8, torch.float32),
+              # rows not 16-byte aligned: the kernel stages element-wise
+              ((3999, 4001), 8, 1, torch.float32),
+              ((3999, 4001), 2, 3, torch.float32),
+              ((3999, 4001), 8, 2, torch.float64),
+              # a grid smaller than one tile
+              ((5, 7), 8, 1, torch.float32),
+              ((5, 7), 8, 3, torch.float32),
               ((512, 512), 8, 1, torch.float32)]
     # the main path's own shapes: the example's and the full size's
     cases += [((FULL_N, FULL_N), FULL_ORDER, k, torch.float32)
@@ -334,7 +528,7 @@ def main() -> int:
         plain = ops.run_heat_pipeline_plain(u, *args, k=k)
         for name, fn in entries.items():
             ulp, err = max_errors(core.check_op(name, fn(u, *args, k=k)),
-                                  plain)
+                                  plain, limit=0)
             note(name, ulp, err)
             print(f"  vs plain: {name:<10} {ny}x{nx} order {order} k={k} "
                   f"{str(dtype)[6:]}: max ULP {ulp}, max |err| {err:.3g}")
@@ -371,9 +565,19 @@ def main() -> int:
             timings[name].append({"k": k, "ms": ms, "bound_ms": b_ms / k,
                                   "bound_by": b_by, "gbs": gbs})
             att = roofline.attribute(gbs, step.gflops(ms), device=kind)
+            plan = sp.launch_plan(u, 1, k, full.order)
+            per_sm, regs, local = _kernels.heat_ksteps_occupancy(
+                dev, 4, full.order, k, plan.smem)
+            timings[name][-1].update(
+                tile=f"{plan.tile_y}x{plan.tile_x}", threads=plan.threads,
+                grid=list(plan.grid), blocks_per_sm=per_sm, registers=regs,
+                local_bytes=local)
             print(f"full {name:<10} k={k}: {ms:.6f} ms/iter, {gbs:.1f} GB/s "
                   f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), "
-                  f"bound {b_ms / k:.6f} ms/iter by {b_by}")
+                  f"bound {b_ms / k:.6f} ms/iter by {b_by}; tile "
+                  f"{plan.tile_y}x{plan.tile_x}, {plan.threads} threads, "
+                  f"grid {plan.grid}, {per_sm} blocks/SM, {regs} registers, "
+                  f"{local} B local (spills)")
     n_plain = 10
     plain_ms = core.time_fn(
         lambda v: ops.run_heat_pipeline_plain(v, n_plain, *args[1:], k=1),
@@ -382,7 +586,7 @@ def main() -> int:
                             u, warmup=1, iters=2) / n_plain
     ref = ops.run_heat(u, *args[:4])
     for name, k, out in outs:
-        ulp, err = max_errors(out, ref)
+        ulp, err = max_errors(out, ref, limit=0)
         note(name, ulp, err)
         print(f"  vs run_heat: {name:<10} k={k} {FULL_ITERS} iters: "
               f"max ULP {ulp}, max |err| {err:.3g}")
@@ -601,8 +805,9 @@ def main() -> int:
         "ghost": (1999, 2001, dist.make_mesh_2d(2, 2, devices=vdev),
                   [(1, 1)])}
     local_runs = [(order, k, torch.float32) for order in (2, 4, 8)
-                  for k in (1, 2, 4, 8)] + [(8, 4, torch.float64),
-                                            (2, 8, torch.float64)]
+                  for k in (1, 2, 3, 4, 8)] + [(8, 4, torch.float64),
+                                               (2, 8, torch.float64),
+                                               (4, 3, torch.float64)]
     for seed, (order, k, dtype) in enumerate(local_runs):
         for where, (ny, nx, mesh, shards) in local_cases.items():
             p = config.SimParams(nx=nx, ny=ny, order=order, bc_top=1.5,
@@ -614,11 +819,39 @@ def main() -> int:
                 args = (gy0, gx0, p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
                 got = sp.stencil_local_multistep(blk, *args, k=k)
                 ref = sp.stencil_local_multistep_plain(blk, *args, k=k)
-                ulp, err = max_errors(got[K:-K, K:-K], ref[K:-K, K:-K])
+                ulp, err = max_errors(got[K:-K, K:-K], ref[K:-K, K:-K],
+                                      limit=0)
                 note_local(ulp, err)
                 print(f"  vs plain: local {where} {shard} of {ny}x{nx} "
                       f"order {order} k={k} {str(dtype)[6:]}: max ULP {ulp}, "
                       f"max |err| {err:.3g}")
+    # all nine shards of the 3x3 mesh (corner, edge, interior shards) in
+    # one launch
+    mesh3 = local_cases["interior"][2]
+    for order, k, dtype in [(8, 1, torch.float32), (8, 2, torch.float32),
+                            (4, 3, torch.float32), (2, 8, torch.float32),
+                            (8, 4, torch.float64)]:
+        p = config.SimParams(nx=2001, ny=2001, order=order, bc_top=1.5,
+                             bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+        K = k * p.border_size
+        blocks = shard_blocks(p, mesh3, K, dtype, seed=order + k)
+        pads = [blk for blk, _, _ in blocks.values()]
+        offs = [(gy0, gx0) for _, gy0, gx0 in blocks.values()]
+        args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+        before = sp.LAUNCHES["local"]
+        got = sp.stencil_local_multistep_shards(pads, offs, *args, k=k)
+        torch.cuda.synchronize()
+        if sp.LAUNCHES["local"] - before != 1:
+            fail(f"nine shards took {sp.LAUNCHES['local'] - before} launches")
+        ref = sp.stencil_local_multistep_shards_plain(pads, offs, *args, k=k)
+        worst = 0
+        for g, r in zip(got, ref):
+            ulp, err = max_errors(g[K:-K, K:-K], r[K:-K, K:-K], limit=0)
+            note_local(ulp, err)
+            worst = max(worst, ulp)
+        print(f"  vs plain: local, the 3x3 mesh's nine shards of 2001x2001 "
+              f"in one launch, order {order} k={k} {str(dtype)[6:]}: max ULP "
+              f"{worst}")
 
     # ---------------------------------------------------- 10. hw5 full size
     base = dict(nx=DIST_N, ny=DIST_N, order=8, iters=DIST_ITERS)
@@ -633,9 +866,11 @@ def main() -> int:
     dist_rows = {}
 
     def dist_path(label, out, kernel, timed):
-        """Hold ``out`` (the full halo grid) to ``run_heat`` and time the
-        same solve again through ``timed`` (an ``iterate``)."""
-        ulp, err = max_errors(torch.from_numpy(out), dist_ref)
+        """Hold ``out`` (the full halo grid) to ``run_heat`` (the ``pallas``
+        paths bit for bit) and time the same solve again through ``timed``
+        (an ``iterate``)."""
+        ulp, err = max_errors(torch.from_numpy(out), dist_ref,
+                              limit=0 if kernel == "pallas" else MAX_ULPS)
         if kernel == "pallas":
             note_local(ulp, err)
         seconds, _ = timed()
@@ -658,7 +893,8 @@ def main() -> int:
                              synchronous=sync)
         label = (f"run_distributed {DIST_N}x{DIST_N} {dim} "
                  f"{'sync' if sync else 'async'} {kernel}")
-        n_local = DIST_SHARDS * DIST_ITERS if kernel == "pallas" else 0
+        # one launch a device a step: the four shards share the card
+        n_local = DIST_ITERS if kernel == "pallas" else 0
         out = counted(label, only("local", n_local),
                       lambda p=p, kernel=kernel: heat2d.run_distributed(
                           p, local_kernel=kernel, devices=vdev))
@@ -671,10 +907,10 @@ def main() -> int:
     for mesh, k, kernel in [(mesh2d, 2, "xla"), (mesh2d, 4, "xla"),
                             (mesh2d, 2, "pallas"), (mesh2d, 4, "pallas"),
                             (mesh1, 1, "pallas")]:
-        shards = mesh.devices.size
+        devices = len(set(mesh.devices.flat))
         label = (f"run_distributed_heat {DIST_N}x{DIST_N} "
                  f"{'x'.join(map(str, mesh.devices.shape))} {kernel} k={k}")
-        n_local = shards * DIST_ITERS // k if kernel == "pallas" else 0
+        n_local = devices * DIST_ITERS // k if kernel == "pallas" else 0
         out = counted(label, only("local", n_local),
                       lambda mesh=mesh, k=k, kernel=kernel:
                       dist.run_distributed_heat(
@@ -686,41 +922,58 @@ def main() -> int:
             fail(f"{label}: ran k={k_used}")
         dist_path(label, out, kernel, iterate)
 
-    # B3 alone on the 2-D path's four padded blocks, per step
+    # B3 alone on the 2-D path's four padded blocks, per step: the batched
+    # call, and for the record the loop of four single-shard calls
     local_timing = []
     for k in (1, 2, 4):
         K = k * dist_p.border_size
         blocks = list(shard_blocks(dist_p, mesh2d, K,
                                    torch.float32).values())
+        pads = [blk for blk, _, _ in blocks]
+        offs = [(gy0, gx0) for _, gy0, gx0 in blocks]
         args = (dist_p.ny, dist_p.nx, dist_p.order, dist_p.xcfl,
                 dist_p.ycfl, dist_p.bc)
 
-        def launch_all(_, blocks=blocks, k=k):
+        def batched(_, pads=pads, offs=offs, k=k):
+            return sp.stencil_local_multistep_shards(pads, offs, *args, k=k)
+
+        def per_shard(_, blocks=blocks, k=k):
             return [sp.stencil_local_multistep(blk, gy0, gx0, *args, k=k)
                     for blk, gy0, gx0 in blocks]
 
-        ms = per_call_ms(launch_all, blocks[0][0], 200) / k
-        nbytes = sum(2 * blk.numel() * blk.element_size()
-                     for blk, _, _ in blocks)
+        ms = per_call_ms(batched, pads[0], 200) / k
+        loop_ms = per_call_ms(per_shard, pads[0], 200) / k
+        nbytes = sum(2 * blk.numel() * blk.element_size() for blk in pads)
         cost = roofline.Cost(nbytes, ops.flops_per_point(dist_p.order) * k
                              * DIST_N * DIST_N)
         b_ms, b_by = roofline.bound_ms(cost, peak, torch.float32)
-        local_timing.append({"k": k, "ms": ms, "bound_ms": b_ms / k,
-                             "bound_by": b_by,
-                             "gbs": dist_step.gbs(ms)})
-        print(f"B3 alone, 2x2 blocks of {DIST_N}x{DIST_N} k={k}: {ms:.6f} "
-              f"ms/step, bound {b_ms / k:.6f} ms/step by {b_by}")
+        plan = sp.launch_plan(pads[0], len(pads), k, dist_p.order)
+        local_timing.append({"k": k, "ms": ms, "per_shard_loop_ms": loop_ms,
+                             "bound_ms": b_ms / k, "bound_by": b_by,
+                             "gbs": dist_step.gbs(ms),
+                             "tile": f"{plan.tile_y}x{plan.tile_x}",
+                             "grid": list(plan.grid),
+                             "blocks_per_sm": plan.blocks_per_sm})
+        print(f"B3 alone, 2x2 blocks of {DIST_N}x{DIST_N} k={k}: batched "
+              f"{ms:.6f} ms/step (one launch, grid {plan.grid}, "
+              f"{plan.blocks_per_sm} blocks/SM), loop of four calls "
+              f"{loop_ms:.6f} ms/step; bound {b_ms / k:.6f} ms/step by "
+              f"{b_by}")
         if k == 1:
             local_plain_ms = per_call_ms(
-                lambda _: [sp.stencil_local_multistep_plain(blk, gy0, gx0,
-                                                            *args, k=1)
-                           for blk, gy0, gx0 in blocks], blocks[0][0], 5)
+                lambda _: sp.stencil_local_multistep_shards_plain(
+                    pads, offs, *args, k=1), pads[0], 5)
             w_dist = cross_weight(dist_p)
             local_library_ms = per_call_ms(
-                lambda _: [conv(blk[None, None], w_dist)
-                           for blk, _, _ in blocks], blocks[0][0], 20)
+                lambda _: [conv(blk[None, None], w_dist) for blk in pads],
+                pads[0], 20)
     print(f"B3 plain version {local_plain_ms:.6f} ms/step, conv2d "
           f"yardstick over the 4 padded blocks {local_library_ms:.6f} ms")
+
+    # the device's idle share of the 2-D pallas path's step loop
+    idle = idle_share(dheat, config, dist, torch, vdev, DIST_N)
+    print(f"idle share, run_distributed {DIST_N}x{DIST_N} 2d sync pallas: "
+          f"{json.dumps(idle)}")
 
     # the CLI: a 1x1 mesh of the physical card; the grid it computes is
     # caught on its way to the dumps
@@ -969,6 +1222,15 @@ def main() -> int:
         capture_output=True, text=True, timeout=60)
     print(f"card after the runs: {smi.stdout.strip()}")
 
+    # ---------------------------------------------------- 15. old vs new
+    if parent is None:
+        print("old-vs-new turns: not run (no --parent tree given)")
+        turns = None
+    else:
+        turns = old_new_turns(parent, torch, np, config, core, grid, ops,
+                              dist, dheat, sp)
+        print(f"old-vs-new turns: {json.dumps(turns)}")
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single, B2 through its own entry point at k = 1, B6 and B7 through
@@ -1014,9 +1276,9 @@ def main() -> int:
         "ms": k1["ms"], "plain_ms": local_plain_ms,
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": local_library_ms,
-        "unit": f"ms per step (4 launches on the 2x2 mesh's padded blocks), "
-                f"{DIST_N}x{DIST_N} order 8 f32, k=1",
-        "per_k": local_timing, "paths": dist_rows})
+        "unit": f"ms per step (one launch on the 2x2 mesh's four padded "
+                f"blocks), {DIST_N}x{DIST_N} order 8 f32, k=1",
+        "per_k": local_timing, "paths": dist_rows, "idle_share": idle})
     scan_rows = {
         "segscan": (b6_ms, b6_plain_ms, b6_bound, b6_by,
                     f"ms per scan, {SUITE} n={n} f32"),
@@ -1065,6 +1327,9 @@ def main() -> int:
         "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
         "bound_by": t_by, "library_ms": t_library_ms,
         "unit": f"ms per transpose, {SIDE}x{SIDE} f32"})
+    if turns is not None:
+        for row in kernels[:3]:
+            row["turns"] = turns
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

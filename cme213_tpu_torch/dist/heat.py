@@ -19,9 +19,9 @@ Step variants, as in the JAX package:
   exchange through the streams.  On the CPU the same code runs in order.
 - **k steps per exchange** (communication-avoiding): one K = k·border halo
   exchange, then k local steps with the Dirichlet bands re-imposed on
-  global coordinates; ``local_kernel="pallas"`` runs those k steps as one
-  launch of the hand-written kernel (B3,
-  ``ops/stencil_pipeline.stencil_local_multistep``).
+  global coordinates; ``local_kernel="pallas"`` runs those k steps of every
+  shard a device holds as one launch of the hand-written kernel (B3,
+  ``ops/stencil_pipeline.stencil_local_multistep_shards``).
 
 Every variant computes each cell with the same expression as
 ``ops.run_heat``, each operation rounded on its own, so every mesh, scheme,
@@ -40,8 +40,8 @@ import torch
 from ..config import SimParams
 from ..grid import interior, make_initial_grid
 from ..ops.stencil import stencil_interior
-from ..ops.stencil_pipeline import (stencil_local_multistep,
-                                    stencil_local_multistep_plain)
+from ..ops.stencil_pipeline import (stencil_local_multistep_plain,
+                                    stencil_local_multistep_shards)
 from .halo import pad_with_halos
 from .mesh import Mesh
 
@@ -176,15 +176,16 @@ def _overlap_local_step(blocks: Blocks, params: SimParams,
     return _per_shard(bands, padded)
 
 
-def _multistep_local_step(blocks: Blocks, params: SimParams, k: int,
-                          local=stencil_local_multistep_plain) -> Blocks:
+def _multistep_local_step(blocks: Blocks, params: SimParams,
+                          k: int) -> Blocks:
     """k timesteps per halo exchange (communication-avoiding stencil).
 
-    Exchanges K = k·border-wide halos once, then ``local`` applies k steps
-    to each K-padded block, re-imposing the physical and ghost bands on
-    global coordinates after each; the valid region shrinks by ``border``
-    a step and ends at the shard's own cells.  ``local`` defaults to the
-    plain torch steps; B3's wrapper is the other choice."""
+    Exchanges K = k·border-wide halos once, then applies k plain torch
+    steps to each K-padded block (``stencil_local_multistep_plain``),
+    re-imposing the physical and ghost bands on global coordinates after
+    each; the valid region shrinks by ``border`` a step and ends at the
+    shard's own cells.  ``_multistep_local_step_pallas`` runs the same
+    steps through B3."""
     b = params.border_size
     K = k * b
     padded = _assemble_padded(blocks, params, border=K)
@@ -194,8 +195,9 @@ def _multistep_local_step(blocks: Blocks, params: SimParams, k: int,
         # global halo-grid coordinates of p[0, 0]
         gy0 = yi * ny_loc + b - K
         gx0 = xi * nx_loc + b - K
-        out = local(p, gy0, gx0, params.ny, params.nx, params.order,
-                    params.xcfl, params.ycfl, params.bc, k=k)
+        out = stencil_local_multistep_plain(
+            p, gy0, gx0, params.ny, params.nx, params.order, params.xcfl,
+            params.ycfl, params.bc, k=k)
         return out[K:K + ny_loc, K:K + nx_loc]
 
     return _per_shard(shard, padded)
@@ -204,9 +206,23 @@ def _multistep_local_step(blocks: Blocks, params: SimParams, k: int,
 def _multistep_local_step_pallas(blocks: Blocks, params: SimParams,
                                  k: int) -> Blocks:
     """``_multistep_local_step`` with the hand-written kernel: one launch
-    (B3) a shard for the k steps (the hw5 pattern of running the hw2 kernel
-    under the communication layer).  Bitwise equal to the plain steps."""
-    return _multistep_local_step(blocks, params, k, stencil_local_multistep)
+    (B3) a device for the k steps of every shard it holds (the hw5 pattern
+    of running the hw2 kernel under the communication layer; the JAX
+    package's one ``pallas_call`` a device under ``shard_map``).  Bitwise
+    equal to the plain steps."""
+    b = params.border_size
+    K = k * b
+    padded = _assemble_padded(blocks, params, border=K)
+    ny_loc, nx_loc = blocks[0][0].shape
+    x_size = len(blocks[0])
+    # global halo-grid coordinates of each padded block's element [0, 0]
+    offsets = [(yi * ny_loc + b - K, xi * nx_loc + b - K)
+               for yi in range(len(blocks)) for xi in range(x_size)]
+    outs = stencil_local_multistep_shards(
+        [p for row in padded for p in row], offsets, params.ny, params.nx,
+        params.order, params.xcfl, params.ycfl, params.bc, k=k)
+    return [[outs[yi * x_size + xi][K:K + ny_loc, K:K + nx_loc]
+             for xi in range(x_size)] for yi in range(len(blocks))]
 
 
 def _local_step(params: SimParams, overlap: bool, k: int, local_kernel: str,
@@ -375,7 +391,8 @@ def run_distributed_heat(params: SimParams, mesh: Mesh,
     reference's per-rank ``grid{rank}_final.txt`` methodology.
 
     ``overlap`` defaults to ``not params.synchronous`` (hw5 ``sync`` flag).
-    ``local_kernel="pallas"`` runs the hand-written kernel per shard (B3).
+    ``local_kernel="pallas"`` runs the hand-written kernel (B3), one launch a
+    device for all its shards.
 
     ``conformance`` is accepted for the JAX package's signature.  There it
     probes the ``pallas`` and k>1 rungs against the reference first and

@@ -13,10 +13,12 @@ falls back to another implementation.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -58,10 +60,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Path of library ``name``'s build for the current source and flags."""
-    tag = hashlib.sha256(SOURCES[name].read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    """Path of library ``name``'s build for the current source, the headers
+    beside it (every ``csrc/*.cuh``, which any source may include) and the
+    flags."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> dict[str, Path]:
@@ -105,14 +111,28 @@ def build(*names: str) -> dict[str, Path]:
     return out
 
 
+#: shards one ``heat_ksteps`` launch takes (``csrc/heat_stencil.cu``
+#: kMaxShards)
+MAX_SHARDS = 32
+
+#: ``csrc/heat_stencil.cu``'s shard descriptor, ``struct HeatShard {const
+#: void* src; void* dst; int gy0, gx0;}``: 24 bytes, no padding
+HEAT_SHARD = struct.Struct("<QQii")
+
+
 def _bind_heat_stencil(lib: ctypes.CDLL) -> None:
     for name, real in (("heat_ksteps_f32", ctypes.c_float),
                        ("heat_ksteps_f64", ctypes.c_double)):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
-                       + [ctypes.c_int] * 11 + [real] * 6
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_char_p] + [ctypes.c_int] * 11
+                       + [real] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.heat_ksteps_occupancy.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.heat_ksteps_occupancy.restype = ctypes.c_int
+    lib.heat_ksteps_design.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    lib.heat_ksteps_design.restype = ctypes.c_int
     lib.heat_error_string.argtypes = [ctypes.c_int]
     lib.heat_error_string.restype = ctypes.c_char_p
 
@@ -164,49 +184,103 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def heat_ksteps(src: torch.Tensor, dst: torch.Tensor, *, order: int, k: int,
-                tile_y: int, tile_x: int, smem_bytes: int, ny: int, nx: int,
-                xcfl: float, ycfl: float,
-                bc: tuple[float, float, float, float], gy0: int = 0,
-                gx0: int = 0) -> None:
+def heat_ksteps(shards, *, order: int, k: int, tile_y: int, tile_x: int,
+                run: int, smem_bytes: int, ny: int, nx: int, xcfl: float,
+                ycfl: float, bc: tuple[float, float, float, float]) -> None:
     """Enqueue one launch of ``csrc/heat_stencil.cu:heat_ksteps``: ``k``
-    fused heat steps from ``src`` into ``dst`` on the current stream.
+    fused heat steps of every shard on the current stream.
 
-    ``src`` and ``dst`` are distinct contiguous (H, W) float32/float64
-    tensors on one CUDA device; ``(gy0, gx0)`` are the global halo-grid
-    coordinates of element [0, 0] and ``(ny, nx)`` the global interior
-    extents, which place the Dirichlet bands.  ``smem_bytes`` is the
-    block's shared memory (``stencil_pipeline.smem_bytes``).  Raises
-    ``FrameworkError`` when the launch is refused.
+    ``shards`` is a list of 1 to ``MAX_SHARDS`` tuples ``(src, dst, gy0,
+    gx0)``: contiguous (H, W) float32/float64 tensors of one shape and
+    dtype, all on one CUDA device, no ``dst`` the storage of any ``src``;
+    ``(gy0, gx0)`` are the global halo-grid coordinates of the block's
+    element [0, 0] and ``(ny, nx)`` the global interior extents, which
+    place the Dirichlet bands.  ``(tile_y, tile_x)``, ``run`` and
+    ``smem_bytes`` are the launch's decomposition
+    (``stencil_pipeline.launch_plan``).  Raises ``FrameworkError`` when the
+    launch is refused.
     """
-    if not (src.is_cuda and dst.device == src.device):
-        raise ValueError("heat_ksteps takes two tensors on one CUDA device")
-    if src.dtype not in (torch.float32, torch.float64) \
-            or dst.dtype != src.dtype:
+    n = len(shards)
+    if not 1 <= n <= MAX_SHARDS:
+        raise ValueError(f"heat_ksteps takes 1 to {MAX_SHARDS} shards, got "
+                         f"{n}")
+    first = shards[0][0]
+    dtype, shape, device = first.dtype, first.shape, first.device
+    if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"heat_ksteps takes float32 or float64 grids, got "
-                        f"{src.dtype} -> {dst.dtype}")
-    if src.dim() != 2 or dst.shape != src.shape:
-        raise ValueError(f"heat_ksteps takes two equal 2-D grids, got "
-                         f"{tuple(src.shape)} -> {tuple(dst.shape)}")
-    if not (src.is_contiguous() and dst.is_contiguous()):
-        raise ValueError("heat_ksteps takes contiguous grids")
-    if src.data_ptr() == dst.data_ptr():
+                        f"{dtype}")
+    if len(shape) != 2:
+        raise ValueError(f"heat_ksteps takes 2-D grids, got {tuple(shape)}")
+    fields = []  # the descriptors' fields, shard by shard
+    for src, dst, gy0, gx0 in shards:
+        if src.dtype != dtype or dst.dtype != dtype:
+            raise TypeError(f"heat_ksteps takes grids of one dtype, got "
+                            f"{src.dtype} -> {dst.dtype} beside {dtype}")
+        if src.shape != shape or dst.shape != shape:
+            raise ValueError(f"heat_ksteps takes grids of one shape, got "
+                             f"{tuple(src.shape)} -> {tuple(dst.shape)} "
+                             f"beside {tuple(shape)}")
+        if not (src.is_contiguous() and dst.is_contiguous()):
+            raise ValueError("heat_ksteps takes contiguous grids")
+        if src.device != device or dst.device != device:
+            raise ValueError("heat_ksteps takes tensors on one CUDA device")
+        fields += (src.data_ptr(), dst.data_ptr(), gy0, gx0)
+    if not set(fields[1::4]).isdisjoint(fields[0::4]):
         raise ValueError("heat_ksteps cannot update a grid in place")
+    if not first.is_cuda:
+        raise ValueError("heat_ksteps takes tensors on one CUDA device")
     lib = library("heat_stencil")
-    fn = lib.heat_ksteps_f32 if src.dtype == torch.float32 \
+    fn = lib.heat_ksteps_f32 if dtype == torch.float32 \
         else lib.heat_ksteps_f64
-    H, W = src.shape
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), dst.data_ptr(), H, W, gy0, gx0, ny, nx,
-                 order, k, tile_y, tile_x, smem_bytes, xcfl, ycfl, *bc,
-                 stream)
+    table = struct.pack("<" + HEAT_SHARD.format[1:] * n, *fields)
+    H, W = shape
+    # the launch goes to the current device; switching costs host time a
+    # step, so it is done only when the shards lie on another device
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    with contextlib.nullcontext() if index == current \
+            else torch.cuda.device(index):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table, n, H, W, ny, nx, order, k, tile_y, tile_x, run,
+                 smem_bytes, xcfl, ycfl, *bc, stream)
     if err != 0:
         raise FrameworkError(
             f"heat_ksteps launch failed: "
             f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
-            f"order={order} k={k} tile={tile_y}x{tile_x} grid={H}x{W} "
-            f"{src.dtype})")
+            f"order={order} k={k} tile={tile_y}x{tile_x} run={run} "
+            f"smem={smem_bytes} {n} shard(s) of {H}x{W} {dtype})")
+
+
+def heat_ksteps_occupancy(device: torch.device, dtype_bytes: int, order: int,
+                          k: int, smem_bytes: int) -> tuple[int, int, int]:
+    """(blocks an SM, registers a thread, local-memory bytes a thread) of
+    ``heat_ksteps``' instance for (dtype, order, k) at ``smem_bytes`` of
+    shared memory a block on ``device``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaFuncGetAttributes``; local memory holds what ptxas spills)."""
+    lib = library("heat_stencil")
+    buf = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = lib.heat_ksteps_occupancy(dtype_bytes, order, k, smem_bytes,
+                                        buf)
+    if err != 0:
+        raise FrameworkError(
+            f"heat_ksteps occupancy query failed: "
+            f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
+            f"order={order} k={k} smem={smem_bytes} {dtype_bytes}-byte)")
+    return tuple(buf)
+
+
+def heat_ksteps_design(dtype_bytes: int, k: int) -> tuple[int, int, int]:
+    """(strip width, threads a block, micro-tile rows) compiled into
+    ``csrc/heat_stencil.cu`` for the dtype size and k's class."""
+    buf = (ctypes.c_int * 3)()
+    lib = library("heat_stencil")
+    err = lib.heat_ksteps_design(dtype_bytes, k, buf)
+    if err != 0:
+        raise FrameworkError(f"no heat_ksteps design for {dtype_bytes}-byte "
+                             f"values at k={k}")
+    return tuple(buf)
 
 
 def segmented_scan_geometry() -> tuple[int, int, int, int]:

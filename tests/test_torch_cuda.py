@@ -27,7 +27,9 @@ from cme213_tpu_torch.ops import (LAUNCHES, run_heat, run_heat_pipeline,
                                   run_heat_pipeline2d,
                                   run_heat_pipeline_plain,
                                   stencil_local_multistep,
-                                  stencil_local_multistep_plain)
+                                  stencil_local_multistep_plain,
+                                  stencil_local_multistep_shards,
+                                  stencil_local_multistep_shards_plain)
 from cme213_tpu_torch.ops import _kernels
 from cme213_tpu_torch.ops import segmented_pallas as segp
 
@@ -51,10 +53,13 @@ def _grid(p, dtype, device, seed=0):
 
 @pytest.mark.parametrize("entry", [run_heat_pipeline, run_heat_pipeline2d])
 @pytest.mark.parametrize("order", [2, 4, 8])
-@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_bitwise_vs_plain(cuda, entry, order, k, dtype):
-    p = SimParams(nx=121, ny=257, order=order, bc_top=1.5, bc_left=0.5,
+@pytest.mark.parametrize("shape", [(257, 121), (5, 7)],
+                         ids=["257x121", "smaller-than-a-tile"])
+def test_kernel_bitwise_vs_plain(cuda, entry, order, k, dtype, shape):
+    ny, nx = shape
+    p = SimParams(nx=nx, ny=ny, order=order, bc_top=1.5, bc_left=0.5,
                   bc_bottom=2.0, bc_right=0.25)
     u = _grid(p, dtype, cuda, seed=order * k)
     args = (4 * k, order, p.xcfl, p.ycfl, p.bc)
@@ -64,6 +69,21 @@ def test_kernel_bitwise_vs_plain(cuda, entry, order, k, dtype):
     assert LAUNCHES[name] - before == 4
     ref = run_heat_pipeline_plain(u, *args, k=k)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("order", [2, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_bitwise_vs_plain_unaligned_rows(cuda, order, k, dtype):
+    # 3999 x 4001 interior: W·4 is not a multiple of 16 (order 2: 4003,
+    # order 8: 4009 columns), so the kernel stages element by element
+    p = SimParams(nx=4001, ny=3999, order=order, bc_top=1.5, bc_left=0.5,
+                  bc_bottom=2.0, bc_right=0.25)
+    u = _grid(p, dtype, cuda, seed=k)
+    args = (k, order, p.xcfl, p.ycfl, p.bc)
+    out = run_heat_pipeline2d(u, *args, k=k)
+    torch.testing.assert_close(out, run_heat_pipeline_plain(u, *args, k=k),
+                               rtol=0, atol=0)
 
 
 def test_kernel_matches_run_heat(cuda):
@@ -77,9 +97,58 @@ def test_kernel_matches_run_heat(cuda):
 def test_over_budget_tile_raises(cuda):
     p = SimParams(nx=300, ny=200, order=8)
     u = make_initial_grid(p, device=cuda)
+    # k = 16 at order 8: no tile's windows fit in a block
     with pytest.raises(ValueError, match="shared memory"):
+        run_heat_pipeline2d(u, 16, 8, p.xcfl, p.ycfl, p.bc, k=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        run_heat_pipeline(u, 8, 8, p.xcfl, p.ycfl, p.bc, k=8, tile_y=512)
+    with pytest.raises(ValueError, match="tile_x=1024"):
         run_heat_pipeline2d(u, 8, 8, p.xcfl, p.ycfl, p.bc, k=8, tile_y=64,
                             tile_x=1024)
+
+
+def test_refused_launch_raises(cuda):
+    u = torch.zeros(64, 64, device=cuda)
+    kw = dict(order=8, k=1, tile_y=32, tile_x=128, run=1, ny=56, nx=56,
+              xcfl=0.1, ycfl=0.1, bc=(1.0, 1.0, 1.0, 1.0))
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    good = sp.smem_bytes(32, 1, 8)
+    _kernels.heat_ksteps([(u, torch.empty_like(u), 0, 0)], smem_bytes=good,
+                         **kw)
+    for bad in (dict(smem_bytes=good - 16), dict(smem_bytes=good,
+                                                  tile_x=64)):
+        args = {**kw, **bad}
+        with pytest.raises(FrameworkError, match="heat_ksteps launch failed"):
+            _kernels.heat_ksteps([(u, torch.empty_like(u), 0, 0)], **args)
+
+
+def test_heat_design_matches_the_compiled_menu(cuda):
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    for elem in (4, 8):
+        for k in (1, 2, 3, 8):
+            d = sp.design(k, elem)
+            assert _kernels.heat_ksteps_design(elem, k) == (
+                d.tile_x, d.threads, d.rows)
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("elem", [4, 8])
+def test_heat_occupancy_and_no_spills(cuda, order, k, elem):
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    ty = sp.pick_pipeline_tile(4008, k, order, dtype_bytes=elem)
+    need = sp.smem_bytes(ty, k, order, elem)
+    blocks, regs, local = _kernels.heat_ksteps_occupancy(cuda, elem, order,
+                                                         k, need)
+    assert local == 0, f"{regs} registers, {local} B of local memory"
+    assert blocks >= 1
+    if elem == 4 and order == 8:
+        # the designs' occupancy: two blocks an SM at k = 1, three at k = 2,
+        # two at k = 3 and 4, one at k = 8
+        assert blocks >= {1: 2, 2: 3, 3: 2, 4: 2}.get(k, 1)
 
 
 def test_run_single_on_card(cuda, tmp_path):
@@ -194,7 +263,7 @@ def _shard_block(p, K, yi, xi, h, w, dtype, device, seed=0):
 @pytest.mark.parametrize("where", [(0, 0), (0, 1), (1, 1), (2, 2)],
                          ids=["corner", "edge", "interior", "ghost"])
 @pytest.mark.parametrize("order", [2, 4, 8])
-@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_local_kernel_bitwise_vs_plain(cuda, where, order, k, dtype):
     # a 3x3 decomposition of 299x401: 100x134 shards, the last row and
@@ -214,19 +283,62 @@ def test_local_kernel_bitwise_vs_plain(cuda, where, order, k, dtype):
                                atol=0)
 
 
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_local_kernel_nine_shards_in_one_launch(cuda, order, k, dtype):
+    # every shard of a 3x3 mesh on one device (corner, edge, interior and
+    # ghost shards among them) in one launch
+    p = SimParams(nx=401, ny=299, order=order, bc_top=1.5, bc_left=0.5,
+                  bc_bottom=2.0, bc_right=0.25)
+    K = k * p.border_size
+    shards = [_shard_block(p, K, yi, xi, 100, 134, dtype, cuda, seed=k)
+              for yi in range(3) for xi in range(3)]
+    blocks = [blk for blk, _, _ in shards]
+    offsets = [(gy0, gx0) for _, gy0, gx0 in shards]
+    args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+    before = LAUNCHES["local"]
+    out = stencil_local_multistep_shards(blocks, offsets, *args, k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["local"] - before == 1
+    ref = stencil_local_multistep_shards_plain(blocks, offsets, *args, k=k)
+    for got, want in zip(out, ref):
+        torch.testing.assert_close(got[K:-K, K:-K], want[K:-K, K:-K],
+                                   rtol=0, atol=0)
+
+
+def test_local_kernel_splits_a_long_table(cuda):
+    # 33 shards: two launches, the second of one shard
+    p = SimParams(nx=401, ny=299, order=4)
+    shards = [_shard_block(p, 4, 1, 1, 100, 134, torch.float32, cuda,
+                           seed=s) for s in range(33)]
+    blocks = [blk for blk, _, _ in shards]
+    offsets = [(gy0, gx0) for _, gy0, gx0 in shards]
+    args = (p.ny, p.nx, 4, p.xcfl, p.ycfl, p.bc)
+    before = LAUNCHES["local"]
+    out = stencil_local_multistep_shards(blocks, offsets, *args, k=2)
+    assert LAUNCHES["local"] - before == 2
+    for blk, got, (gy0, gx0) in zip(blocks, out, offsets):
+        want = stencil_local_multistep_plain(blk, gy0, gx0, *args, k=2)
+        torch.testing.assert_close(got[4:-4, 4:-4], want[4:-4, 4:-4],
+                                   rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("kernel,k,overlap", [
-    ("pallas", 1, False), ("pallas", 2, False), ("pallas", 4, False),
-    ("xla", 1, False), ("xla", 1, True), ("xla", 2, False)])
+    ("pallas", 1, False), ("pallas", 2, False), ("pallas", 3, False),
+    ("pallas", 4, False), ("xla", 1, False), ("xla", 1, True),
+    ("xla", 2, False)])
 def test_distributed_2x2_virtual_mesh_equals_run_heat(cuda, kernel, k,
                                                       overlap):
-    p = SimParams(nx=300, ny=200, order=8, iters=16, bc_top=1.5,
+    p = SimParams(nx=300, ny=200, order=8, iters=24, bc_top=1.5,
                   bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
     mesh = make_mesh_2d(2, 2, devices=virtual_devices(4))
     before = LAUNCHES["local"]
     out = run_distributed_heat(p, mesh, overlap=overlap,
                                steps_per_exchange=k, local_kernel=kernel)
     launched = LAUNCHES["local"] - before
-    assert launched == (4 * p.iters // k if kernel == "pallas" else 0)
+    # one launch a device (the four shards share one) a halo exchange
+    assert launched == (p.iters // k if kernel == "pallas" else 0)
     ref = run_heat(make_initial_grid(p, device=cuda), p.iters, p.order,
                    p.xcfl, p.ycfl).cpu().numpy()
     np.testing.assert_array_equal(out, ref)

@@ -224,6 +224,39 @@ def test_n_shards_equal_one_shard_and_run_heat(k, kernel):
     assert LAUNCHES["local"] == 0  # CPU shards take the plain version
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_pallas_step_is_one_batched_call_equal_to_run_heat(monkeypatch, k):
+    # a 3x3 mesh over a grid that does not divide: the last row and column
+    # of shards hold ghost lines
+    p = SimParams(nx=50, ny=46, order=8, iters=4, **BCS)
+    mesh = make_mesh_2d(3, 3, devices=virtual_devices(9, "cpu"))
+    calls = []
+    batched = dheat.stencil_local_multistep_shards
+
+    def spy(blocks, offsets, *a, **kw):
+        calls.append(len(blocks))
+        return batched(blocks, offsets, *a, **kw)
+
+    monkeypatch.setattr(dheat, "stencil_local_multistep_shards", spy)
+    out = run_distributed_heat(p, mesh, steps_per_exchange=k,
+                               local_kernel="pallas")
+    np.testing.assert_array_equal(out, _run_heat(p))
+    assert calls == [9] * (p.iters // k)  # every shard in one call
+    # the step itself, against the plain per-shard k steps
+    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+    u = dheat._pad_interior_for_mesh(
+        np.random.default_rng(1).uniform(0, 1, (p.ny, p.nx)), p, y_size,
+        x_size)
+    blocks = dheat._scatter(torch.from_numpy(u), dheat._shard_devices(
+        mesh, y_size, x_size), ny_loc, nx_loc)
+    got = dheat._multistep_local_step_pallas(blocks, p, k)
+    want = dheat._multistep_local_step(blocks, p, k)
+    for grow, wrow in zip(got, want):
+        for g, w in zip(grow, wrow):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert LAUNCHES["local"] == 0  # CPU shards take the plain version
+
+
 def test_f64_solve_bitwise_vs_run_heat():
     p = SimParams(nx=40, ny=48, order=8, iters=8, **BCS)
     mesh, _ = _meshes("2d2x2")

@@ -8,10 +8,13 @@ multiply-adds into FMAs; the measured gap is 1-4 ULP), and bitwise against
 the numpy golden, which rounds as the port does.
 
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).  Its tile decomposition — the staged window, the
-validity region shrinking by one border a sub-step, the Dirichlet bands on
-global coordinates, the tile written to a second grid — is modelled in
-numpy below and held bitwise against the plain version.
+``chip_smoke.py``).  Its decomposition — strips walked in runs of tiles,
+windows staged with quad-aligned column halos, 4 × R micro-tiles that
+cover each sub-step's region in whole quads and row chunks and so read
+margin, slack and stale cells, bands skipped in blocks that lie inside the
+interior, the tile written to a second grid — is modelled in numpy below,
+buffers initialised to NaN and kept from tile to tile, and held bitwise
+against the plain version.
 """
 
 import jax.numpy as jnp
@@ -30,7 +33,9 @@ from cme213_tpu_torch.ops import (LAUNCHES, pick_pipeline_tile,
                                   run_heat_pipeline, run_heat_pipeline2d,
                                   run_heat_pipeline_plain,
                                   stencil_local_multistep,
-                                  stencil_local_multistep_plain)
+                                  stencil_local_multistep_plain,
+                                  stencil_local_multistep_shards,
+                                  stencil_local_multistep_shards_plain)
 from cme213_tpu_torch.ops import _kernels
 from cme213_tpu_torch.ops import stencil_pipeline as sp
 from cme213_tpu_torch.ops.stencil import BORDER_FOR_ORDER, STENCIL_COEFFS
@@ -120,31 +125,97 @@ def test_pipeline_leaves_input_and_checks_k():
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype_bytes", [4, 8])
 def test_pick_pipeline_tile_fits_shared_memory(order, k, dtype_bytes):
+    d = sp.design(k, dtype_bytes)
     for tile_x in (None, sp.PIPELINE2D_TILE_BYTES // dtype_bytes):
         ty = pick_pipeline_tile(4008, k, order, tile_x=tile_x,
                                 dtype_bytes=dtype_bytes)
-        tx = tile_x or sp.PIPELINE_TILE_BYTES // dtype_bytes
-        assert 1 <= ty <= 64
-        assert sp.smem_bytes(ty, tx, k, order, dtype_bytes) \
+        assert 1 <= ty <= d.tile_y
+        assert sp.smem_bytes(ty, k, order, dtype_bytes) \
             <= sp.SMEM_BUDGET_BYTES
     assert pick_pipeline_tile(20, k, order, dtype_bytes=dtype_bytes) <= 20
 
 
 def test_tile_sizes_worked_in_the_design_note():
-    # k=1: one 40x136 f32 window; k=8: two 128x192 f32 windows
-    assert sp.smem_bytes(32, 128, 1, 8) == 21_760
-    assert sp.smem_bytes(64, 128, 8, 8) == 196_608
-    assert pick_pipeline_tile(4008, 8, 8) == 64
-    assert pick_pipeline_tile(4008, 8, 8, dtype_bytes=8) == 48
+    # k=1 f32: two 72x144 windows of a 64x128 tile, two blocks an SM
+    assert sp.smem_bytes(64, 1, 8) == 2 * 72 * 144 * 4 == 82_944
+    assert 2 * (82_944 + 1024) <= 233_472
+    # k=2 f32: three 64x88 windows of a 48x64 tile (R = 2), three an SM
+    assert pick_pipeline_tile(4008, 2, 8) == 48
+    assert sp.smem_bytes(48, 2, 8) == 3 * 64 * 88 * 4 == 67_584
+    assert 3 * (67_584 + 1024) <= 233_472
+    # k=4 f32: three 88x104 windows of a 56x64 tile, two blocks an SM;
+    # k=8: three 120x136 windows, one
+    assert pick_pipeline_tile(4008, 4, 8) == 56
+    assert sp.smem_bytes(56, 4, 8) == 3 * 88 * 104 * 4 == 109_824
+    assert 2 * (109_824 + 1024) <= 233_472
+    assert pick_pipeline_tile(4008, 8, 8) == 56
+    assert sp.smem_bytes(56, 8, 8) == 3 * 120 * 136 * 4 == 195_840
+    assert pick_pipeline_tile(4008, 8, 8, dtype_bytes=8) == 28
+    # order 2 at R = 8 keeps one micro-tile of slack rows, and rounds the
+    # column halo up to a quad
+    assert sp.smem_bytes(64, 1, 2) == 2 * (64 + 2 + 8) * (128 + 16) * 4
+    assert sp.smem_bytes(32, 2, 4) == 3 * (32 + 8) * (64 + 16) * 4
+
+
+def test_design_menu_maps_both_widths_to_one_design():
+    for elem in (4, 8):
+        for k in (1, 2, 3, 8):
+            d = sp.design(k, elem)
+            assert sp.design(k, elem, sp.PIPELINE_TILE_BYTES // elem) == d
+            assert sp.design(k, elem, sp.PIPELINE2D_TILE_BYTES // elem) == d
+            assert d == sp.DESIGNS[(elem, min(k, 3))]
+            assert d.tile_x % 4 == 0 and d.threads % 32 == 0
+    with pytest.raises(ValueError, match="tile_x=1024"):
+        sp.design(8, 4, 1024)
+    u = torch.zeros(20, 20)
+    with pytest.raises(ValueError, match="tile_x=96"):
+        run_heat_pipeline2d(u, 2, 2, 0.1, 0.1, BC, k=1, tile_x=96)
+    with pytest.raises(ValueError, match="k=0"):
+        sp.design(0)
+
+
+def test_pipeline_geometry_fills_one_wave():
+    # the 2x2 pallas path at 2000^2: four 1008^2 blocks, one launch of 8
+    # strips x 8 runs of 2 tiles x 4 shards = 256 blocks at 2 an SM (0.97
+    # of a wave of 264)
+    g = sp.pipeline_geometry(1008, 1008, 4, 1, 8, 64, 4, 132, 2)
+    assert (g.tile_x, g.run, g.grid) == (128, 2, (8, 8, 4))
+    assert g.smem == 82_944 and g.threads == 256
+    # the headline 4008^2 grid: 32 strips x 8 runs of 8 tiles
+    g = sp.pipeline_geometry(4008, 4008, 1, 1, 8, 64, 4, 132, 2)
+    assert (g.run, g.grid) == (8, (32, 8, 1))
+    # a grid smaller than one tile: one block
+    g = sp.pipeline_geometry(10, 10, 1, 2, 8, 32, 4, 132, 4)
+    assert (g.run, g.grid) == (1, (1, 1, 1))
+    # nine shards of a 3x3 mesh in one launch
+    g = sp.pipeline_geometry(677, 677, 9, 1, 8, 64, 4, 132, 2)
+    assert g.grid[2] == 9 and g.grid[0] * g.grid[1] * 9 <= 132 * 2 * 2
+    with pytest.raises(ValueError, match="shared memory"):
+        sp.pipeline_geometry(4008, 4008, 1, 16, 8, 8, 4, 132, 1)
 
 
 def test_kernel_wrapper_refuses_bad_arguments():
     u = torch.zeros(16, 16)
-    kw = dict(order=2, k=1, tile_y=8, tile_x=8,
-              smem_bytes=sp.smem_bytes(8, 8, 1, 2), ny=14, nx=14, xcfl=0.1,
+    kw = dict(order=2, k=1, tile_y=8, tile_x=128, run=1,
+              smem_bytes=sp.smem_bytes(8, 1, 2), ny=14, nx=14, xcfl=0.1,
               ycfl=0.1, bc=BC)
     with pytest.raises(ValueError, match="CUDA"):
-        _kernels.heat_ksteps(u, torch.zeros(16, 16), **kw)
+        _kernels.heat_ksteps([(u, torch.zeros(16, 16), 0, 0)], **kw)
+    with pytest.raises(ValueError, match="in place"):
+        _kernels.heat_ksteps([(u, u, 0, 0)], **kw)
+    with pytest.raises(ValueError, match="in place"):
+        v = torch.zeros(16, 16)
+        _kernels.heat_ksteps([(u, v, 0, 0), (v, torch.zeros(16, 16), 0, 0)],
+                             **kw)
+    with pytest.raises(ValueError, match="one shape"):
+        _kernels.heat_ksteps([(u, torch.zeros(16, 16), 0, 0),
+                              (torch.zeros(16, 17), torch.zeros(16, 17), 0,
+                               0)], **kw)
+    with pytest.raises(TypeError, match="one dtype"):
+        _kernels.heat_ksteps([(u, torch.zeros(16, 16, dtype=torch.float64),
+                               0, 0)], **kw)
+    with pytest.raises(ValueError, match="1 to 32 shards"):
+        _kernels.heat_ksteps([(u, torch.zeros(16, 16), 0, 0)] * 33, **kw)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -174,72 +245,156 @@ def test_library_path_keys_on_source_and_flags(monkeypatch):
     assert a.parent == _kernels.BUILD_DIR
 
 
+def test_library_path_keys_on_headers(monkeypatch, tmp_path):
+    for name in _kernels.SOURCES:
+        (tmp_path / f"{name}.cu").write_bytes(
+            _kernels.SOURCES[name].read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    monkeypatch.setattr(_kernels, "SOURCES", {
+        name: tmp_path / f"{name}.cu" for name in _kernels.SOURCES})
+    before = {name: _kernels.library_path(name) for name in _kernels.SOURCES}
+    (tmp_path / "tile.cuh").write_text("// a shared tile body\n")
+    after = {name: _kernels.library_path(name) for name in _kernels.SOURCES}
+    assert all(after[n] != before[n] for n in before)  # every tag moves
+    (tmp_path / "tile.cuh").write_text("// another tile body\n")
+    assert _kernels.library_path("heat_stencil") != after["heat_stencil"]
+
+
 # ------------------------------------------------ the kernel's decomposition
 
 
-def _kernel_model(u: np.ndarray, iters: int, order: int, xcfl, ycfl, bc,
-                  k: int, tile_y: int, tile_x: int, gy0: int = 0,
-                  gx0: int = 0, ny: int | None = None,
+def _kernel_model(u: np.ndarray, order: int, xcfl, ycfl, bc, k: int,
+                  tile_y: int, tile_x: int, rows: int, run: int,
+                  gy0: int = 0, gx0: int = 0, ny: int | None = None,
                   nx: int | None = None) -> np.ndarray:
-    """numpy model of one ``csrc/heat_stencil.cu`` launch per k steps.
-    ``(gy0, gx0)``: global halo-grid coordinates of ``u[0, 0]``; ``(ny,
-    nx)``: the global interior extents (default: ``u`` is the whole
-    grid)."""
+    """numpy model of one ``csrc/heat_stencil.cu`` launch on one grid
+    (every shard of a launch is decomposed alike).  ``(tile_x, rows)``:
+    the strip width and micro-tile height of the k class's design; ``run``:
+    the tiles a block walks.  ``(gy0, gx0)``: global halo-grid coordinates
+    of ``u[0, 0]``; ``(ny, nx)``: the global interior extents (default:
+    ``u`` is the whole grid).  Cells the launch does not write are NaN."""
     f = u.dtype.type
     b = BORDER_FOR_ORDER[order]
     K = k * b
+    KA = -(-K // 4) * 4
     H, W = u.shape
     ny = H - 2 * b if ny is None else ny
     nx = W - 2 * b if nx is None else nx
     coeffs = [f(c) for c in STENCIL_COEFFS[order]]
     top, left, bottom, right = (f(v) for v in bc)
     xcfl, ycfl = f(xcfl), f(ycfl)
-    WY, WX = tile_y + 2 * K, tile_x + 2 * K
-    src = u
+    typ = -(-tile_y // rows) * rows
+    WY = typ + 2 * K
+    slack = 0 if (2 * b) % rows == 0 else rows
+    WS = tile_x + 2 * KA
+    WB = WS + 8
+    tiles = -(-H // tile_y)
+
+    def substep(buf, r0, c0, nr, nc):
+        # the cells [r0, r0+nr) x [c0, c0+nc) of a window; the kernel loads
+        # whole quads, columns c0-4 .. c0+nc+3, and rows r0-b .. r0+nr+b-1
+        assert r0 - b >= 0 and r0 + nr + b <= buf.shape[0]
+        assert c0 % 4 == 0 and nc % 4 == 0 and nr % rows == 0
+        assert c0 - 4 >= 0 and c0 + nc + 4 <= buf.shape[1]
+        accx = np.zeros((nr, nc), u.dtype)
+        accy = np.zeros_like(accx)
+        for kk, c in enumerate(coeffs):
+            accx = accx + c * buf[r0:r0 + nr, c0 + kk - b:c0 + kk - b + nc]
+            accy = accy + c * buf[r0 + kk - b:r0 + kk - b + nr, c0:c0 + nc]
+        return buf[r0:r0 + nr, c0:c0 + nc] + xcfl * accx + ycfl * accy
+
+    def bands(new, grow, gcol):
+        gr = grow + np.arange(new.shape[0])[:, None]
+        gc = gcol + np.arange(new.shape[1])[None, :]
+        new = np.where(gr < b, bottom, new)
+        new = np.where(gr >= b + ny, top, new)
+        new = np.where(gc < b, left, new)
+        return np.where(gc >= b + nx, right, new)
+
+    dst = np.full_like(u, np.nan)
+    for tc in range(0, W, tile_x):
+        for t0 in range(0, tiles, run):
+            t1 = min(t0 + run, tiles)
+            # uninitialised shared memory, kept from tile to tile
+            bufs = [np.full((WY + slack, WB), np.nan, u.dtype)
+                    for _ in range(3)]
+            gcol0 = tc - KA - 4 + gx0
+            edge = not (t0 * tile_y - K + gy0 >= b
+                        and (t1 - 1) * tile_y - K + WY + slack + gy0
+                        <= b + ny
+                        and gcol0 >= b and gcol0 + WB <= b + nx)
+            for t in range(t0, t1):
+                cur = bufs[(t - t0) & 1]
+                rws = np.arange(t * tile_y - K, t * tile_y - K + WY)
+                cls = np.arange(tc - KA, tc - KA + WS)
+                ri = (rws >= 0) & (rws < H)
+                ci = (cls >= 0) & (cls < W)
+                win = np.zeros((WY, WS), u.dtype)  # 0 outside the grid
+                win[np.ix_(ri, ci)] = u[np.ix_(rws[ri], cls[ci])]
+                cur[:WY, 4:4 + WS] = win
+                grow0 = t * tile_y - K + gy0
+                src, nxt = cur, bufs[2]
+                for s in range(1, k):
+                    E = -(-((k - s) * b) // 4) * 4
+                    nr = -(-(typ + 2 * (k - s) * b) // rows) * rows
+                    r0, c0 = s * b, 4 + KA - E
+                    new = substep(src, r0, c0, nr, tile_x + 2 * E)
+                    if edge:
+                        new = bands(new, grow0 + r0, gcol0 + c0)
+                    nxt[r0:r0 + nr, c0:c0 + tile_x + 2 * E] = new
+                    src, nxt = nxt, src
+                new = substep(src, K, 4 + KA, typ, tile_x)
+                if edge:
+                    new = bands(new, grow0 + K, gcol0 + 4 + KA)
+                h, w = min(tile_y, H - t * tile_y), min(tile_x, W - tc)
+                dst[t * tile_y:t * tile_y + h, tc:tc + w] = new[:h, :w]
+    return dst
+
+
+def _model_iters(u, iters, order, xcfl, ycfl, bc, k, tile_y, tile_x, rows,
+                 run):
     for _ in range(iters // k):
-        dst = np.full_like(src, np.nan)
-        for r0 in range(0, H, tile_y):
-            for c0 in range(0, W, tile_x):
-                win = np.zeros((WY, WX), u.dtype)  # 0 outside the grid
-                rows = np.arange(r0 - K, r0 - K + WY)
-                cols = np.arange(c0 - K, c0 - K + WX)
-                ri = (rows >= 0) & (rows < H)
-                ci = (cols >= 0) & (cols < W)
-                win[np.ix_(ri, ci)] = src[np.ix_(rows[ri], cols[ci])]
-                for s in range(1, k + 1):
-                    lo = s * b
-                    ys, xs = slice(lo, WY - lo), slice(lo, WX - lo)
-                    accx = np.zeros((WY - 2 * lo, WX - 2 * lo), u.dtype)
-                    accy = np.zeros_like(accx)
-                    for kk, c in enumerate(coeffs):
-                        accx = accx + c * win[ys, lo + kk - b:WX - lo + kk - b]
-                        accy = accy + c * win[lo + kk - b:WY - lo + kk - b, xs]
-                    new = win[ys, xs] + xcfl * accx + ycfl * accy
-                    gr = gy0 + rows[ys, None]
-                    gc = gx0 + cols[None, xs]
-                    new = np.where(gr < b, bottom, new)
-                    new = np.where(gr >= b + ny, top, new)
-                    new = np.where(gc < b, left, new)
-                    new = np.where(gc >= b + nx, right, new)
-                    win = win.copy()
-                    win[ys, xs] = new  # cells outside the region: stale
-                h, w = min(tile_y, H - r0), min(tile_x, W - c0)
-                dst[r0:r0 + h, c0:c0 + w] = win[K:K + h, K:K + w]
-        src = dst
-    return src
+        u = _kernel_model(u, order, xcfl, ycfl, bc, k, tile_y, tile_x, rows,
+                          run)
+    return u
 
 
-@pytest.mark.parametrize("order,k,tile_y,tile_x",
-                         [(2, 1, 8, 16), (4, 2, 5, 7), (8, 2, 16, 8),
-                          (8, 4, 8, 32), (2, 8, 3, 11)])
-def test_kernel_decomposition_bitwise_vs_plain(order, k, tile_y, tile_x):
+@pytest.mark.parametrize("order,k,tile_y,tile_x,rows,run",
+                         [(2, 1, 8, 16, 8, 1), (4, 2, 5, 8, 4, 2),
+                          (8, 2, 16, 8, 8, 3), (8, 4, 8, 32, 8, 1),
+                          (2, 8, 3, 12, 2, 4), (4, 3, 7, 12, 8, 2),
+                          (2, 3, 9, 20, 4, 3)])
+def test_kernel_decomposition_bitwise_vs_plain(order, k, tile_y, tile_x,
+                                               rows, run):
+    # 29 x 37 interiors: no tile size divides the grid, and W (39, 41, 45)
+    # is not a multiple of 4
     p, u0 = _probe(order, ny=29, nx=37, seed=order + k)
     iters = 2 * k
-    model = _kernel_model(u0, iters, order, p.xcfl, p.ycfl, p.bc, k, tile_y,
-                          tile_x)
+    model = _model_iters(u0, iters, order, p.xcfl, p.ycfl, p.bc, k, tile_y,
+                         tile_x, rows, run)
     plain = run_heat_pipeline_plain(torch.from_numpy(u0), iters, order,
                                     p.xcfl, p.ycfl, p.bc, k=k)
     np.testing.assert_array_equal(model, plain.numpy())
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_kernel_model_at_the_compiled_designs(order, k, dtype):
+    # the designs the kernel is built with, at their default tiles and the
+    # runs pipeline_geometry gives a small card (2 SMs): a 70 x 150
+    # interior spans several strips and runs, and one tile of 4 x 9
+    p, u0 = _probe(order, ny=70, nx=150, seed=5 * order + k, dtype=dtype)
+    elem = np.dtype(dtype).itemsize
+    d = sp.design(k, elem)
+    for u in (u0, u0[:4 + 2 * p.border_size, :9 + 2 * p.border_size]):
+        ty = pick_pipeline_tile(u.shape[0], k, order, dtype_bytes=elem)
+        geo = sp.pipeline_geometry(*u.shape, 1, k, order, ty, elem, 2, 1)
+        model = _kernel_model(np.ascontiguousarray(u), order, p.xcfl, p.ycfl,
+                              p.bc, k, ty, d.tile_x, d.rows, geo.run)
+        plain = run_heat_pipeline_plain(torch.from_numpy(
+            np.ascontiguousarray(u)), k, order, p.xcfl, p.ycfl, p.bc, k=k)
+        np.testing.assert_array_equal(model, plain.numpy())
 
 
 # ------------------------------------------------ the shard kernel (B3)
@@ -275,8 +430,8 @@ SHARDS = {"corner": (0, 0), "edge": (0, 1), "interior": (1, 1),
 
 @pytest.mark.parametrize("where", list(SHARDS))
 @pytest.mark.parametrize("order,k,tile_y,tile_x",
-                         [(2, 1, 8, 16), (4, 2, 5, 7), (8, 2, 16, 8),
-                          (8, 4, 8, 32), (2, 4, 3, 11)])
+                         [(2, 1, 8, 16), (4, 2, 5, 8), (8, 2, 16, 8),
+                          (8, 4, 8, 32), (2, 4, 3, 12)])
 def test_shard_plain_bitwise_vs_kernel_model_and_run_heat(where, order, k,
                                                           tile_y, tile_x):
     p, u0 = _probe(order, ny=62, nx=74, seed=3 * order + k)
@@ -290,8 +445,8 @@ def test_shard_plain_bitwise_vs_kernel_model_and_run_heat(where, order, k,
     args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
     plain = stencil_local_multistep_plain(torch.from_numpy(blk), gy0, gx0,
                                           *args, k=k).numpy()
-    model = _kernel_model(blk, k, order, p.xcfl, p.ycfl, p.bc, k, tile_y,
-                          tile_x, gy0=gy0, gx0=gx0, ny=p.ny, nx=p.nx)
+    model = _kernel_model(blk, order, p.xcfl, p.ycfl, p.bc, k, tile_y,
+                          tile_x, 4, 2, gy0=gy0, gx0=gx0, ny=p.ny, nx=p.nx)
     valid = (slice(K, K + h), slice(K, K + w))
     np.testing.assert_array_equal(model[valid], plain[valid])
     # the whole grid k steps on, cut to the shard: the same cells
@@ -315,3 +470,54 @@ def test_shard_wrapper_refuses_bad_arguments():
         stencil_local_multistep(p[0], *args)
     with pytest.raises(ValueError, match="no kernel"):
         stencil_local_multistep(p.to("meta"), *args)
+
+
+def _mesh_shards(p, K, h, w, mesh=3):
+    """Every K-padded shard block of a ``mesh`` x ``mesh`` decomposition of
+    ``p``'s probe into h x w shards, with its offsets (gy0, gx0)."""
+    b = p.border_size
+    _, u0 = _probe(p.order, ny=p.ny, nx=p.nx, seed=7)
+    g = _ghost_padded(u0, p, mesh * h, mesh * w)
+    blocks, offsets = [], []
+    for yi in range(mesh):
+        for xi in range(mesh):
+            blocks.append(torch.from_numpy(np.ascontiguousarray(
+                _padded_window(g, p, K, yi * h, xi * w, h, w))))
+            offsets.append((yi * h + b - K, xi * w + b - K))
+    return u0, blocks, offsets
+
+
+@pytest.mark.parametrize("order,k", [(2, 1), (4, 2), (8, 1), (8, 3)])
+def test_shards_wrapper_equals_per_shard_plain(order, k):
+    p, _ = _probe(order, ny=62, nx=74)
+    K = k * p.border_size
+    u0, blocks, offsets = _mesh_shards(p, K, 21, 25)
+    args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+    out = stencil_local_multistep_shards(blocks, offsets, *args, k=k)
+    ref = stencil_local_multistep_shards_plain(blocks, offsets, *args, k=k)
+    assert len(out) == len(ref) == 9
+    whole = _ghost_padded(host_heat(u0, k, order, p.xcfl, p.ycfl), p, 63, 75)
+    for (gy0, gx0), got, want in zip(offsets, out, ref):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        y0, x0 = gy0 + K - p.border_size, gx0 + K - p.border_size
+        np.testing.assert_array_equal(got[K:-K, K:-K].numpy(),
+                                      whole[y0:y0 + 21, x0:x0 + 25])
+    # the table of one is the single-shard entry point
+    one = stencil_local_multistep(blocks[4], *offsets[4], *args, k=k)
+    np.testing.assert_array_equal(one.numpy(), ref[4].numpy())
+    assert LAUNCHES["local"] == 0  # CPU shards take the plain version
+
+
+def test_shards_wrapper_refuses_mixed_shards():
+    a = torch.zeros(16, 16)
+    args = (14, 14, 2, 0.1, 0.1, BC)
+    with pytest.raises(ValueError, match="mixed shapes"):
+        stencil_local_multistep_shards([a, torch.zeros(16, 17)],
+                                       [(0, 0), (0, 14)], *args)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        stencil_local_multistep_shards([a, a.double()], [(0, 0), (0, 14)],
+                                       *args)
+    with pytest.raises(ValueError, match="offsets"):
+        stencil_local_multistep_shards([a, a], [(0, 0)], *args)
+    with pytest.raises(ValueError, match="offsets"):
+        stencil_local_multistep_shards([], [], *args)
