@@ -104,11 +104,14 @@ the run (non-zero exit) when it fails:
    their plain versions on the same CUDA tensors: ``run_heat_pallas`` (B4,
    k = 1) and ``run_heat_multistep`` (B5) × order ∈ {2,4,8} × k ∈
    {1,2,3,4,8} at the sweeps' tiles (40, 80, 200, 400 at 2000²; a cell
-   whose window fits no block is listed and skipped), the main path's
-   4000² tile 200 at k ∈ {1,2,4,8}, an awkward shape (255×121, tile 85),
-   f64, and B4 (and ``stencil_interior_pallas``) on a halo that does not
-   hold the boundary values.  Fails above 10 ULP; 0 is expected.  Prints
-   each sweep cell's decomposition (strip width, buffers, blocks).
+   whose windows fit no block is listed and skipped), the main path's
+   4000² tile 200 at k ∈ {1,2,4,8}, 255×121 at tile 85 (a ragged row
+   chunk) at orders 2, 4 and 8, 3999×4001 (rows not 16-byte aligned), f64
+   at every k class, and B4 (and ``stencil_interior_pallas``, which writes
+   a bare array) at orders 2, 4 and 8 on a halo that does not hold the
+   boundary values.  Fails above 0 ULP.  Prints each case's launch plan
+   (strip width, threads, micro-tile rows, buffers, run, blocks an SM,
+   registers, local memory) and fails if an instance spills.
 13. B8, the tiled transpose (``ops.transpose.transpose_pallas``), against
    ``x.t().contiguous()``: 4096² f32 with tile 256, a non-square shape and
    1-, 2-, 4- and 8-byte dtypes; bit for bit.
@@ -119,14 +122,20 @@ the run (non-zero exit) when it fails:
    tiles 40, 80, 200, 400; 2^26-float scans and the 4096² transpose).
    Every CSV row must have an empty ``error``.  Then one full-size
    ``run_heat_pallas`` and one ``run_heat_multistep`` per k, held to
-   ``ops.run_heat`` within ULP-10; B4 and B5 per step and B8 per call
-   (CUDA events) beside their bounds, plain versions and library calls
-   (``conv2d``, phase 4's; ``x.t().contiguous()``); and the other ported
-   sweeps at ``--quick`` as a coverage run (exit 0, no error row).
+   ``ops.run_heat`` at 0 ULP; B4 and B5 per step and B8 per call (CUDA
+   events) beside their bounds, plain versions and library calls
+   (``conv2d``, phase 4's; ``x.t().contiguous()``), with each cell's plan;
+   B4 at each ``pallas_tile`` cell by CUDA events and by the host clock,
+   beside that cell's bound; the device's idle share of a 100-step B4
+   solve at 2000² tile_y 200 (as phase 10 measures it); and the other
+   ported sweeps at ``--quick`` as a coverage run (exit 0, no error row).
 
-15. With ``--parent DIR``: the tentpole's old-vs-new turns, parent,
-   this tree, this tree, parent, in one process on one card: B1 and B2 at
-   4000² order 8 (ms per step at k ∈ {1,2,4,8}; B2 at k = 1), B3 alone on
+15. With ``--parent DIR``: old-vs-new turns, parent, this tree, this
+   tree, parent, in one process on one card: B1 and B2 at 4000² order 8
+   (ms per step at k ∈ {1,2,4,8}; B2 at k = 1), with ``heat_stencil.cu``'s
+   ptxas report (registers, spills) compared to the parent's build; B4
+   and B5 at 4000² tile_y 200 (k ∈ {1,2,4,8}); B4 at 2000² at each
+   ``pallas_tile`` tile, by CUDA events and by the host clock; B3 alone on
    the four 1008² blocks (the parent's loop of four launches against the
    batched call) and the 2-D ``pallas`` distributed solve at 2000² (ms
    per step by ``iterate()``).  The parent's package is imported under
@@ -221,24 +230,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def idle_share(dheat, config, dist, torch, devices, n, steps=100):
-    """The device's idle share over the step loop of the 2-D sync ``pallas``
-    distributed solve at n², order 8 (``steps`` steps after a warm-up):
-    1 − (union of the CUDA kernel and copy intervals the profiler saw) ÷
-    (the host-clock length of the loop, synchronised at both ends), over
-    the profiled loop and over the same loop run again unprofiled."""
+def idle_share(torch, run, steps):
+    """The device's idle share over ``run()``, a loop of ``steps`` steps
+    (after a warm-up): 1 − (union of the CUDA kernel and copy intervals the
+    profiler saw) ÷ (the host-clock length of the loop, synchronised at
+    both ends), over the profiled loop and over the same loop run again
+    unprofiled."""
     from torch.profiler import ProfilerActivity, profile
-
-    p = config.SimParams(nx=n, ny=n, order=8, iters=steps,
-                         grid_method=config.GridMethod.BLOCKS_2D)
-    mesh = dist.mesh_for_method(p.grid_method, devices=devices)
-    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
-    u0 = torch.full((y_size * ny_loc, x_size * nx_loc), p.ic)
-    blocks = dheat._scatter(u0, dheat._shard_devices(mesh, y_size, x_size),
-                            ny_loc, nx_loc)
-
-    def run():
-        return dheat._run(blocks, p, steps, False, 1, "pallas")
 
     run()
     torch.cuda.synchronize()
@@ -278,8 +276,22 @@ def idle_share(dheat, config, dist, torch, devices, n, steps=100):
             "top_device_ms": {name[:60]: us / 1e3 for name, us in top}}
 
 
+def dist_idle_share(dheat, config, dist, torch, devices, n, steps=100):
+    """``idle_share`` of the step loop of the 2-D sync ``pallas``
+    distributed solve at n², order 8 (``steps`` steps)."""
+    p = config.SimParams(nx=n, ny=n, order=8, iters=steps,
+                         grid_method=config.GridMethod.BLOCKS_2D)
+    mesh = dist.mesh_for_method(p.grid_method, devices=devices)
+    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+    u0 = torch.full((y_size * ny_loc, x_size * nx_loc), p.ic)
+    blocks = dheat._scatter(u0, dheat._shard_devices(mesh, y_size, x_size),
+                            ny_loc, nx_loc)
+    return idle_share(torch, lambda: dheat._run(blocks, p, steps, False, 1,
+                                                "pallas"), steps)
+
+
 def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
-                  sp):
+                  sp, spl):
     """Phase 15: parent, this tree, this tree, parent, each metric in turns
     in this process (ms per step)."""
     import importlib.util
@@ -297,7 +309,21 @@ def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
     oops = importlib.import_module("parent_cme213_tpu_torch.ops")
     osp = importlib.import_module("parent_cme213_tpu_torch.ops."
                                   "stencil_pipeline")
-    importlib.import_module("parent_cme213_tpu_torch.ops._kernels").build()
+    okern = importlib.import_module("parent_cme213_tpu_torch.ops._kernels")
+    okern.build()
+    # heat_stencil.cu now includes the shared tile body: its instances'
+    # registers, shared memory and spills as ptxas reports them, against
+    # the parent's build
+    from cme213_tpu_torch.ops import _kernels
+
+    def ptxas(kern):
+        log = kern.library_path("heat_stencil").with_suffix(".log")
+        return [line.split("ptxas info    :")[-1].strip()
+                for line in log.read_text().splitlines() if "Used" in line]
+
+    same = ptxas(okern) == ptxas(_kernels)
+    print(f"  heat_stencil.cu ptxas report (registers, spills) equal to the "
+          f"parent's: {same}")
 
     full = config.SimParams(nx=FULL_N, ny=FULL_N, order=FULL_ORDER)
     u = grid.make_initial_grid(full, device="cuda")
@@ -307,8 +333,21 @@ def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
     def ms_of(fn, reps):
         return core.time_fn(lambda _: fn(), u, warmup=1, iters=2) / reps
 
-    def turn(label, old_fn, new_fn, reps):
-        a, b, c, d = (ms_of(fn, reps)
+    def host_ms_of(fn, reps):
+        """Best of 2 host-clocked runs after a warm-up, synchronised at
+        both ends (as the sweeps time a cell)."""
+        fn()
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best / reps
+
+    def turn(label, old_fn, new_fn, reps, timer=ms_of):
+        a, b, c, d = (timer(fn, reps)
                       for fn in (old_fn, new_fn, new_fn, old_fn))
         print(f"  turns {label}: parent {a:.6f}, new {b:.6f}, new {c:.6f}, "
               f"parent {d:.6f} ms/step")
@@ -327,6 +366,37 @@ def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
         f"B2 {FULL_N}x{FULL_N} k=1",
         lambda: oops.run_heat_pipeline2d(u, *args, k=1),
         lambda: ops.run_heat_pipeline2d(u, *args, k=1), n)
+    # B4 and B5, the band kernel: 4000² at tile_y 200, and B4 at 2000² at
+    # each pallas_tile tile, by CUDA events and by the host clock
+    ospl = importlib.import_module("parent_cme213_tpu_torch.ops."
+                                   "stencil_pallas")
+    for k in (1, 2, 4, 8):
+        if k == 1:
+            def band(m, mod, v=u):
+                return mod.run_heat_pallas(v, m, *args[1:4],
+                                           tile_y=BAND_TILE)
+        else:
+            def band(m, mod, k=k, v=u):
+                return mod.run_heat_multistep(v, m, *args[1:], k=k,
+                                              tile_y=BAND_TILE)
+        if not torch.equal(band(8, ospl), band(8, spl)):
+            fail(f"turns: parent and new band kernels differ at k={k}")
+        out[f"{'B4' if k == 1 else 'B5'} k={k}"] = turn(
+            f"{'B4' if k == 1 else 'B5'} {FULL_N}x{FULL_N} tile_y "
+            f"{BAND_TILE} k={k}", lambda band=band: band(n, ospl),
+            lambda band=band: band(n, spl), n)
+    tp = config.SimParams(nx=DIST_N, ny=DIST_N, order=8)
+    tu = grid.make_initial_grid(tp, device="cuda")
+    for tile in (40, 80, 200, 400):
+        def b4(mod, tile=tile):
+            return mod.run_heat_pallas(tu, 100, 8, tp.xcfl, tp.ycfl,
+                                       tile_y=tile)
+        if not torch.equal(b4(ospl), b4(spl)):
+            fail(f"turns: parent and new B4 differ at tile_y {tile}")
+        for clock, timer in (("events", ms_of), ("host", host_ms_of)):
+            out[f"B4 {DIST_N} tile_y {tile} {clock}"] = turn(
+                f"B4 {DIST_N}x{DIST_N} tile_y {tile} ({clock} clock)",
+                lambda b4=b4: b4(ospl), lambda b4=b4: b4(spl), 100, timer)
     vdev = core.virtual_devices(DIST_SHARDS)
     dp = config.SimParams(nx=DIST_N, ny=DIST_N, order=8)
     mesh = dist.make_mesh_2d(2, 2, devices=vdev)
@@ -971,7 +1041,7 @@ def main(argv=None) -> int:
           f"yardstick over the 4 padded blocks {local_library_ms:.6f} ms")
 
     # the device's idle share of the 2-D pallas path's step loop
-    idle = idle_share(dheat, config, dist, torch, vdev, DIST_N)
+    idle = dist_idle_share(dheat, config, dist, torch, vdev, DIST_N)
     print(f"idle share, run_distributed {DIST_N}x{DIST_N} 2d sync pallas: "
           f"{json.dumps(idle)}")
 
@@ -1038,26 +1108,46 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def band_note(name, got, ref, label):
-        ulp, err = max_errors(got, ref)
+        ulp, err = max_errors(got, ref, limit=0)
         band_ulp[name] = max(band_ulp[name], ulp)
         band_err[name] = max(band_err[name], err)
         print(f"  vs plain: {label}: max ULP {ulp}, max |err| {err:.3g}")
 
+    def band_plan(u, order, k, tile):
+        """The launch plan of the band kernel for grid ``u`` and what the
+        card says of its instance, as a dict and a printable line."""
+        plan = spl.launch_plan(u, k, order, tile)
+        per_sm, regs, local = _kernels.heat_band_occupancy(
+            dev, u.element_size(), order, k, plan.smem)
+        blocks = plan.grid[0] * plan.grid[1]
+        row = {"tile": f"{plan.tile_y}x{plan.tile_x}",
+               "threads": plan.threads, "rows": plan.rows,
+               "nbuf": plan.nbuf, "run": plan.run, "grid": list(plan.grid),
+               "smem": plan.smem, "blocks_per_sm": per_sm,
+               "registers": regs, "local_bytes": local,
+               "waves": blocks / (sms * max(1, per_sm))}
+        line = (f"TX {plan.tile_x}, {plan.threads} threads, R {plan.rows}, "
+                f"nbuf {plan.nbuf}, run {plan.run}, grid {plan.grid}, smem "
+                f"{plan.smem} B, {per_sm} blocks/SM, {regs} registers, "
+                f"{local} B local (spills), {row['waves']:.2f} waves")
+        if local:
+            fail(f"band kernel spills at order {order} k={k} tile {tile}: "
+                 f"{line}")
+        return row, line
+
     def band_case(n_y, n_x, order, k, tile, dtype, seed):
         p = config.SimParams(nx=n_x, ny=n_y, order=order, bc_top=1.5,
                              bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
-        try:
-            geo = spl.band_geometry(p.ny, p.nx, tile, k, order,
-                                    torch.finfo(dtype).bits // 8, sms)
-        except ValueError as e:
-            print(f"  skipped: {n_y}x{n_x} order {order} k={k} tile {tile}: "
-                  f"{e}")
-            return
         u = seeded_grid(p, dtype, seed)
+        try:
+            _, plan = band_plan(u, order, k, tile)
+        except ValueError as e:
+            print(f"  skipped: {n_y}x{n_x} order {order} k={k} tile {tile} "
+                  f"{str(dtype)[6:]}: {e}")
+            return
         args = (2 * k, order, p.xcfl, p.ycfl)
         label = (f"{n_y}x{n_x} order {order} k={k} tile {tile} "
-                 f"{str(dtype)[6:]} (TX {geo.tile_x}, nbuf {geo.nbuf}, run "
-                 f"{geo.run}, grid {geo.grid})")
+                 f"{str(dtype)[6:]} ({plan})")
         band_note("multistep", spl.run_heat_multistep(u, *args, p.bc, k=k,
                                                       tile_y=tile),
                   spl.run_heat_multistep_plain(u, *args, p.bc, k=k),
@@ -1078,32 +1168,47 @@ def main(argv=None) -> int:
     for k in (1, 2, 4, 8):
         band_case(FULL_N, FULL_N, FULL_ORDER, k, BAND_TILE, torch.float32,
                   100 + k)
-    band_case(255, 121, 8, 1, 85, torch.float32, 110)
-    band_case(255, 121, 4, 3, 85, torch.float32, 111)
-    band_case(DIST_N, DIST_N, 8, 1, 80, torch.float64, 112)
-    band_case(DIST_N, DIST_N, 8, 2, 80, torch.float64, 113)
-    # B4 on a halo that does not hold the boundary values: it passes through
-    p = config.SimParams(nx=DIST_N, ny=DIST_N, order=8)
-    u = seeded_grid(p, torch.float32, 114)
-    u[:4] += 3.0
-    u[:, -4:] -= 2.0
-    band_note("stencil_full",
-              spl.run_heat_pallas(u, 3, 8, p.xcfl, p.ycfl, tile_y=40),
-              spl.run_heat_pallas_plain(u, 3, 8, p.xcfl, p.ycfl),
-              f"B4 {DIST_N}x{DIST_N} foreign halo tile 40")
-    band_note("stencil_full",
-              spl.stencil_interior_pallas(u, 8, p.xcfl, p.ycfl, tile_y=40),
-              spl.stencil_interior_pallas_plain(u, 8, p.xcfl, p.ycfl),
-              f"B4 stencil_interior_pallas {DIST_N}x{DIST_N} foreign halo")
+    # tile_y 85 is no multiple of any micro-tile height (a ragged row
+    # chunk); orders 2 and 4 put the interior off the 16-byte grid
+    for order in (2, 4, 8):
+        for k in (1, 2, 3):
+            band_case(255, 121, order, k, 85, torch.float32, 110 + order + k)
+    # rows not 16-byte aligned: staged and stored cell by cell
+    band_case(3999, 4001, 8, 1, 93, torch.float32, 120)
+    band_case(3999, 4001, 2, 2, 93, torch.float32, 121)
+    # f64 at every k class
+    for k in (1, 2, 3, 4, 8):
+        band_case(DIST_N, DIST_N, 8, k, 80, torch.float64, 130 + k)
+    band_case(255, 121, 2, 3, 85, torch.float64, 136)
+    # B4 on a halo that does not hold the boundary values: it passes
+    # through; stencil_interior_pallas writes a bare (ny, nx) array, whose
+    # rows at orders 2 and 4 are off a grid quad's 16-byte store
+    for order in (8, 4, 2):
+        b = order // 2
+        p = config.SimParams(nx=DIST_N, ny=DIST_N, order=order)
+        u = seeded_grid(p, torch.float32, 114 + order)
+        u[:b] += 3.0
+        u[:, -b:] -= 2.0
+        band_note("stencil_full",
+                  spl.run_heat_pallas(u, 3, order, p.xcfl, p.ycfl,
+                                      tile_y=40),
+                  spl.run_heat_pallas_plain(u, 3, order, p.xcfl, p.ycfl),
+                  f"B4 {DIST_N}x{DIST_N} order {order} foreign halo tile 40")
+        band_note("stencil_full",
+                  spl.stencil_interior_pallas(u, order, p.xcfl, p.ycfl,
+                                              tile_y=40),
+                  spl.stencil_interior_pallas_plain(u, order, p.xcfl,
+                                                    p.ycfl),
+                  f"B4 stencil_interior_pallas {DIST_N}x{DIST_N} order "
+                  f"{order} into a bare array, foreign halo")
+    band_plans = {}
     for n_sq, tile, k in [(DIST_N, t, 1) for t in (40, 80, 200, 400)] + [
             (FULL_N, BAND_TILE, k) for k in (1, 2, 4, 8)]:
-        geo = spl.band_geometry(n_sq, n_sq, tile, k, 8, 4, sms)
-        blocks = geo.grid[0] * geo.grid[1]
-        print(f"decomposition {n_sq}^2 order 8 f32 tile_y {tile} k={k}: TX "
-              f"{geo.tile_x}, nbuf {geo.nbuf}, {geo.run} tiles a block, "
-              f"grid {geo.grid} = {blocks} blocks, smem {geo.smem} B, "
-              f"{geo.blocks_per_sm} a SM -> {blocks / (sms * geo.blocks_per_sm):.2f} "
-              f"waves on {sms} SMs")
+        p = config.SimParams(nx=n_sq, ny=n_sq, order=8)
+        row, line = band_plan(grid.make_initial_grid(p, device=dev), 8, k,
+                              tile)
+        band_plans[f"{n_sq}^2 tile_y {tile} k={k}"] = row
+        print(f"plan {n_sq}^2 order 8 f32 tile_y {tile} k={k}: {line}")
 
     # ---------------------------------------------------- 13. B8 vs library
     def transpose_case(shape, dtype, tile):
@@ -1183,12 +1288,48 @@ def main(argv=None) -> int:
         ms = core.time_fn(fn, u, warmup=1, iters=2) / n_band
         launch = roofline.Cost(step.nbytes, step.flops * k)
         b_ms, b_by = roofline.bound_ms(launch, peak, torch.float32)
+        row, line = band_plan(u, full.order, k, BAND_TILE)
         band_timing.setdefault(name, []).append(
             {"k": k, "ms": ms, "bound_ms": b_ms / k, "bound_by": b_by,
-             "gbs": step.gbs(ms)})
+             "gbs": step.gbs(ms), "share_of_bound": b_ms / k / ms,
+             "plan": row})
         print(f"full {name} k={k} tile {BAND_TILE}: {ms:.6f} ms/step, "
               f"{step.gbs(ms):.1f} GB/s, bound {b_ms / k:.6f} ms/step by "
-              f"{b_by}")
+              f"{b_by} ({b_ms / k / ms:.0%}); plan: {line}")
+    # B4 at the pallas_tile cells (2000², 100 steps): kernel time (CUDA
+    # events) and the host-clocked solve the sweep reports, with each
+    # cell's own bound
+    tp_p = config.SimParams(nx=pt["size"], ny=pt["size"], order=pt["order"])
+    tp_u = grid.make_initial_grid(tp_p, device=dev)
+    tp_step = roofline.heat_cost(tp_p.ny, tp_p.nx, order=tp_p.order,
+                                 iters=1)
+    tp_bound, tp_by = roofline.bound_ms(tp_step, peak, torch.float32)
+    tile_timing = []
+    for tile in pt["tiles"]:
+        def solve(v, tile=tile):
+            return spl.run_heat_pallas(v, pt["iters"], tp_p.order,
+                                       tp_p.xcfl, tp_p.ycfl, tile_y=tile)
+        ms = core.time_fn(solve, tp_u, warmup=1, iters=3) / pt["iters"]
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(tp_u)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3 / pt["iters"])
+        row, line = band_plan(tp_u, tp_p.order, 1, tile)
+        tile_timing.append({"tile_y": tile, "ms": ms, "host_ms": min(host),
+                            "bound_ms": tp_bound, "bound_by": tp_by,
+                            "share_of_bound": tp_bound / ms, "plan": row})
+        print(f"B4 pallas_tile {pt['size']}^2 tile_y {tile}: {ms:.6f} "
+              f"ms/step by CUDA events, {min(host):.6f} host-clocked; "
+              f"bound {tp_bound:.6f} by {tp_by} ({tp_bound / ms:.0%}); "
+              f"plan: {line}")
+    band_idle = idle_share(
+        torch, lambda: spl.run_heat_pallas(tp_u, 100, tp_p.order, tp_p.xcfl,
+                                           tp_p.ycfl, tile_y=BAND_TILE), 100)
+    print(f"idle share, run_heat_pallas {pt['size']}x{pt['size']} tile_y "
+          f"{BAND_TILE}, 100 steps: {json.dumps(band_idle)}")
 
     m = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (SIDE, SIDE)).astype(np.float32)).to(dev)
@@ -1228,7 +1369,7 @@ def main(argv=None) -> int:
         turns = None
     else:
         turns = old_new_turns(parent, torch, np, config, core, grid, ops,
-                              dist, dheat, sp)
+                              dist, dheat, sp, spl)
         print(f"old-vs-new turns: {json.dumps(turns)}")
 
     # ---------------------------------------------------- summary lines
@@ -1316,7 +1457,11 @@ def main(argv=None) -> int:
             "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
                     f"f32, tile_y {BAND_TILE}, k={first['k']}",
             "per_k": per_k})
-    kernels[-2]["sweep_rows"] = csv_rows  # B4's row: the sweeps' CSVs
+    # B4's row: the sweeps' CSVs, the pallas_tile cells by CUDA events and
+    # host clock, the idle share of a 2000² solve; both rows: the plans
+    kernels[-2].update(sweep_rows=csv_rows, pallas_tile=tile_timing,
+                       idle_share=band_idle)
+    kernels[-2]["plans"] = kernels[-1]["plans"] = band_plans
     kernels.append({
         "name": "transpose_tiles", "route": "cuda",
         "source": SOURCE["transpose"], "replaces": REPLACES["transpose"],
@@ -1328,7 +1473,7 @@ def main(argv=None) -> int:
         "bound_by": t_by, "library_ms": t_library_ms,
         "unit": f"ms per transpose, {SIDE}x{SIDE} f32"})
     if turns is not None:
-        for row in kernels[:3]:
+        for row in kernels[:3] + kernels[-3:-1]:
             row["turns"] = turns
     print(ident)
     print(json.dumps({"kernels": kernels}))

@@ -153,9 +153,15 @@ def _bind_heat_band(lib: ctypes.CDLL) -> None:
                        ("heat_band_f64", ctypes.c_double)):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
-                       + [ctypes.c_int] * 12 + [real] * 6
+                       + [ctypes.c_int] * 9 + [real] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.heat_band_occupancy.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.heat_band_occupancy.restype = ctypes.c_int
+    lib.heat_band_design.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+    lib.heat_band_design.restype = ctypes.c_int
     lib.heat_band_error_string.argtypes = [ctypes.c_int]
     lib.heat_band_error_string.restype = ctypes.c_char_p
 
@@ -332,52 +338,109 @@ def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
             f"workspace={workspace.shape[0]} words)")
 
 
-def heat_band(src: torch.Tensor, dst: torch.Tensor, *, order: int, k: int,
-              tile_y: int, tile_x: int, run: int, nbuf: int, smem_bytes: int,
-              xcfl: float, ycfl: float,
-              bc: tuple[float, float, float, float]) -> None:
-    """Enqueue one launch of ``csrc/heat_band.cu:heat_band``: ``k`` fused
-    heat steps of the (gy, gx) halo grid ``src`` into the (ny, nx) = (gy −
-    order, gx − order) interior ``dst`` on the current stream.
+def heat_band_launchers(pairs, *, order: int, k: int, tile_y: int,
+                        run: int, nbuf: int, smem_bytes: int, xcfl: float,
+                        ycfl: float, bc: tuple[float, float, float, float]
+                        ) -> list:
+    """One launcher per ``(src, dst)`` pair of ``csrc/heat_band.cu:
+    heat_band``: a call with no argument enqueues ``k`` fused heat steps of
+    the (gy, gx) halo grid ``src`` into the (ny, nx) = (gy − order, gx −
+    order) interior ``dst`` on the stream that was current when the
+    launchers were made, and raises ``FrameworkError`` when the launch is
+    refused.
 
-    ``src`` is a contiguous float32/float64 grid on a CUDA device; ``dst``
-    a 2-D tensor of the same type and device, rows of unit stride at any
-    row stride (a view of another grid's interior, or a bare array), in
-    other storage than ``src``.  ``(tile_y, tile_x)`` is the output tile,
-    ``run`` the tiles a block walks, ``nbuf`` its staging buffers and
-    ``smem_bytes`` its shared memory (``stencil_pallas.band_geometry``).
-    Raises ``FrameworkError`` when the launch is refused.
+    The tensors are checked here, once: ``src`` a contiguous float32/
+    float64 grid on a CUDA device; ``dst`` a 2-D tensor of the same type
+    and device, rows of unit stride at any row stride (a view of another
+    grid's interior, or a bare array), in other storage than ``src``.
+    ``tile_y``, ``run``, ``nbuf`` and ``smem_bytes`` are the launch's
+    decomposition (``stencil_pallas.launch_plan``), which the C entry
+    checks at every launch.  Each launcher holds its two tensors, whose
+    addresses it passes.
     """
-    if not (src.is_cuda and dst.device == src.device):
-        raise ValueError("heat_band takes two tensors on one CUDA device")
-    if src.dtype not in (torch.float32, torch.float64) \
-            or dst.dtype != src.dtype:
-        raise TypeError(f"heat_band takes float32 or float64 grids, got "
-                        f"{src.dtype} -> {dst.dtype}")
-    if src.dim() != 2 or not src.is_contiguous():
-        raise ValueError("heat_band takes a contiguous 2-D source grid")
-    H, W = src.shape
-    if dst.dim() != 2 or tuple(dst.shape) != (H - order, W - order) \
-            or dst.stride(1) != 1:
-        raise ValueError(f"heat_band writes a ({H - order}, {W - order}) "
-                         f"interior with unit column stride, got "
-                         f"{tuple(dst.shape)} strides {dst.stride()}")
-    if dst.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
-        raise ValueError("heat_band cannot update a grid in place")
+    launchers = []
+    for src, dst in pairs:
+        if not (src.is_cuda and dst.device == src.device):
+            raise ValueError("heat_band takes two tensors on one CUDA "
+                             "device")
+        if src.dtype not in (torch.float32, torch.float64) \
+                or dst.dtype != src.dtype:
+            raise TypeError(f"heat_band takes float32 or float64 grids, got "
+                            f"{src.dtype} -> {dst.dtype}")
+        if src.dim() != 2 or not src.is_contiguous():
+            raise ValueError("heat_band takes a contiguous 2-D source grid")
+        H, W = src.shape
+        if dst.dim() != 2 or tuple(dst.shape) != (H - order, W - order) \
+                or dst.stride(1) != 1:
+            raise ValueError(f"heat_band writes a ({H - order}, "
+                             f"{W - order}) interior with unit column "
+                             f"stride, got {tuple(dst.shape)} strides "
+                             f"{dst.stride()}")
+        if dst.untyped_storage().data_ptr() \
+                == src.untyped_storage().data_ptr():
+            raise ValueError("heat_band cannot update a grid in place")
+        lib = library("heat_band")
+        fn = lib.heat_band_f32 if src.dtype == torch.float32 \
+            else lib.heat_band_f64
+        index = src.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        switch = index != torch.cuda.current_device()
+        stream = torch.cuda.current_stream(index).cuda_stream
+        args = (src.data_ptr(), dst.data_ptr(), H, W, dst.stride(0), order,
+                k, tile_y, run, nbuf, smem_bytes, xcfl, ycfl, *bc, stream)
+        what = (f"order={order} k={k} tile_y={tile_y} run={run} "
+                f"nbuf={nbuf} smem={smem_bytes} grid={H}x{W} {src.dtype}")
+
+        # `keep` holds the tensors whose addresses `args` pass
+        def launch(fn=fn, args=args, lib=lib, what=what, switch=switch,
+                   index=index, keep=(src, dst)):
+            # the launch goes to the current device; switching costs host
+            # time, so it is done only for a grid on another device
+            if switch:
+                with torch.cuda.device(index):
+                    err = fn(*args)
+            else:
+                err = fn(*args)
+            if err != 0:
+                raise FrameworkError(
+                    f"heat_band launch failed: "
+                    f"{lib.heat_band_error_string(err).decode()} "
+                    f"(cudaError {err}; {what})")
+
+        launchers.append(launch)
+    return launchers
+
+
+def heat_band_occupancy(device: torch.device, dtype_bytes: int, order: int,
+                        k: int, smem_bytes: int) -> tuple[int, int, int]:
+    """(blocks an SM, registers a thread, local-memory bytes a thread) of
+    ``heat_band``'s instance for (dtype, order, k) at ``smem_bytes`` of
+    shared memory a block on ``device`` (local memory holds what ptxas
+    spills)."""
     lib = library("heat_band")
-    fn = lib.heat_band_f32 if src.dtype == torch.float32 \
-        else lib.heat_band_f64
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), dst.data_ptr(), H, W, dst.stride(0),
-                 H - order, W - order, order, k, tile_y, tile_x, run, nbuf,
-                 smem_bytes, xcfl, ycfl, *bc, stream)
+    buf = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = lib.heat_band_occupancy(dtype_bytes, order, k, smem_bytes, buf)
     if err != 0:
         raise FrameworkError(
-            f"heat_band launch failed: "
+            f"heat_band occupancy query failed: "
             f"{lib.heat_band_error_string(err).decode()} (cudaError {err}; "
-            f"order={order} k={k} tile={tile_y}x{tile_x} run={run} "
-            f"nbuf={nbuf} smem={smem_bytes} grid={H}x{W} {src.dtype})")
+            f"order={order} k={k} smem={smem_bytes} {dtype_bytes}-byte)")
+    return tuple(buf)
+
+
+def heat_band_design(dtype_bytes: int, k: int) -> tuple[int, int, int, int]:
+    """(strip width, threads a block, micro-tile rows, blocks an SM of the
+    register budget) compiled into ``csrc/heat_band.cu`` for the dtype size
+    and k's class."""
+    buf = (ctypes.c_int * 4)()
+    lib = library("heat_band")
+    err = lib.heat_band_design(dtype_bytes, k, buf)
+    if err != 0:
+        raise FrameworkError(f"no heat_band design for {dtype_bytes}-byte "
+                             f"values at k={k}")
+    return tuple(buf)
 
 
 def transpose_tiles(src: torch.Tensor, dst: torch.Tensor) -> None:

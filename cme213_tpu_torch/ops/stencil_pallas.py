@@ -7,10 +7,13 @@ one step per call (``stencil_interior_pallas``, ``run_heat_pallas``) or
 ``k`` fused steps per call with the Dirichlet bands re-imposed after each
 (``run_heat_multistep``).  Here both are one launch of
 ``csrc/heat_band.cu``: a block walks a run of (tile_y, TX) output tiles down
-one strip of TX columns and stages each tile's window with ``cp.async``
-while the previous one is computed.  ``tile_y`` stays the caller's knob;
-``band_geometry`` derives TX, the number of staging buffers and the tiles a
-block walks from it and a block's 227 KB of shared memory.
+one strip of TX columns, stages each tile's window with ``cp.async`` and
+computes it with register-blocked micro-tiles (the tile body of
+``csrc/heat_tile.cuh``).  ``tile_y`` stays the caller's knob; the strip
+width, the threads and the micro-tile height are compiled per dtype and k
+class (``DESIGNS``), and ``band_geometry`` derives the staging buffers and
+the tiles a block walks for a shape.  ``launch_plan`` computes that once a
+shape, with the blocks an SM from the occupancy calculator, and keeps it.
 
 The TPU's 128-lane padding (``_pad_lanes``) is a Mosaic layout rule and is
 dropped.  The kernel writes interior cells only: ``run_heat_pallas`` keeps
@@ -27,6 +30,7 @@ failed build or launch raises.  ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -39,18 +43,51 @@ from .stencil_pipeline import SMEM_BUDGET_BYTES
 LAUNCHES = {"stencil_full": 0, "multistep": 0}
 
 #: shared memory of one Hopper SM (228 KB), of which each resident block
-#: also reserves 1 KB; threads of one SM, and of one block of the kernel
+#: also reserves 1 KB; threads of one SM
 SMEM_PER_SM_BYTES = 233_472
 SMEM_PER_BLOCK_RESERVED = 1024
 THREADS_PER_SM = 2048
-BAND_THREADS = 512
-
-#: strip widths: multiples of a warp, at most this many columns
-TX_STEP = 32
-TX_MAX = 128
 
 #: stand-in SM count of the plain path's geometry (an H100 SXM has 132)
 DEFAULT_SMS = 132
+
+
+@dataclass(frozen=True)
+class Design:
+    """One k class's compiled geometry (``csrc/heat_band.cu`` Menu):
+    strips of ``tile_x`` columns, ``threads`` a block, micro-tiles of 4
+    columns × ``rows`` rows a thread, and the blocks an SM its register
+    budget is sized for (``min_blocks``, the kernel's
+    ``__launch_bounds__``); and the plan's staging policy: ``prefetch``,
+    two windows and runs of tiles where they fit, else one window and one
+    tile a block."""
+
+    tile_x: int
+    threads: int
+    rows: int
+    min_blocks: int
+    prefetch: bool
+
+
+#: (dtype bytes, k class) -> design; the class of k is min(k, 3).  Timed
+#: on the H100 (``bench/band_menu.py``, PERF.md §5): at k = 1 prefetching
+#: beat two blocks an SM of one window; at k ≥ 2 one tile a block beat
+#: every run length, with or without the prefetch
+DESIGNS = {
+    (4, 1): Design(96, 256, 8, 2, True),
+    (4, 2): Design(48, 256, 4, 2, False),
+    (4, 3): Design(32, 256, 4, 2, False),
+    (8, 1): Design(64, 128, 4, 2, True),
+    (8, 2): Design(32, 128, 4, 2, False),
+    (8, 3): Design(32, 128, 4, 1, False),
+}
+
+
+def design(k: int, dtype_bytes: int = 4) -> Design:
+    """The design ``heat_band`` runs at ``k`` for ``dtype_bytes`` values."""
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    return DESIGNS[(dtype_bytes, min(k, 3))]
 
 
 stencil_interior_pallas_plain = stencil_interior
@@ -85,25 +122,58 @@ def pick_tile(ny: int, target: int = 256) -> int:
     return t
 
 
-def band_smem_bytes(tile_y: int, tile_x: int, k: int, order: int, nbuf: int,
+def band_smem_bytes(tile_y: int, k: int, order: int, nbuf: int,
                     dtype_bytes: int = 4) -> int:
-    """Shared memory of one block: ``nbuf`` staged (tile_y+2K) ×
-    (tile_x+2K) windows, and one scratch window for the sub-steps' ping-pong
-    when k > 1."""
-    K = k * BORDER_FOR_ORDER[order]
+    """Shared memory of one block: ``nbuf`` staging windows and, when k >
+    1, one scratch window for the sub-steps' ping-pong.  A window holds the
+    tile rows rounded up to whole micro-tiles, K = k·border halo rows above
+    and below (plus one micro-tile of slack rows when 2·border is not a
+    whole number of them), and the strip with ceil4(K) halo columns on each
+    side.  The launch is given this size; the C entry checks it."""
+    d = design(k, dtype_bytes)
+    b = BORDER_FOR_ORDER[order]
+    K = k * b
+    ka = -(-K // 4) * 4
+    rows = -(-tile_y // d.rows) * d.rows + 2 * K
+    rows += 0 if (2 * b) % d.rows == 0 else d.rows
     windows = nbuf + (1 if k > 1 else 0)
-    return windows * (tile_y + 2 * K) * (tile_x + 2 * K) * dtype_bytes
+    return windows * rows * (d.tile_x + 2 * ka) * dtype_bytes
+
+
+def estimated_blocks_per_sm(smem: int, d: Design) -> int:
+    """Blocks an SM at ``smem`` bytes a block by the shared memory, the
+    threads and the design's register budget (``min_blocks``); the card's
+    occupancy calculator may allow more by the registers."""
+    return max(0, min(SMEM_PER_SM_BYTES // (smem + SMEM_PER_BLOCK_RESERVED),
+                      THREADS_PER_SM // d.threads, d.min_blocks))
+
+
+def balanced_run(strips: int, ntiles: int, slots: int) -> int:
+    """The tiles a block walks: the longest run (the most tiles each
+    prefetch can overlap) whose makespan is within 10% of the shortest.
+    The makespan of runs of r tiles is the tiles the busiest of ``slots``
+    resident blocks walks, ceil(strips · ceil(ntiles / r) / slots) · r."""
+    def makespan(r):
+        return -(-strips * -(-ntiles // r) // slots) * r
+
+    best = min(makespan(r) for r in range(1, ntiles + 1))
+    return max(r for r in range(1, ntiles + 1)
+               if makespan(r) <= 1.1 * best)
 
 
 @dataclass(frozen=True)
 class BandGeometry:
-    """One launch's decomposition: strips of ``tile_x`` columns, tiles of
-    ``tile_y`` rows, ``run`` consecutive tiles a block, ``nbuf`` staging
+    """One launch's decomposition: strips of ``tile_x`` columns (from grid
+    column 0), tiles of ``tile_y`` interior rows, ``run`` consecutive tiles
+    a block of ``threads``, micro-tiles of ``rows`` rows, ``nbuf`` staging
     buffers (2: the next tile's window is prefetched), ``smem`` bytes a
-    block, ``grid`` = (strips, blocks per strip)."""
+    block, ``grid`` = (strips, blocks per strip), ``blocks_per_sm`` the
+    occupancy the split was made for."""
 
     tile_y: int
     tile_x: int
+    threads: int
+    rows: int
     nbuf: int
     run: int
     smem: int
@@ -112,41 +182,82 @@ class BandGeometry:
 
 
 def band_geometry(ny: int, nx: int, tile_y: int, k: int, order: int,
-                  dtype_bytes: int = 4, sms: int = DEFAULT_SMS
-                  ) -> BandGeometry:
+                  dtype_bytes: int = 4, sms: int = DEFAULT_SMS,
+                  occupancy: Callable[[int], int] | None = None,
+                  nbuf: int | None = None) -> BandGeometry:
     """The kernel's decomposition of an (ny, nx) interior at ``tile_y``.
 
-    TX is the widest multiple of ``TX_STEP`` columns, at most ``TX_MAX`` and
-    no wider than the interior needs, whose buffers fit in a block's shared
-    memory with the prefetch buffer; when not even ``TX_STEP`` columns fit
-    so, the block stages one window at a time (``nbuf`` = 1).  Each strip's
-    tiles are then split into runs so that the blocks fill about one wave
-    of the ``sms`` SMs at the blocks that fit on one SM.  Raises
-    ``ValueError`` when no strip fits.
+    The strip width, threads and micro-tile height are the k class's
+    design.  Where the design prefetches and two staging buffers fit in a
+    block's shared memory, the block takes two (the next tile's window
+    prefetched) and walks ``balanced_run`` tiles; otherwise it stages one
+    window and takes one tile.  ``occupancy(smem)`` gives the blocks an SM
+    at ``smem`` bytes a block (default ``estimated_blocks_per_sm``; the
+    launch plan asks the card).  Strips cover grid columns [0, border +
+    nx).  ``nbuf``, when given, is taken instead of the choice.  Raises
+    ``ValueError`` when the windows do not fit.
     """
-    widest = min(TX_MAX, -(-nx // TX_STEP) * TX_STEP)
-    for nbuf in (2, 1):
-        tx = widest
-        while tx >= TX_STEP and band_smem_bytes(
-                tile_y, tx, k, order, nbuf, dtype_bytes) > SMEM_BUDGET_BYTES:
-            tx -= TX_STEP
-        if tx >= TX_STEP:
-            break
-    else:
-        need = band_smem_bytes(tile_y, TX_STEP, k, order, 1, dtype_bytes)
+    d = design(k, dtype_bytes)
+    if occupancy is None:
+        def occupancy(smem):
+            return estimated_blocks_per_sm(smem, d)
+    fits = {}
+    for n in (1, 2) if nbuf is None else (nbuf,):
+        smem = band_smem_bytes(tile_y, k, order, n, dtype_bytes)
+        if smem <= SMEM_BUDGET_BYTES:
+            fits[n] = (smem, occupancy(smem))
+    if not fits:
+        n = nbuf or 1
+        need = band_smem_bytes(tile_y, k, order, n, dtype_bytes)
         raise ValueError(
-            f"tile_y={tile_y} at k={k}, order {order}: even a {TX_STEP}-"
-            f"column strip needs {need} B of shared memory; a block has "
-            f"{SMEM_BUDGET_BYTES}")
-    smem = band_smem_bytes(tile_y, tx, k, order, nbuf, dtype_bytes)
-    per_sm = max(1, min(THREADS_PER_SM // BAND_THREADS,
-                        SMEM_PER_SM_BYTES // (smem + SMEM_PER_BLOCK_RESERVED)))
-    strips = -(-nx // tx)
+            f"tile_y={tile_y} at k={k}, order {order}: {n} {d.tile_x}-"
+            f"column staging window(s) need {need} B of shared memory; a "
+            f"block has {SMEM_BUDGET_BYTES}")
+    if nbuf is None:
+        nbuf = 2 if d.prefetch and 2 in fits else min(fits)
+    smem, per_sm = fits[nbuf]
+    per_sm = max(1, per_sm)
+    b = BORDER_FOR_ORDER[order]
+    strips = -(-(b + nx) // d.tile_x)
     ntiles = -(-ny // tile_y)
-    splits = max(1, min(ntiles, sms * per_sm // strips))
-    run = -(-ntiles // splits)
-    return BandGeometry(tile_y, tx, nbuf, run, smem,
+    run = balanced_run(strips, ntiles, sms * per_sm) if nbuf == 2 else 1
+    return BandGeometry(tile_y, d.tile_x, d.threads, d.rows, nbuf, run, smem,
                         (strips, -(-ntiles // run)), per_sm)
+
+
+_PLANS: dict[tuple, BandGeometry] = {}
+
+
+def launch_plan(src: torch.Tensor, k: int, order: int,
+                tile_y: int) -> BandGeometry:
+    """``band_geometry`` for the CUDA halo grid ``src``, computed once per
+    (device, dtype, order, k, shape, tile_y) and kept: the blocks an SM come
+    from the occupancy calculator (``_kernels.heat_band_occupancy``), the
+    SM count from the device."""
+    key = (src.device, src.dtype, order, k, *src.shape, tile_y)
+    plan = _PLANS.get(key)
+    if plan is None:
+        b = BORDER_FOR_ORDER[order]
+        gy, gx = src.shape
+        elem = src.element_size()
+        sms = torch.cuda.get_device_properties(
+            src.device).multi_processor_count
+
+        def occupancy(smem):
+            return _kernels.heat_band_occupancy(src.device, elem, order, k,
+                                                smem)[0]
+
+        plan = band_geometry(gy - 2 * b, gx - 2 * b, tile_y, k, order, elem,
+                             sms, occupancy)
+        _PLANS[key] = plan
+    return plan
+
+
+def _bind(pairs, order: int, k: int, plan: BandGeometry, xcfl, ycfl, bc):
+    """One checked launcher of ``csrc/heat_band.cu`` per (src, dst) pair."""
+    return _kernels.heat_band_launchers(
+        pairs, order=order, k=k, tile_y=plan.tile_y, run=plan.run,
+        nbuf=plan.nbuf, smem_bytes=plan.smem, xcfl=xcfl, ycfl=ycfl, bc=bc)
 
 
 def _check_grid(u: torch.Tensor, order: int, tile_y: int) -> None:
@@ -162,27 +273,11 @@ def _check_grid(u: torch.Tensor, order: int, tile_y: int) -> None:
         raise ValueError(f"ny={ny} must divide by tile_y={tile_y}")
 
 
-def _geometry(src: torch.Tensor, order: int, k: int,
-              tile_y: int) -> BandGeometry:
-    b = BORDER_FOR_ORDER[order]
-    gy, gx = src.shape
-    sms = torch.cuda.get_device_properties(src.device).multi_processor_count
-    return band_geometry(gy - 2 * b, gx - 2 * b, tile_y, k, order,
-                         src.element_size(), sms)
-
-
-def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, order: int,
-            k: int, geo: BandGeometry, xcfl, ycfl, bc) -> None:
-    _kernels.heat_band(src, dst, order=order, k=k, tile_y=geo.tile_y,
-                       tile_x=geo.tile_x, run=geo.run, nbuf=geo.nbuf,
-                       smem_bytes=geo.smem, xcfl=xcfl, ycfl=ycfl, bc=bc)
-    LAUNCHES[name] += 1
-
-
 def stencil_interior_pallas(u: torch.Tensor, order: int, xcfl, ycfl,
                             tile_y: int = 256) -> torch.Tensor:
-    """New interior (ny, nx) from halo grid (gy, gx): one launch (B4).
-    ``ny`` must divide by ``tile_y`` (see ``pick_tile``)."""
+    """New interior (ny, nx) from halo grid (gy, gx): one launch (B4),
+    every argument checked.  ``ny`` must divide by ``tile_y`` (see
+    ``pick_tile``)."""
     _check_grid(u, order, tile_y)
     if u.device.type == "cpu":
         return stencil_interior_pallas_plain(u, order, xcfl, ycfl)
@@ -190,29 +285,37 @@ def stencil_interior_pallas(u: torch.Tensor, order: int, xcfl, ycfl,
     src = u.contiguous()
     out = torch.empty(src.shape[0] - 2 * b, src.shape[1] - 2 * b,
                       dtype=src.dtype, device=src.device)
-    _launch("stencil_full", src, out, order, 1,
-            _geometry(src, order, 1, tile_y), xcfl, ycfl,
-            (0.0, 0.0, 0.0, 0.0))
+    plan = launch_plan(src, 1, order, tile_y)
+    _bind([(src, out)], order, 1, plan, xcfl, ycfl, (0.0, 0.0, 0.0, 0.0))[0]()
+    LAUNCHES["stencil_full"] += 1
     return out
 
 
 def _ping_pong(u: torch.Tensor, name: str, iters: int, order: int, k: int,
                tile_y: int, xcfl, ycfl, bc, halo) -> torch.Tensor:
     """``iters / k`` launches between two grids whose halo ``halo(grid)``
-    sets once; returns the last grid written (a new tensor)."""
+    sets once; returns the last grid written (a new tensor).  The plan,
+    the interior views and the launchers (checked once) are made before the
+    first launch."""
     b = BORDER_FOR_ORDER[order]
     src = u.contiguous()
-    if iters == 0:
+    n = iters // k
+    if n == 0:
         return src.clone()
-    geo = _geometry(src, order, k, tile_y)
+    plan = launch_plan(src, k, order, tile_y)
     bufs = [torch.empty_like(src), torch.empty_like(src)]
     for buf in bufs:
         halo(buf)
-    for i in range(iters // k):
-        dst = bufs[i % 2]
-        _launch(name, src, dst[b:-b, b:-b], order, k, geo, xcfl, ycfl, bc)
-        src = dst
-    return src
+    inner = [buf[b:-b, b:-b] for buf in bufs]
+    first, even, odd = _bind([(src, inner[0]), (bufs[1], inner[0]),
+                              (bufs[0], inner[1])],
+                             order, k, plan, xcfl, ycfl, bc)
+    first()
+    LAUNCHES[name] += 1
+    for i in range(1, n):
+        (odd if i % 2 else even)()
+        LAUNCHES[name] += 1
+    return bufs[(n - 1) % 2]
 
 
 def run_heat_pallas(u: torch.Tensor, iters: int, order: int, xcfl, ycfl,

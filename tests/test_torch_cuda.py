@@ -382,6 +382,86 @@ def test_band_kernel_bitwise_vs_plain(cuda, order, k, dtype):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("order,k,dtype", [
+    (8, 1, torch.float32), (4, 2, torch.float32), (2, 3, torch.float32),
+    (8, 4, torch.float64), (2, 1, torch.float64)])
+def test_band_kernel_awkward_shapes(cuda, order, k, dtype):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    # 255 x 121 at tile_y 85: a ragged row chunk (85 is no multiple of R)
+    # and a ragged last strip; 3999 x 4001: rows not 16-byte aligned, so
+    # the kernel stages and stores cell by cell
+    for (ny, nx), ty in (((255, 121), 85), ((3999, 4001), 93)):
+        p = SimParams(nx=nx, ny=ny, order=order, bc_top=1.5, bc_left=0.5,
+                      bc_bottom=2.0, bc_right=0.25)
+        u = _grid(p, dtype, cuda, seed=ny + k)
+        args = (2 * k, order, p.xcfl, p.ycfl)
+        out = spl.run_heat_multistep(u, *args, p.bc, k=k, tile_y=ty)
+        torch.testing.assert_close(
+            out, spl.run_heat_multistep_plain(u, *args, p.bc, k=k), rtol=0,
+            atol=0)
+        if k == 1:
+            b4 = spl.run_heat_pallas(u, *args, tile_y=ty)
+            torch.testing.assert_close(b4, spl.run_heat_pallas_plain(u, *args),
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_band_kernel_into_a_bare_array(cuda, order, dtype):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    # stencil_interior_pallas writes a bare (ny, nx) array: at orders 2 and
+    # 4 its rows are not where a 16-byte store of a grid quad lands
+    p = SimParams(nx=300, ny=240, order=order)
+    u = _grid(p, dtype, cuda, seed=order)
+    u[:2] -= 1.0  # a foreign halo
+    before = spl.LAUNCHES["stencil_full"]
+    one = spl.stencil_interior_pallas(u, order, p.xcfl, p.ycfl, tile_y=40)
+    assert spl.LAUNCHES["stencil_full"] - before == 1
+    torch.testing.assert_close(
+        one, spl.stencil_interior_pallas_plain(u, order, p.xcfl, p.ycfl),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("elem", [4, 8])
+def test_band_occupancy_and_no_spills(cuda, order, k, elem):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    geo = spl.band_geometry(2000, 2000, 40, k, order, elem)
+    blocks, regs, local = _kernels.heat_band_occupancy(cuda, elem, order, k,
+                                                       geo.smem)
+    assert local == 0, f"{regs} registers, {local} B of local memory"
+    assert blocks >= 1
+    d = spl.design(k, elem)
+    assert _kernels.heat_band_design(elem, k) == (d.tile_x, d.threads,
+                                                  d.rows, d.min_blocks)
+
+
+def test_band_plan_cached_once_a_shape(cuda):
+    from cme213_tpu_torch.ops import stencil_pallas as spl
+
+    p = SimParams(nx=250, ny=200, order=8)
+    u = make_initial_grid(p, device=cuda)
+    spl._PLANS.clear()
+    for k in (1, 2, 4):
+        before = dict(spl.LAUNCHES)
+        for _ in range(3):
+            if k == 1:
+                spl.run_heat_pallas(u, 8, 8, p.xcfl, p.ycfl, tile_y=40)
+            else:
+                spl.run_heat_multistep(u, 8, 8, p.xcfl, p.ycfl, p.bc, k=k,
+                                       tile_y=40)
+        name = "stencil_full" if k == 1 else "multistep"
+        assert spl.LAUNCHES[name] - before[name] == 3 * 8 // k
+    assert len(spl._PLANS) == 3
+    plan = spl.launch_plan(u, 2, 8, 40)
+    assert plan is spl.launch_plan(u, 2, 8, 40)
+    assert plan.blocks_per_sm >= 1
+
+
 def test_band_kernel_keeps_a_foreign_halo(cuda):
     from cme213_tpu_torch.ops import stencil_pallas as spl
 

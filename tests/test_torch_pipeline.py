@@ -14,7 +14,9 @@ cover each sub-step's region in whole quads and row chunks and so read
 margin, slack and stale cells, bands skipped in blocks that lie inside the
 interior, the tile written to a second grid — is modelled in numpy below,
 buffers initialised to NaN and kept from tile to tile, and held bitwise
-against the plain version.
+against the plain version.  The same model, with ``band=True``, is
+``csrc/heat_band.cu``'s (``tests/test_torch_stencil_pallas.py``), which
+shares the tile body.
 """
 
 import jax.numpy as jnp
@@ -266,13 +268,25 @@ def test_library_path_keys_on_headers(monkeypatch, tmp_path):
 def _kernel_model(u: np.ndarray, order: int, xcfl, ycfl, bc, k: int,
                   tile_y: int, tile_x: int, rows: int, run: int,
                   gy0: int = 0, gx0: int = 0, ny: int | None = None,
-                  nx: int | None = None) -> np.ndarray:
-    """numpy model of one ``csrc/heat_stencil.cu`` launch on one grid
-    (every shard of a launch is decomposed alike).  ``(tile_x, rows)``:
+                  nx: int | None = None, band: bool = False, nbuf: int = 2,
+                  out: np.ndarray | None = None) -> np.ndarray:
+    """numpy model of one launch of the register-blocked tile body on one
+    grid: ``csrc/heat_stencil.cu`` (every shard of a launch is decomposed
+    alike) or, with ``band``, ``csrc/heat_band.cu``.  ``(tile_x, rows)``:
     the strip width and micro-tile height of the k class's design; ``run``:
     the tiles a block walks.  ``(gy0, gx0)``: global halo-grid coordinates
     of ``u[0, 0]``; ``(ny, nx)``: the global interior extents (default:
-    ``u`` is the whole grid).  Cells the launch does not write are NaN."""
+    ``u`` is the whole grid).
+
+    ``heat_stencil.cu``: tiles of ``tile_y`` grid rows from row 0, windows
+    with a 4-column margin on each side, the bands after every sub-step
+    (band code skipped where a block's whole run lies inside the
+    interior), every cell of a new grid written (cells the launch does not
+    write are NaN).  ``heat_band.cu``: tiles of ``tile_y`` interior rows
+    from row ``border``, ``nbuf`` staging windows with no margin (a
+    region's outermost side loads wrap into the neighbouring row), the
+    bands after every sub-step but the last (skipped tile by tile), only
+    the interior written, into ``out`` (default: a NaN grid)."""
     f = u.dtype.type
     b = BORDER_FOR_ORDER[order]
     K = k * b
@@ -287,21 +301,31 @@ def _kernel_model(u: np.ndarray, order: int, xcfl, ycfl, bc, k: int,
     WY = typ + 2 * K
     slack = 0 if (2 * b) % rows == 0 else rows
     WS = tile_x + 2 * KA
-    WB = WS + 8
-    tiles = -(-H // tile_y)
+    margin = 0 if band else 4
+    WB = WS + 2 * margin
+    row0 = b if band else 0           # grid row of tile 0's first row
+    tiles = -(-(ny if band else H) // tile_y)
+    cols_end = b + nx if band else W  # strips cover grid columns [0, end)
 
     def substep(buf, r0, c0, nr, nc):
         # the cells [r0, r0+nr) x [c0, c0+nc) of a window; the kernel loads
-        # whole quads, columns c0-4 .. c0+nc+3, and rows r0-b .. r0+nr+b-1
+        # whole quads, columns c0-4 .. c0+nc+3 (in the flat buffer: the
+        # outermost ones may wrap into the neighbouring rows), and rows
+        # r0-b .. r0+nr+b-1
+        flat = buf.reshape(-1)
         assert r0 - b >= 0 and r0 + nr + b <= buf.shape[0]
         assert c0 % 4 == 0 and nc % 4 == 0 and nr % rows == 0
-        assert c0 - 4 >= 0 and c0 + nc + 4 <= buf.shape[1]
+        assert c0 >= 0 and c0 + nc <= WB
+        assert r0 * WB + c0 - 4 >= 0
+        assert (r0 + nr - 1) * WB + c0 + nc + 4 <= flat.size
+        at = (np.arange(r0, r0 + nr)[:, None] * WB
+              + np.arange(c0, c0 + nc)[None, :])
         accx = np.zeros((nr, nc), u.dtype)
         accy = np.zeros_like(accx)
         for kk, c in enumerate(coeffs):
-            accx = accx + c * buf[r0:r0 + nr, c0 + kk - b:c0 + kk - b + nc]
-            accy = accy + c * buf[r0 + kk - b:r0 + kk - b + nr, c0:c0 + nc]
-        return buf[r0:r0 + nr, c0:c0 + nc] + xcfl * accx + ycfl * accy
+            accx = accx + c * flat[at + kk - b]
+            accy = accy + c * flat[at + (kk - b) * WB]
+        return flat[at] + xcfl * accx + ycfl * accy
 
     def bands(new, grow, gcol):
         gr = grow + np.arange(new.shape[0])[:, None]
@@ -311,39 +335,51 @@ def _kernel_model(u: np.ndarray, order: int, xcfl, ycfl, bc, k: int,
         new = np.where(gc < b, left, new)
         return np.where(gc >= b + nx, right, new)
 
-    dst = np.full_like(u, np.nan)
-    for tc in range(0, W, tile_x):
+    dst = np.full_like(u, np.nan) if out is None else out
+    for tc in range(0, cols_end, tile_x):
         for t0 in range(0, tiles, run):
             t1 = min(t0 + run, tiles)
             # uninitialised shared memory, kept from tile to tile
             bufs = [np.full((WY + slack, WB), np.nan, u.dtype)
                     for _ in range(3)]
-            gcol0 = tc - KA - 4 + gx0
-            edge = not (t0 * tile_y - K + gy0 >= b
-                        and (t1 - 1) * tile_y - K + WY + slack + gy0
+            gcol0 = tc - KA - margin + gx0
+
+            def inside(ta, tb):  # tiles ta .. tb hold no band cell
+                return (row0 + ta * tile_y - K + gy0 >= b
+                        and row0 + tb * tile_y - K + WY + slack + gy0
                         <= b + ny
                         and gcol0 >= b and gcol0 + WB <= b + nx)
+
             for t in range(t0, t1):
-                cur = bufs[(t - t0) & 1]
-                rws = np.arange(t * tile_y - K, t * tile_y - K + WY)
+                # heat_stencil.cu tests a block's run, heat_band.cu a tile
+                edge = not (inside(t, t) if band else inside(t0, t1 - 1))
+                cur = bufs[(t - t0) & 1 if nbuf == 2 else 0]
+                rws = np.arange(row0 + t * tile_y - K,
+                                row0 + t * tile_y - K + WY)
                 cls = np.arange(tc - KA, tc - KA + WS)
                 ri = (rws >= 0) & (rws < H)
                 ci = (cls >= 0) & (cls < W)
                 win = np.zeros((WY, WS), u.dtype)  # 0 outside the grid
                 win[np.ix_(ri, ci)] = u[np.ix_(rws[ri], cls[ci])]
-                cur[:WY, 4:4 + WS] = win
-                grow0 = t * tile_y - K + gy0
+                cur[:WY, margin:margin + WS] = win
+                grow0 = row0 + t * tile_y - K + gy0
                 src, nxt = cur, bufs[2]
                 for s in range(1, k):
                     E = -(-((k - s) * b) // 4) * 4
                     nr = -(-(typ + 2 * (k - s) * b) // rows) * rows
-                    r0, c0 = s * b, 4 + KA - E
+                    r0, c0 = s * b, margin + KA - E
                     new = substep(src, r0, c0, nr, tile_x + 2 * E)
                     if edge:
                         new = bands(new, grow0 + r0, gcol0 + c0)
                     nxt[r0:r0 + nr, c0:c0 + tile_x + 2 * E] = new
                     src, nxt = nxt, src
-                new = substep(src, K, 4 + KA, typ, tile_x)
+                new = substep(src, K, margin + KA, typ, tile_x)
+                if band:  # the tile's interior cells, no band
+                    h = min(tile_y, ny - t * tile_y)
+                    lo, hi = max(tc, b), min(tc + tile_x, b + nx)
+                    r = b + t * tile_y
+                    dst[r:r + h, lo:hi] = new[:h, lo - tc:hi - tc]
+                    continue
                 if edge:
                     new = bands(new, grow0 + K, gcol0 + 4 + KA)
                 h, w = min(tile_y, H - t * tile_y), min(tile_x, W - tc)

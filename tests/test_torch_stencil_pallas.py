@@ -9,11 +9,15 @@ plain versions and to ``ops.stencil.run_heat``: B4 on any halo (it imposes
 no boundary value), B5 on grids whose bands hold ``bc``.
 
 The CUDA kernel runs only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).  Its decomposition — strips of TX columns, runs of
-tile_y-row tiles per block, the prefetch buffer, the sub-steps' ping-pong
-through buffers that keep stale values, window cells outside the grid
-reading 0 — is modelled in numpy below and held bitwise to the plain
-version.
+``chip_smoke.py``).  Its decomposition — strips of TX columns from grid
+column 0, runs of tile_y-row tiles per block, one or two staging windows,
+4 × R micro-tiles over ragged row chunks whose side loads wrap into the
+neighbouring row, the sub-steps' ping-pong through buffers that keep stale
+values, window cells outside the grid reading 0, band code skipped tile by
+tile, only interior cells written — is modelled in numpy
+(``test_torch_pipeline._kernel_model`` with ``band=True``, the model of
+the tile body both heat kernels share) and held bitwise to the plain
+version at each compiled design.
 """
 
 import jax.numpy as jnp
@@ -30,11 +34,12 @@ from cme213_tpu.ops.stencil_pallas import \
     stencil_interior_pallas as j_interior_pallas
 from cme213_tpu_torch.config import SimParams
 from cme213_tpu_torch.grid import make_initial_grid
-from cme213_tpu_torch.ops import run_heat, stencil_interior
+from cme213_tpu_torch.ops import _kernels, run_heat, stencil_interior
 from cme213_tpu_torch.ops import stencil_pallas as spl
-from cme213_tpu_torch.ops.stencil import BORDER_FOR_ORDER, STENCIL_COEFFS
+from cme213_tpu_torch.ops.stencil import BORDER_FOR_ORDER
 from cme213_tpu_torch.ops.stencil_pipeline import SMEM_BUDGET_BYTES
 from cme213_tpu_torch.verify import check_ulp
+from test_torch_pipeline import _kernel_model
 
 BC = (1.5, 0.5, 2.0, 0.25)
 
@@ -203,137 +208,162 @@ def test_wrappers_refuse_what_the_jax_package_asserts():
 # ------------------------------------------------ the kernel's geometry
 
 
-#: (ny, tile_y, k, dtype bytes) -> (TX, nbuf), the table in the source note
-#: of csrc/heat_band.cu, at order 8
-SWEEP_CELLS = {(2000, 40, 1, 4): (128, 2), (2000, 80, 1, 4): (128, 2),
-               (2000, 200, 1, 4): (128, 2), (2000, 400, 1, 4): (32, 2),
-               (4000, 200, 1, 4): (128, 2), (4000, 200, 2, 4): (64, 2),
-               (4000, 200, 4, 4): (32, 2), (4000, 200, 8, 4): (32, 1)}
+#: (ny, tile_y, k, dtype bytes) -> (TX, nbuf, run), at order 8 on a card of
+#: DEFAULT_SMS SMs with the blocks an SM estimated from the menu
+SWEEP_CELLS = {(2000, 40, 1, 4): (96, 2, 2), (2000, 80, 1, 4): (96, 2, 1),
+               (2000, 200, 1, 4): (96, 2, 2), (2000, 400, 1, 4): (96, 1, 1),
+               (4000, 200, 1, 4): (96, 2, 7), (4000, 200, 2, 4): (48, 1, 1),
+               (4000, 200, 4, 4): (32, 1, 1), (4000, 200, 8, 4): (32, 1, 1),
+               (4000, 200, 3, 4): (32, 1, 1), (2000, 80, 1, 8): (64, 2, 4),
+               (2000, 80, 2, 8): (32, 1, 1), (2000, 80, 8, 8): (32, 1, 1)}
 
 
 @pytest.mark.parametrize("cell", list(SWEEP_CELLS), ids=str)
 def test_band_geometry_at_the_sweeps_cells(cell):
     n, ty, k, elem = cell
     geo = spl.band_geometry(n, n, ty, k, 8, elem)
-    assert (geo.tile_x, geo.nbuf) == SWEEP_CELLS[cell]
-    assert geo.smem == spl.band_smem_bytes(ty, geo.tile_x, k, 8, geo.nbuf,
-                                           elem) <= SMEM_BUDGET_BYTES
+    d = spl.design(k, elem)
+    assert (geo.tile_x, geo.nbuf, geo.run) == SWEEP_CELLS[cell]
+    assert (geo.tile_x, geo.threads, geo.rows) == (d.tile_x, d.threads,
+                                                   d.rows)
+    assert geo.smem == spl.band_smem_bytes(ty, k, 8, geo.nbuf, elem) \
+        <= SMEM_BUDGET_BYTES
     strips, splits = geo.grid
-    assert strips == -(-n // geo.tile_x)
+    assert strips == -(-(n + 4) // geo.tile_x)  # grid columns [0, b + nx)
     ntiles = n // ty
     assert (splits - 1) * geo.run < ntiles <= splits * geo.run
-    # about one wave: the blocks fit in the resident slots, or each strip
-    # is one block
-    assert strips * splits <= spl.DEFAULT_SMS * geo.blocks_per_sm \
-        or splits == 1
+    assert geo.blocks_per_sm == spl.estimated_blocks_per_sm(geo.smem, d)
+    # two buffers and runs of tiles where the design prefetches and they
+    # fit; else one window and one tile a block
+    two = spl.band_smem_bytes(ty, k, 8, 2, elem)
+    assert geo.nbuf == (2 if d.prefetch and two <= SMEM_BUDGET_BYTES else 1)
+    assert geo.run == (spl.balanced_run(strips, ntiles, spl.DEFAULT_SMS
+                                        * geo.blocks_per_sm)
+                       if geo.nbuf == 2 else 1)
+
+
+def test_balanced_run():
+    # 4000² at k = 1: 32 strips x 20 tiles on 132 slots, runs of 5 fill
+    # 128 of them in one round (the shortest makespan, 5 tiles)
+    assert spl.balanced_run(32, 20, 132) == 5
+    # 84 strips x 20 tiles: one run a strip leaves 48 SMs idle (20 tiles);
+    # runs of 7 take 2 rounds (14 tiles) against 13 for single tiles
+    assert spl.balanced_run(84, 20, 132) == 7
+    # fewer strips than slots, one tile each: one round
+    assert spl.balanced_run(16, 1, 264) == 1
+    for strips, ntiles, slots in [(126, 20, 132), (16, 50, 264),
+                                  (63, 25, 264), (5, 3, 7)]:
+        r = spl.balanced_run(strips, ntiles, slots)
+
+        def makespan(q):
+            return -(-strips * -(-ntiles // q) // slots) * q
+        best = min(makespan(q) for q in range(1, ntiles + 1))
+        assert makespan(r) <= 1.1 * best
+        assert all(makespan(q) > 1.1 * best for q in range(r + 1,
+                                                            ntiles + 1))
 
 
 def test_band_geometry_numbers_in_the_design_note():
-    # the 4000^2 pallas-roll cell: 32 strips x 4 runs of 5 tiles, one wave
+    # the 4000^2 pallas-roll cell: two 208 x 104 windows (173,056 B) a
+    # block, one block an SM, 42 strips x 3 runs of 7 tiles
     geo = spl.band_geometry(4000, 4000, 200, 1, 8)
-    assert (geo.grid, geo.run, geo.smem, geo.blocks_per_sm) == \
-        ((32, 4), 5, 226_304, 1)
-    # no strip fits: a 400-row window at k = 8 is 464 rows
+    assert (geo.grid, geo.run, geo.smem, geo.blocks_per_sm, geo.nbuf) == \
+        ((42, 3), 7, 2 * 208 * 104 * 4, 1, 2)
+    # one window would leave two blocks an SM, one tile each
+    one = spl.band_geometry(4000, 4000, 200, 1, 8, nbuf=1)
+    assert (one.blocks_per_sm, one.run, one.grid) == (2, 1, (42, 20))
+    # k = 2: one 216 x 64 window and the scratch, two blocks an SM, one tile
+    # a block
+    geo = spl.band_geometry(4000, 4000, 200, 2, 8)
+    assert (geo.grid, geo.smem, geo.blocks_per_sm, geo.nbuf) == \
+        ((84, 20), 2 * 216 * 64 * 4, 2, 1)
+    # k = 8 at tile_y 200: three 264 x 96 windows fit at no width, two do
+    assert spl.band_smem_bytes(200, 8, 8, 1) == 2 * 264 * 96 * 4
+    assert spl.band_smem_bytes(200, 8, 8, 2) > SMEM_BUDGET_BYTES
+    # no window fits: a 400-row window at k = 8 is 464 rows
     with pytest.raises(ValueError, match="shared memory"):
         spl.band_geometry(2000, 2000, 400, 8, 8)
-    # narrow grids get a narrow strip
-    assert spl.band_geometry(40, 20, 8, 1, 2).tile_x == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        spl.band_geometry(4000, 4000, 200, 8, 8, nbuf=2)
+    # ragged row chunks and slack: order 2 at R = 8 keeps one micro-tile of
+    # slack rows; tile_y 85 rounds up to 88 rows
+    assert spl.band_smem_bytes(85, 1, 2, 1) == (88 + 2 + 8) * 104 * 4
+    # strips cover grid columns [0, b + nx): 1 + 4032 columns need 43
+    assert spl.band_geometry(40, 4032, 8, 1, 2).grid[0] == 43
+    assert spl.band_geometry(40, 4031, 8, 1, 2).grid[0] == 42
+    # a forced single buffer
+    assert spl.band_geometry(2000, 2000, 40, 1, 8, nbuf=1).nbuf == 1
+
+
+def test_design_menu_mirrors_the_source():
+    """``DESIGNS`` is the menu compiled into ``csrc/heat_band.cu``."""
+    import re
+    from cme213_tpu_torch.ops._kernels import SOURCES
+
+    text = SOURCES["heat_band"].read_text()
+    for (elem, kc), d in spl.DESIGNS.items():
+        name = f"HEAT_BAND_F{8 * elem}_K{kc}"
+        m = re.search(rf"#define {name} (\d+), (\d+), (\d+), (\d+)", text)
+        assert m, name
+        assert tuple(map(int, m.groups())) == (d.tile_x, d.threads, d.rows,
+                                               d.min_blocks)
+        assert d.prefetch == (kc == 1)
+        assert d.tile_x % 4 == 0 and d.threads % 32 == 0
+    assert spl.design(8) == spl.design(3) == spl.DESIGNS[(4, 3)]
+    with pytest.raises(ValueError, match="k=0"):
+        spl.design(0)
+
+
+def test_band_launchers_refuse_bad_arguments():
+    u = torch.zeros(16, 16)
+    kw = dict(order=2, k=1, tile_y=8, run=1, nbuf=1,
+              smem_bytes=spl.band_smem_bytes(8, 1, 2, 1), xcfl=0.1, ycfl=0.1,
+              bc=BC)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.heat_band_launchers([(u, torch.zeros(14, 14))], **kw)
+    assert spl.LAUNCHES == {"stencil_full": 0, "multistep": 0}
 
 
 def _band_model(u: np.ndarray, iters: int, order: int, xcfl, ycfl, bc, k,
-                tile_y: int, tile_x: int, run: int, nbuf: int,
+                tile_y: int, tile_x: int, rows: int, run: int, nbuf: int,
                 halo: str) -> np.ndarray:
     """numpy model of ``run_heat_pallas`` (``halo="copy"``) and
     ``run_heat_multistep`` (``halo="bc"``) on the card: the two grids the
-    wrapper ping-pongs between, and one ``csrc/heat_band.cu`` launch per k
-    steps, block by block, with the block's shared-memory buffers (stale
-    NaN where nothing was written) as the kernel uses them."""
-    f = u.dtype.type
+    wrapper ping-pongs between (NaN where nothing was written), halo set
+    once, and one ``csrc/heat_band.cu`` launch per k steps, modelled block
+    by block with the block's shared-memory buffers (stale NaN where
+    nothing was written) by ``test_torch_pipeline._kernel_model``."""
     b = BORDER_FOR_ORDER[order]
-    K = k * b
-    H, W = u.shape
-    ny, nx = H - 2 * b, W - 2 * b
-    coeffs = [f(c) for c in STENCIL_COEFFS[order]]
-    top, left, bottom, right = (f(v) for v in bc)
-    xcfl, ycfl = f(xcfl), f(ycfl)
-    WY, WX = tile_y + 2 * K, tile_x + 2 * K
-    ntiles = -(-ny // tile_y)
-    strips, splits = -(-nx // tile_x), -(-ntiles // run)
-
     bufs = [np.full_like(u, np.nan), np.full_like(u, np.nan)]
     for g in bufs:
         if halo == "copy":
             g[:b], g[-b:], g[:, :b], g[:, -b:] = \
                 u[:b], u[-b:], u[:, :b], u[:, -b:]
         else:
-            g[:b], g[-b:], g[:, :b], g[:, -b:] = bottom, top, left, right
-
-    def update(win, ys, xs):
-        accx = np.zeros((ys.stop - ys.start, xs.stop - xs.start), u.dtype)
-        accy = np.zeros_like(accx)
-        for kk, c in enumerate(coeffs):
-            accx = accx + c * win[ys, xs.start + kk - b:xs.stop + kk - b]
-            accy = accy + c * win[ys.start + kk - b:ys.stop + kk - b, xs]
-        return win[ys, xs] + xcfl * accx + ycfl * accy
-
+            g[:b], g[-b:], g[:, :b], g[:, -b:] = bc[2], bc[0], bc[1], bc[3]
     src = u
     for launch in range(iters // k):
         dst = bufs[launch % 2]
-        for sx in range(strips):
-            col0 = sx * tile_x + b - K
-            cols = np.arange(col0, col0 + WX)
-            ci = (cols >= 0) & (cols < W)
-            for sp in range(splits):
-                smem = np.full((nbuf + (k > 1), WY, WX), np.nan, u.dtype)
-                staged = [smem[0], smem[nbuf - 1]]
-                scratch = smem[nbuf] if k > 1 else None
-
-                def stage(t, win):
-                    rows = np.arange(t * tile_y + b - K,
-                                     t * tile_y + b - K + WY)
-                    ri = (rows >= 0) & (rows < H)
-                    win[:] = 0  # cells outside the grid read 0
-                    win[np.ix_(ri, ci)] = src[np.ix_(rows[ri], cols[ci])]
-
-                t0, t1 = sp * run, min(sp * run + run, ntiles)
-                if nbuf == 2 and t0 < t1:
-                    stage(t0, staged[0])
-                for t in range(t0, t1):
-                    row0 = t * tile_y + b - K
-                    win = staged[(t - t0) & 1]
-                    if nbuf == 2:
-                        if t + 1 < t1:
-                            stage(t + 1, staged[(t + 1 - t0) & 1])
-                    else:
-                        stage(t, win)
-                    out = scratch
-                    for s in range(1, k):
-                        lo = s * b
-                        ys, xs = slice(lo, WY - lo), slice(lo, WX - lo)
-                        new = update(win, ys, xs)
-                        gr = np.arange(row0 + lo, row0 + WY - lo)[:, None]
-                        gc = np.arange(col0 + lo, col0 + WX - lo)[None, :]
-                        new = np.where(gr < b, bottom, new)
-                        new = np.where(gr >= b + ny, top, new)
-                        new = np.where(gc < b, left, new)
-                        new = np.where(gc >= b + nx, right, new)
-                        out[ys, xs] = new  # the rim keeps stale values
-                        win, out = out, win
-                    h = min(tile_y, ny - t * tile_y)
-                    w = min(tile_x, nx - sx * tile_x)
-                    r, c = b + t * tile_y, b + sx * tile_x
-                    dst[r:r + h, c:c + w] = update(
-                        win, slice(K, K + h), slice(K, K + w))
+        _kernel_model(src, order, xcfl, ycfl, bc, k, tile_y, tile_x, rows,
+                      run, band=True, nbuf=nbuf, out=dst)
         src = dst
     return src
 
 
+def _plain(u0, iters, order, p, k):
+    u = torch.from_numpy(u0)
+    if k == 1:
+        return spl.run_heat_pallas_plain(u, iters, order, p.xcfl, p.ycfl)
+    return spl.run_heat_multistep_plain(u, iters, order, p.xcfl, p.ycfl,
+                                        p.bc, k=k)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("geometry", [
-    dict(tile_x=32, run=1, nbuf=2),    # ragged last strip (52 = 32 + 20)
-    dict(tile_x=32, run=3, nbuf=2),    # a run of 3 tiles, then 1
-    dict(tile_x=64, run=2, nbuf=1),    # one strip, no prefetch
-    dict(tile_x=32, run=4, nbuf=1),    # one block a strip
+    dict(tile_x=32, rows=8, run=1, nbuf=2),   # ragged last strip
+    dict(tile_x=32, rows=4, run=3, nbuf=2),   # a run of 3 tiles, then 1
+    dict(tile_x=64, rows=2, run=2, nbuf=1),   # one strip, no prefetch
+    dict(tile_x=16, rows=8, run=4, nbuf=1),   # one block a strip
 ], ids=["tx32-run1", "tx32-run3", "tx64-nbuf1", "tx32-run4-nbuf1"])
 def test_kernel_decomposition_bitwise_vs_plain(k, geometry):
     """Order 8, a non-square grid (ny = 160, nx = 52), tile_y = 40 (a tile
@@ -344,31 +374,46 @@ def test_kernel_decomposition_bitwise_vs_plain(k, geometry):
     iters = 2 * k
     if k == 1:
         u0[:4] += 1.0  # a foreign halo: B4 must not touch it
-        model = _band_model(u0, iters, 8, p.xcfl, p.ycfl, p.bc, 1, 40,
-                            halo="copy", **geometry)
-        plain = spl.run_heat_pallas_plain(torch.from_numpy(u0), iters, 8,
-                                          p.xcfl, p.ycfl)
-    else:
-        model = _band_model(u0, iters, 8, p.xcfl, p.ycfl, p.bc, k, 40,
-                            halo="bc", **geometry)
-        plain = spl.run_heat_multistep_plain(torch.from_numpy(u0), iters, 8,
-                                             p.xcfl, p.ycfl, p.bc, k=k)
-    np.testing.assert_array_equal(model, plain.numpy())
+    model = _band_model(u0, iters, 8, p.xcfl, p.ycfl, p.bc, k, 40,
+                        halo="copy" if k == 1 else "bc", **geometry)
+    np.testing.assert_array_equal(model, _plain(u0, iters, 8, p, k).numpy())
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_kernel_decomposition_at_band_geometry(k):
     """The model at the geometry ``band_geometry`` picks for a one-SM card
-    (several runs a strip)."""
+    (several tiles a block, or several blocks a strip)."""
     p, u0 = _grid(70, 120, 8, seed=10 + k)
     geo = spl.band_geometry(p.ny, p.nx, 24, k, 8, sms=1)
-    assert geo.run > 1
+    assert geo.run > 1 or geo.grid[1] > 1
     model = _band_model(u0, 2 * k, 8, p.xcfl, p.ycfl, p.bc, k, 24,
-                        geo.tile_x, geo.run, geo.nbuf,
+                        geo.tile_x, geo.rows, geo.run, geo.nbuf,
                         halo="copy" if k == 1 else "bc")
-    plain = spl.run_heat_multistep_plain(torch.from_numpy(u0), 2 * k, 8,
-                                         p.xcfl, p.ycfl, p.bc, k=k)
-    np.testing.assert_array_equal(model, plain.numpy())
+    np.testing.assert_array_equal(model, _plain(u0, 2 * k, 8, p, k).numpy())
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(120, 77, 40), (255, 121, 85)],
+                         ids=["120x77-tile40", "255x121-tile85"])
+def test_kernel_model_at_the_compiled_designs(shape, dtype, order, k):
+    """Each compiled design, at the runs and buffers ``band_geometry``
+    gives a small card (2 SMs), on non-square grids whose tile_y (40, 85)
+    is not a multiple of every micro-tile height (a ragged row chunk) and
+    whose width is no multiple of a strip; orders 2 and 4 put the interior
+    off the 16-byte grid and wrap side loads at k > 1."""
+    ny, nx, ty = shape
+    p, u0 = _grid(nx, ny, order, seed=order * 7 + k, dtype=dtype)
+    elem = np.dtype(dtype).itemsize
+    if k == 1:
+        u0[:, -BORDER_FOR_ORDER[order]:] -= 2.0  # a foreign halo (B4)
+    geo = spl.band_geometry(ny, nx, ty, k, order, elem, sms=2)
+    model = _band_model(u0, 2 * k, order, p.xcfl, p.ycfl, p.bc, k, ty,
+                        geo.tile_x, geo.rows, geo.run, geo.nbuf,
+                        halo="copy" if k == 1 else "bc")
+    np.testing.assert_array_equal(model,
+                                  _plain(u0, 2 * k, order, p, k).numpy())
 
 
 def test_model_catches_a_missing_band():
@@ -376,8 +421,10 @@ def test_model_catches_a_missing_band():
     result differs from the plain version."""
     p, u0 = _grid(40, 80, 8, seed=7)
     bad = (9.0, 9.0, 9.0, 9.0)
-    model = _band_model(u0, 4, 8, p.xcfl, p.ycfl, bad, 2, 40, 32, 1, 2,
+    model = _band_model(u0, 4, 8, p.xcfl, p.ycfl, bad, 2, 40, 32, 4, 1, 2,
                         halo="bc")
+    model[:4], model[-4:], model[:, :4], model[:, -4:] = \
+        p.bc[2], p.bc[0], p.bc[1], p.bc[3]  # the halo the wrapper sets
     plain = spl.run_heat_multistep_plain(torch.from_numpy(u0), 4, 8, p.xcfl,
                                          p.ycfl, p.bc, k=2)
     assert not np.array_equal(model, plain.numpy())
