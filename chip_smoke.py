@@ -45,8 +45,9 @@ the run (non-zero exit) when it fails:
 7. B6 and B7 against their plain versions on the same CUDA tensors: n ∈
    {1, 31, T−1, T, T+1, 3T+5, 100,003, 2²²} (T = 2048, the kernel's tile)
    × heads {one segment, every element, on tile boundaries, random}, B7 at
-   1 and 8 iterations, and the main path's full-size shape (below).
-   Fails above 0 ULP: both make the same additions in the same order.
+   1 and 8 iterations; one head over n = 2²⁴ (the look-back's longest
+   walks); and the main path's full-size shape (below).  Fails above 0
+   ULP: both make the same additions in the same order.
 8. Full size, the suite's largest instance: ``suite_problem("pwtk")``
    (n = 11,634,424, p = 217,919, N = 25) through ``run_spmv_scan`` with
    ``pallas-fused``, ``pallas``, ``auto`` (blocked torch) and ``flat``:
@@ -54,7 +55,9 @@ the run (non-zero exit) when it fails:
    ``spmv_scan_cost`` and % of the card's memory peak, the bound; each
    result held to the plain version run in float64 on the card at rel L2
    ≤ 1e-5 and rel L∞ ≤ 1e-3 (``auto``, the blocked scan: rel L2 ≤ 1e-4,
-   see ``PWTK_TOL``).  Then B6 alone per scan, the plain versions
+   see ``PWTK_TOL``).  Three more B7 solves must be bitwise equal to the
+   first (the look-back's carry does not depend on which blocks finish
+   first).  Then B6 alone per scan, the plain versions
    in f32, and ``torch.cumsum`` of n f32 as a yardstick the port never
    calls (no single PyTorch call computes a segmented scan, so
    ``library_ms`` is null).
@@ -138,8 +141,15 @@ the run (non-zero exit) when it fails:
    ``pallas_tile`` tile, by CUDA events and by the host clock; B3 alone on
    the four 1008² blocks (the parent's loop of four launches against the
    batched call) and the 2-D ``pallas`` distributed solve at 2000² (ms
-   per step by ``iterate()``).  The parent's package is imported under
-   another name and builds its kernels into its own tree.
+   per step by ``iterate()``); B7 (ms an iteration) and B6 (ms a scan) at
+   pwtk, each result held to its own tree's plain version at 0 ULP and to
+   phase 8's f64 reference under ``PWTK_TOL`` (parent and new differ in
+   bits by design: their carries associate differently); and B7 and B6
+   again with one head over pwtk's values (one segment across all tiles,
+   the look-back's longest walks), each held to its plain version at 2
+   iterations.  The parent's
+   package is imported under another name and builds its kernels into its
+   own tree.
 
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11 and 14 drive through
 the entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
@@ -291,7 +301,7 @@ def dist_idle_share(dheat, config, dist, torch, devices, n, steps=100):
 
 
 def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
-                  sp, spl):
+                  sp, spl, segp, pwtk):
     """Phase 15: parent, this tree, this tree, parent, each metric in turns
     in this process (ms per step)."""
     import importlib.util
@@ -443,6 +453,58 @@ def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
           f"{rows[3]:.6f} ms/step")
     out["run_distributed 2d sync pallas"] = {"parent": [rows[0], rows[3]],
                                              "new": [rows[1], rows[2]]}
+    # B7 and B6 at pwtk: parent and new differ in bits by design, so each
+    # is held to its own plain version and to the f64 reference
+    oseg = importlib.import_module("parent_cme213_tpu_torch.ops."
+                                   "segmented_pallas")
+    a, xx, flags, n_it, ref64, errors = pwtk
+    w = a * xx
+    bits = lambda t: t.view(torch.int32)  # noqa: E731 (+0 and -0 differ)
+    for who, mod in (("parent", oseg), ("new", segp)):
+        got7 = mod.spmv_scan_pallas(a, xx, flags, n_it)
+        got6 = mod.segmented_scan_pallas(w, flags)
+        if not (torch.equal(bits(got7), bits(mod.spmv_scan_pallas_plain(
+                a, xx, flags, n_it))) and torch.equal(bits(got6), bits(
+                    mod.segmented_scan_pallas_plain(w, flags)))):
+            fail(f"turns: the {who} B6/B7 differ from their plain versions")
+        rel_l2, rel_linf = errors(ref64, got7.cpu().numpy())
+        tol_l2, tol_linf = PWTK_TOL["pallas-fused"]
+        print(f"  turns: {who} B7 {SUITE} vs f64: rel L2 {rel_l2:.3e}, rel "
+              f"Linf {rel_linf:.3e}")
+        if not (rel_l2 <= tol_l2 and rel_linf <= tol_linf):
+            fail(f"turns: {who} B7 at {SUITE}: rel L2 {rel_l2:.3e} / rel "
+                 f"Linf {rel_linf:.3e} (limits {tol_l2} / {tol_linf})")
+    out[f"B7 {SUITE}"] = turn(
+        f"B7 {SUITE} (ms an iteration)",
+        lambda: oseg.spmv_scan_pallas(a, xx, flags, n_it),
+        lambda: segp.spmv_scan_pallas(a, xx, flags, n_it), n_it)
+    out[f"B6 {SUITE}"] = turn(
+        f"B6 {SUITE} (ms a scan)",
+        lambda: [oseg.segmented_scan_pallas(w, flags) for _ in range(n_it)],
+        lambda: [segp.segmented_scan_pallas(w, flags) for _ in range(n_it)],
+        n_it)
+    # one head over pwtk's values: one segment across all tiles, the new
+    # kernel's longest look-backs (the parent's three passes do the same
+    # work whatever the heads).  Held to the plain versions at 2
+    # iterations; the timed N iterations run past the f32 range.
+    one = torch.zeros_like(flags)
+    one[0] = 1
+    for who, mod in (("parent", oseg), ("new", segp)):
+        if not (torch.equal(bits(mod.spmv_scan_pallas(a, xx, one, 2)), bits(
+                mod.spmv_scan_pallas_plain(a, xx, one, 2))) and torch.equal(
+                    bits(mod.segmented_scan_pallas(w, one)),
+                    bits(mod.segmented_scan_pallas_plain(w, one)))):
+            fail(f"turns: the {who} B6/B7 differ from their plain versions "
+                 f"with one head")
+    out[f"B7 {SUITE} one head"] = turn(
+        f"B7 {SUITE} one head (ms an iteration)",
+        lambda: oseg.spmv_scan_pallas(a, xx, one, n_it),
+        lambda: segp.spmv_scan_pallas(a, xx, one, n_it), n_it)
+    out[f"B6 {SUITE} one head"] = turn(
+        f"B6 {SUITE} one head (ms a scan)",
+        lambda: [oseg.segmented_scan_pallas(w, one) for _ in range(n_it)],
+        lambda: [segp.segmented_scan_pallas(w, one) for _ in range(n_it)],
+        n_it)
     return out
 
 
@@ -765,6 +827,18 @@ def main(argv=None) -> int:
                 scan_note("spmv_fused", segp.spmv_scan_pallas(v, xx, f, it),
                           segp.spmv_scan_pallas_plain(v, xx, f, it),
                           f"B7 n={n} heads={heads} N={it}")
+    # one head over 2^24 elements: 8192 tiles, the look-back's longest walks
+    n = 1 << 24
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+    f = torch.zeros(n, dtype=torch.int32, device=dev)
+    f[0] = 1
+    scan_note("segscan", segp.segmented_scan_pallas(v, f),
+              segp.segmented_scan_pallas_plain(v, f), f"B6 n={n} heads=one")
+    scan_note("spmv_fused", segp.spmv_scan_pallas(v, xx, f, 2),
+              segp.spmv_scan_pallas_plain(v, xx, f, 2),
+              f"B7 n={n} heads=one N=2")
+    del v, xx, f
 
     # ---------------------------------------------------- 8. full size: pwtk
     prob = spmv.suite_problem(SUITE)
@@ -815,9 +889,17 @@ def main(argv=None) -> int:
     w = a * xx  # B6's input on the pallas path's first iteration
     scan_note("segscan", segp.segmented_scan_pallas(w, flags),
               segp.segmented_scan_pallas_plain(w, flags), f"B6 {SUITE} n={n}")
-    scan_note("spmv_fused", segp.spmv_scan_pallas(a, xx, flags, n_it),
+    first = segp.spmv_scan_pallas(a, xx, flags, n_it)
+    scan_note("spmv_fused", first,
               segp.spmv_scan_pallas_plain(a, xx, flags, n_it),
               f"B7 {SUITE} n={n} N={n_it}")
+    for rep in range(3):
+        if not torch.equal(
+                first.view(torch.int32),
+                segp.spmv_scan_pallas(a, xx, flags, n_it).view(torch.int32)):
+            fail(f"B7 {SUITE}: solve {rep + 2} differs in bits from the "
+                 f"first")
+    print(f"B7 {SUITE}: three more solves bitwise equal to the first")
     scan_cost = roofline.segmented_scan_cost(n)
     b6_bound, b6_by = roofline.bound_ms(scan_cost, peak, torch.float32)
     b6_ms = per_call_ms(lambda v: segp.segmented_scan_pallas(v, flags), w,
@@ -1368,8 +1450,11 @@ def main(argv=None) -> int:
         print("old-vs-new turns: not run (no --parent tree given)")
         turns = None
     else:
-        turns = old_new_turns(parent, torch, np, config, core, grid, ops,
-                              dist, dheat, sp, spl)
+        turns = old_new_turns(
+            parent, torch, np, config, core, grid, ops, dist, dheat, sp, spl,
+            segp, (a, xx, flags, n_it, ref64,
+                   lambda r, g: (relative_l2_error(r, g),
+                                 relative_linf_error(r, g))))
         print(f"old-vs-new turns: {json.dumps(turns)}")
 
     # ---------------------------------------------------- summary lines
@@ -1473,7 +1558,7 @@ def main(argv=None) -> int:
         "bound_by": t_by, "library_ms": t_library_ms,
         "unit": f"ms per transpose, {SIDE}x{SIDE} f32"})
     if turns is not None:
-        for row in kernels[:3] + kernels[-3:-1]:
+        for row in kernels[:-1]:  # every kernel but B8
             row["turns"] = turns
     print(ident)
     print(json.dumps({"kernels": kernels}))

@@ -142,7 +142,8 @@ def _bind_segmented_scan(lib: ctypes.CDLL) -> None:
     lib.segmented_scan_geometry.restype = None
     lib.segmented_scan_f32.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
-                                 ctypes.c_longlong, ctypes.c_void_p])
+                                 ctypes.c_longlong, ctypes.c_uint,
+                                 ctypes.c_void_p])
     lib.segmented_scan_f32.restype = ctypes.c_int
     lib.segmented_scan_error_string.argtypes = [ctypes.c_int]
     lib.segmented_scan_error_string.restype = ctypes.c_char_p
@@ -289,25 +290,29 @@ def heat_ksteps_design(dtype_bytes: int, k: int) -> tuple[int, int, int]:
     return tuple(buf)
 
 
-def segmented_scan_geometry() -> tuple[int, int, int, int]:
-    """(items per thread, threads per tile, warp width, carry-pass threads)
-    as compiled into ``csrc/segmented_scan.cu``."""
-    buf = (ctypes.c_int * 4)()
+def segmented_scan_geometry() -> tuple[int, int, int]:
+    """(items per thread, threads per tile, warp width) as compiled into
+    ``csrc/segmented_scan.cu``."""
+    buf = (ctypes.c_int * 3)()
     library("segmented_scan").segmented_scan_geometry(buf)
     return tuple(buf)
 
 
 def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
                    flags: torch.Tensor, out: torch.Tensor,
-                   workspace: torch.Tensor) -> None:
-    """Enqueue one scan of ``csrc/segmented_scan.cu`` on the current stream:
-    ``out = segscan(values)`` (``xx`` None, B6) or ``segscan(values·xx)``
-    (B7).  ``out`` may be ``values``.
+                   workspace: torch.Tensor, epoch: int,
+                   stream: int | None = None) -> None:
+    """Enqueue the one launch of a scan of ``csrc/segmented_scan.cu`` on
+    ``stream`` (a ``cuda_stream`` handle of the tensors' device; default
+    its current stream): ``out = segscan(values)`` (``xx`` None, B6) or
+    ``segscan(values·xx)`` (B7).  ``out`` may be ``values``.
 
     Every tensor is contiguous, 1-D and on one CUDA device: float32
     ``values``, ``xx`` and ``out`` of n elements, int32 ``flags`` of n, and
-    a 32-bit ``workspace`` of at least 3 words per tile.  Raises
-    ``FrameworkError`` when the C entry refuses the call or a launch.
+    a 32-bit ``workspace`` of at least 2 + 2 words per tile, zero before
+    its first call; ``epoch`` (1 ≤ epoch < 2³⁰) is new to the workspace
+    since it was zeroed.  Raises ``FrameworkError`` when the C entry
+    refuses the call or the launch.
     """
     tensors = [values, flags, out, workspace] + ([] if xx is None else [xx])
     if not all(t.is_cuda and t.device == values.device for t in tensors):
@@ -324,18 +329,23 @@ def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
         raise ValueError("segmented_scan takes values, xx, flags and out of "
                          "one length")
     lib = library("segmented_scan")
-    with torch.cuda.device(values.device):
+    if stream is None:
         stream = torch.cuda.current_stream(values.device).cuda_stream
+    # the launch goes to the current device; switching costs host time a
+    # call, so it is done only when the tensors lie on another device
+    index = values.device.index
+    with contextlib.nullcontext() if index == torch.cuda.current_device() \
+            else torch.cuda.device(index):
         err = lib.segmented_scan_f32(
             values.data_ptr(), None if xx is None else xx.data_ptr(),
             flags.data_ptr(), out.data_ptr(), n, workspace.data_ptr(),
-            workspace.shape[0], stream)
+            workspace.shape[0], epoch, stream)
     if err != 0:
         raise FrameworkError(
             f"segmented_scan launch failed: "
             f"{lib.segmented_scan_error_string(err).decode()} (cudaError "
             f"{err}; n={n} fused={xx is not None} "
-            f"workspace={workspace.shape[0]} words)")
+            f"workspace={workspace.shape[0]} words, epoch {epoch})")
 
 
 def heat_band_launchers(pairs, *, order: int, k: int, tile_y: int,

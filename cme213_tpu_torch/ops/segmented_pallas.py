@@ -4,9 +4,9 @@ Counterpart of ``cme213_tpu/ops/segmented_pallas.py``.  Both entry points
 launch ``csrc/segmented_scan.cu``: ``segmented_scan_pallas`` (B6) scans
 values with head flags; ``spmv_scan_pallas`` (B7) runs the hw_final
 iteration ``a ← segscan(a·xx)`` N times with the multiply fused into the
-scan's load.  One call of the C entry is one scan (three launches: tile
-reduce, carry scan, tile down-sweep; see the source's note), and
-``LAUNCHES`` counts those calls.
+scan's load.  One call of the C entry is one scan and one launch (a
+single-pass look-back; see the source's note), and ``LAUNCHES`` counts
+those calls.
 
 Dispatch is on the tensor's device: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernel, and a failed build or launch raises.  The
@@ -17,32 +17,40 @@ The plain versions follow the kernel's decomposition in PyTorch, in the same
 order of additions: tiles of ``threads × items`` elements, a thread-serial
 scan of each thread's ``items``, a segmented Hillis–Steele over each warp's
 thread summaries (strides 1, 2, … < ``warp``), the same over each tile's
-warp summaries, a scan of the tile summaries in chunks of
-``carry_threads``, and the incoming carries added level by level (tile →
-warp → thread → element).  So on the card the kernel equals them bit for
-bit.  Their geometry is an argument, so tests on the CPU can use small
-tiles; the defaults are the kernel's, checked against the built library
-before every solve on the card.
+warp summaries, the serial left fold of the tile summaries in tile order
+(the carry the kernel's look-back finds), and the incoming carries added
+level by level (tile → warp → thread → element).  So on the card the kernel
+equals them bit for bit.  Their geometry is an argument, so tests on the
+CPU can use small tiles; the defaults are the kernel's, checked against the
+built library before every solve on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.errors import FrameworkError
 from . import _kernels
 
-#: calls of the C entry (one scan each) per entry point
+#: calls of the C entry (one scan, one launch each) per entry point
 LAUNCHES = {"segscan": 0, "spmv_fused": 0}
 
 #: the kernel's geometry (``csrc/segmented_scan.cu``)
 TILE_ITEMS = 8
 TILE_THREADS = 256
 WARP = 32
-CARRY_THREADS = 1024
 TILE = TILE_ITEMS * TILE_THREADS
 
-_GEOMETRY = (TILE_ITEMS, TILE_THREADS, WARP, CARRY_THREADS)
+_GEOMETRY = (TILE_ITEMS, TILE_THREADS, WARP)
+
+#: the largest epoch the status words hold (30 bits)
+MAX_EPOCH = 2 ** 30 - 1
+
+#: (device index, stream) -> [workspace, last epoch]: the kernel's ticket
+#: counter and status words, zeroed once and reused by every later call on
+#: that stream, each with the next epoch
+_WORKSPACES: dict[tuple[int, int], list] = {}
 
 
 def _hillis_steele(v: torch.Tensor, f: torch.Tensor):
@@ -70,38 +78,30 @@ def _exclusive_carry(inc_v, inc_f, carry):
     return torch.cat([carry.expand_as(inc_v[..., :1]), rest], dim=-1)
 
 
-def _scan_carries(tile_v, tile_f, warp: int, carry_threads: int):
-    """The carry pass: ``carry[t]`` = the tile summaries scanned through tile
-    t−1, ``carry[0] = 0``, in chunks of ``carry_threads`` with a running
-    carry between chunks."""
-    ntiles = tile_v.shape[0]
-    carry = tile_v.new_zeros(ntiles)
-    run = tile_v.new_zeros(1)
-    nw = carry_threads // warp
-    for c0 in range(0, ntiles - 1, carry_threads):
-        m = min(carry_threads, ntiles - c0)
-        v = tile_v.new_zeros(carry_threads)
-        f = tile_f.new_zeros(carry_threads)
-        v[:m], f[:m] = tile_v[c0:c0 + m], tile_f[c0:c0 + m]
-        v, f = _hillis_steele(v.view(nw, warp), f.view(nw, warp))
-        gv, gf = _hillis_steele(v[:, -1], f[:, -1])
-        win = _exclusive_carry(gv, gf, run)           # (nw,)
-        incl = torch.where(f, v, win[:, None] + v).reshape(-1)
-        k = min(carry_threads, ntiles - 1 - c0)
-        carry[c0 + 1:c0 + 1 + k] = incl[:k]
-        run = incl[-1:]
-    return carry
+def serial_fold(tile_v: np.ndarray, tile_f: np.ndarray) -> np.ndarray:
+    """The incoming carry of each tile: ``carry[t] = P[t−1]`` with
+    ``P[−1] = 0`` and ``P[t] = f[t] ? v[t] : P[t−1] + v[t]``, the serial
+    left fold of the tile summaries in tile order, one add at a time in
+    their dtype.  ``np.add.accumulate`` over each run that a head starts
+    (the first from 0) adds left to right."""
+    p = np.empty_like(tile_v)
+    heads = np.flatnonzero(tile_f)
+    starts = np.union1d([0], heads)
+    for s, e in zip(starts, np.append(starts[1:], len(tile_v))):
+        if tile_f[s]:
+            p[s:e] = np.add.accumulate(tile_v[s:e])
+        else:
+            run = np.concatenate([np.zeros(1, tile_v.dtype), tile_v[s:e]])
+            p[s:e] = np.add.accumulate(run)[1:]
+    return np.concatenate([np.zeros(1, tile_v.dtype), p[:-1]])
 
 
 def _segscan_plain(w: torch.Tensor, head_flags: torch.Tensor, items: int,
-                   threads: int, warp: int,
-                   carry_threads: int) -> torch.Tensor:
+                   threads: int, warp: int) -> torch.Tensor:
     n = w.shape[0]
-    if threads % warp or carry_threads % warp or threads // warp > warp \
-            or carry_threads // warp > warp:
-        raise ValueError(f"geometry threads={threads} warp={warp} "
-                         f"carry_threads={carry_threads}: each block is whole "
-                         f"warps, at most warp² threads")
+    if threads % warp or threads // warp > warp:
+        raise ValueError(f"geometry threads={threads} warp={warp}: each "
+                         f"block is whole warps, at most warp² threads")
     tile = items * threads
     ntiles = max(1, -(-n // tile))
     pad = ntiles * tile - n
@@ -120,7 +120,9 @@ def _segscan_plain(w: torch.Tensor, head_flags: torch.Tensor, items: int,
     tv, tf = _hillis_steele(loc[:, -1].reshape(ntiles, nw, warp),
                             seen[:, -1].reshape(ntiles, nw, warp))
     wv, wf = _hillis_steele(tv[:, :, -1], tf[:, :, -1])
-    carry = _scan_carries(wv[:, -1], wf[:, -1], warp, carry_threads)
+    # the tile summaries' fold on the host (a few ms at pwtk's 5681 tiles)
+    carry = torch.from_numpy(serial_fold(
+        wv[:, -1].cpu().numpy(), wf[:, -1].cpu().numpy())).to(w.device)
     # incoming carries, level by level: tile -> warp -> thread -> element
     win = _exclusive_carry(wv, wf, carry[:, None])          # (ntiles, nw)
     tin = _exclusive_carry(tv, tf, win[:, :, None])         # (.., warp)
@@ -148,34 +150,28 @@ def segmented_scan_pallas_plain(values: torch.Tensor,
                                 head_flags: torch.Tensor, *,
                                 items: int = TILE_ITEMS,
                                 threads: int = TILE_THREADS,
-                                warp: int = WARP,
-                                carry_threads: int = CARRY_THREADS
-                                ) -> torch.Tensor:
+                                warp: int = WARP) -> torch.Tensor:
     """B6's plain PyTorch version: the inclusive segmented sum scan in the
     kernel's order of additions, at the given geometry."""
     _check_args(values, head_flags)
-    return _segscan_plain(values, head_flags, items, threads, warp,
-                          carry_threads)
+    return _segscan_plain(values, head_flags, items, threads, warp)
 
 
 def spmv_scan_pallas_plain(a: torch.Tensor, xx: torch.Tensor,
                            head_flags: torch.Tensor, iters: int, *,
                            items: int = TILE_ITEMS,
-                           threads: int = TILE_THREADS, warp: int = WARP,
-                           carry_threads: int = CARRY_THREADS
+                           threads: int = TILE_THREADS, warp: int = WARP
                            ) -> torch.Tensor:
     """B7's plain PyTorch version: ``iters`` × ``a ← segscan(a·xx)`` in the
     kernel's order of additions, at the given geometry."""
     _check_args(a, head_flags, xx)
     for _ in range(iters):
-        a = _segscan_plain(a * xx, head_flags, items, threads, warp,
-                           carry_threads)
+        a = _segscan_plain(a * xx, head_flags, items, threads, warp)
     return a
 
 
 def _cuda_args(values: torch.Tensor, head_flags: torch.Tensor):
-    """Checks for a launch; the int32 flags and a workspace of 3 words per
-    tile, allocated once for the solve."""
+    """Checks for a launch; the int32 flags."""
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     if values.dtype != torch.float32:
@@ -186,11 +182,23 @@ def _cuda_args(values: torch.Tensor, head_flags: torch.Tensor):
         raise FrameworkError(
             f"csrc/segmented_scan.cu is built with geometry {built}, the "
             f"plain version assumes {_GEOMETRY}")
-    flags = head_flags.to(torch.int32).contiguous()
-    ntiles = -(-values.shape[0] // TILE)
-    workspace = torch.empty(3 * ntiles, dtype=torch.float32,
-                          device=values.device)
-    return flags, workspace
+    return head_flags.to(torch.int32).contiguous()
+
+
+def _scan(values, xx, flags, out) -> None:
+    """One launch: ``out = segscan(values[·xx])`` with the current stream's
+    workspace (zeroed when it is first made, grown or out of epochs) and
+    its next epoch."""
+    device = values.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    words = 2 + 2 * -(-values.shape[0] // TILE)
+    entry = _WORKSPACES.get((device.index, stream))
+    if entry is None or entry[0].shape[0] < words or entry[1] >= MAX_EPOCH:
+        entry = _WORKSPACES[(device.index, stream)] = [
+            torch.zeros(words, dtype=torch.int32, device=device), 0]
+    entry[1] += 1
+    _kernels.segmented_scan(values, xx, flags, out, entry[0], entry[1],
+                            stream)
 
 
 def segmented_scan_pallas(values: torch.Tensor,
@@ -205,11 +213,11 @@ def segmented_scan_pallas(values: torch.Tensor,
     _check_args(values, head_flags)
     if values.device.type == "cpu":
         return segmented_scan_pallas_plain(values, head_flags)
-    flags, workspace = _cuda_args(values, head_flags)
+    flags = _cuda_args(values, head_flags)
     out = torch.empty_like(values, memory_format=torch.contiguous_format)
     if values.shape[0] == 0:
         return out
-    _kernels.segmented_scan(values.contiguous(), None, flags, out, workspace)
+    _scan(values.contiguous(), None, flags, out)
     LAUNCHES["segscan"] += 1
     return out
 
@@ -226,12 +234,12 @@ def spmv_scan_pallas(a: torch.Tensor, xx: torch.Tensor,
     _check_args(a, head_flags, xx)
     if a.device.type == "cpu":
         return spmv_scan_pallas_plain(a, xx, head_flags, iters)
-    flags, workspace = _cuda_args(a, head_flags)
+    flags = _cuda_args(a, head_flags)
     work = a.clone(memory_format=torch.contiguous_format)
     if a.shape[0] == 0:
         return work
     xx = xx.contiguous()
     for _ in range(iters):
-        _kernels.segmented_scan(work, xx, flags, work, workspace)
+        _scan(work, xx, flags, work)
         LAUNCHES["spmv_fused"] += 1
     return work

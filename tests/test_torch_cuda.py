@@ -214,14 +214,144 @@ def test_segscan_leaves_input_and_refuses_f64(cuda):
 def test_segscan_refused_launch_raises(cuda):
     v = torch.ones(3 * T, dtype=torch.float32, device=cuda)
     f = torch.zeros(3 * T, dtype=torch.int32, device=cuda)
-    short = torch.empty(2, dtype=torch.float32, device=cuda)  # needs 9 words
+    short = torch.zeros(2, dtype=torch.float32, device=cuda)  # needs 8 words
     with pytest.raises(FrameworkError, match="segmented_scan launch failed"):
-        _kernels.segmented_scan(v, None, f, torch.empty_like(v), short)
+        _kernels.segmented_scan(v, None, f, torch.empty_like(v), short, 1)
+
+
+@pytest.mark.parametrize("epoch,offset", [(0, 0), (segp.MAX_EPOCH + 1, 0),
+                                          (1, 1)],
+                         ids=["epoch-0", "epoch-past-30-bits", "unaligned"])
+def test_segscan_refuses_bad_epoch_or_workspace(cuda, epoch, offset):
+    v = torch.ones(3 * T, dtype=torch.float32, device=cuda)
+    f = torch.zeros(3 * T, dtype=torch.int32, device=cuda)
+    ws = torch.zeros(10, dtype=torch.int32, device=cuda)[offset:offset + 8]
+    with pytest.raises(FrameworkError, match="segmented_scan launch failed"):
+        _kernels.segmented_scan(v, None, f, torch.empty_like(v), ws, epoch)
 
 
 def test_segscan_geometry_matches_plain(cuda):
     assert _kernels.segmented_scan_geometry() == (
-        segp.TILE_ITEMS, segp.TILE_THREADS, segp.WARP, segp.CARRY_THREADS)
+        segp.TILE_ITEMS, segp.TILE_THREADS, segp.WARP)
+
+
+def _device_events(run):
+    """Names of the device activities (kernels, copies) the profiler sees
+    while ``run()`` runs; an empty first session is tried again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
+def test_segscan_one_call_one_launch_a_scan(cuda):
+    n = 50 * T + 7
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    f = torch.from_numpy(_flags(n, "random", rng)).to(cuda)
+    segp.segmented_scan_pallas(v, f)  # the workspace is zeroed once, here
+    segp.spmv_scan_pallas(v, v, f, 1)
+    torch.cuda.synchronize()
+    calls = {}
+
+    def run(name, fn):
+        before = segp.LAUNCHES[name]
+        fn()
+        calls[name] = segp.LAUNCHES[name] - before
+
+    names = _device_events(
+        lambda: run("segscan", lambda: segp.segmented_scan_pallas(v, f)))
+    assert len(names) == 1 and "segscan_tiles" in names[0], names
+    names = _device_events(
+        lambda: run("spmv_fused", lambda: segp.spmv_scan_pallas(v, v, f, 5)))
+    assert len([x for x in names if "segscan_tiles" in x]) == 5, names
+    assert calls == {"segscan": 1, "spmv_fused": 5}
+
+
+def test_segscan_deterministic_under_look_back(cuda):
+    """One head over 2^24 elements (8192 tiles, the longest walks): 20 runs
+    of B6 and of B7 are bitwise identical, and equal their plain
+    versions."""
+    n = 1 << 24
+    rng = np.random.default_rng(24)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    f = torch.zeros(n, dtype=torch.int32, device=cuda)
+    f[0] = 1
+    bits = lambda t: t.view(torch.int32)  # noqa: E731 (+0 and -0 differ)
+    b6 = [bits(segp.segmented_scan_pallas(v, f)) for _ in range(20)]
+    b7 = [bits(segp.spmv_scan_pallas(v, xx, f, 1)) for _ in range(20)]
+    for runs in (b6, b7):
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert torch.equal(b6[0], bits(segp.segmented_scan_pallas_plain(v, f)))
+    assert torch.equal(b7[0],
+                       bits(segp.spmv_scan_pallas_plain(v, xx, f, 1)))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n", [T - 1, T + 1, 2 * T - 1, 2 * T + 1,
+                               7 * T + 13])
+def test_segscan_ragged_tiles_bitwise_vs_plain(cuda, n, offset):
+    rng = np.random.default_rng(n + offset)
+    buf = rng.standard_normal(n + offset).astype(np.float32)
+    v = torch.from_numpy(buf).to(cuda)[offset:]  # offset 1: off 16 bytes
+    xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    f = torch.from_numpy(_flags(n, "random", rng)).to(cuda)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(segp.segmented_scan_pallas(v, f)),
+                       bits(segp.segmented_scan_pallas_plain(v, f)))
+    assert torch.equal(bits(segp.spmv_scan_pallas(v, xx, f, 3)),
+                       bits(segp.spmv_scan_pallas_plain(v, xx, f, 3)))
+
+
+def test_segscan_workspace_grows_and_wraps_its_epoch(cuda):
+    """The stream's workspace is made anew when a longer input needs more
+    words, and when its epochs run out; every scan stays its plain
+    version."""
+    rng = np.random.default_rng(3)
+    key = (torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    for n, wrap in ((3 * T, False), (40 * T + 3, False), (40 * T + 3, True),
+                    (40 * T + 3, False), (2 * T, False)):
+        if wrap:
+            segp._WORKSPACES[key][1] = segp.MAX_EPOCH - 1
+        v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             ).to(cuda)
+        f = torch.from_numpy(_flags(n, "random", rng)).to(cuda)
+        for _ in range(2):  # the second with a wrapped epoch
+            assert torch.equal(bits(segp.segmented_scan_pallas(v, f)),
+                               bits(segp.segmented_scan_pallas_plain(v, f)))
+        ws, epoch = segp._WORKSPACES[key]
+        assert ws.shape[0] >= 2 + 2 * -(-n // T)
+        assert 1 <= epoch <= segp.MAX_EPOCH
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["B6", "B7"])
+def test_segscan_in_place_bitwise_vs_plain(cuda, fused):
+    n = 9 * T + 100
+    rng = np.random.default_rng(9)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    f = torch.from_numpy(_flags(n, "random", rng)).to(cuda)
+    ws = torch.zeros(2 + 2 * -(-n // T), dtype=torch.int32, device=cuda)
+    work = v.clone()
+    for epoch in (1, 2, 3):  # one workspace, a new epoch a call
+        _kernels.segmented_scan(work, xx if fused else None, f, work, ws,
+                                epoch)
+    want = v
+    for _ in range(3):
+        want = segp.segmented_scan_pallas_plain(want * xx if fused else want,
+                                                f)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(work), bits(want))
 
 
 @pytest.mark.parametrize("kernel", ["pallas", "pallas-fused"])

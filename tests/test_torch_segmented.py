@@ -35,13 +35,13 @@ from cme213_tpu_torch.ops import segmented_pallas as segp
 from cme213_tpu_torch.verify import golden
 from cme213_tpu_torch.verify.checkers import relative_l2_error
 
-#: (items, threads, warp, carry_threads): small tiles so that n ≤ 20k
-#: covers many tiles and several carry chunks, and the kernel's own
-GEOMETRIES = [dict(items=2, threads=8, warp=4, carry_threads=8),
-              dict(items=3, threads=12, warp=4, carry_threads=16),
-              dict(items=4, threads=64, warp=32, carry_threads=64),
+#: (items, threads, warp): small tiles so that n ≤ 20k covers many tiles
+#: and long carry folds, and the kernel's own
+GEOMETRIES = [dict(items=2, threads=8, warp=4),
+              dict(items=3, threads=12, warp=4),
+              dict(items=4, threads=64, warp=32),
               dict()]
-GEO_IDS = ["2x8w4c8", "3x12w4c16", "4x64w32c64", "kernel"]
+GEO_IDS = ["2x8w4", "3x12w4", "4x64w32", "kernel"]
 
 
 def _t(a):
@@ -272,15 +272,17 @@ def test_spmv_plain_vs_jax_pallas(integer, geo):
 
 
 def _kernel_model(w: np.ndarray, heads: np.ndarray, items: int, threads: int,
-                  warp: int, carry_threads: int) -> np.ndarray:
-    """Scalar transcription of ``csrc/segmented_scan.cu``: the three passes
-    lane by lane, shuffles as reads of the lanes' old values, every add
-    rounded to f32 on its own."""
+                  warp: int) -> np.ndarray:
+    """Scalar transcription of ``csrc/segmented_scan.cu``: each tile's
+    local scan lane by lane (shuffles as reads of the lanes' old values),
+    its summary, the look-back's carry as the serial fold of the summaries
+    in tile order, then the down-sweep; every add rounded to f32 on its
+    own."""
     f32 = np.float32
     n = w.shape[0]
     tile = items * threads
     ntiles = max(1, -(-n // tile))
-    nw, cw = threads // warp, carry_threads // warp
+    nw = threads // warp
 
     def warp_scan(v, f):  # kernel's warp_scan: strides 1 .. < warp
         v, f = list(v), list(f)
@@ -293,11 +295,6 @@ def _kernel_model(w: np.ndarray, heads: np.ndarray, items: int, threads: int,
             d *= 2
         return v, f
 
-    def scan_summaries(sv, sf):  # warp 0 over the padded summaries
-        m = len(sv)
-        v, f = warp_scan(sv + [f32(0)] * (warp - m), sf + [0] * (warp - m))
-        return v[:m], f[:m]
-
     def chunk(t, tid):
         base = t * tile + tid * items
         ww = [f32(w[i]) if i < n else f32(0) for i in range(base, base + items)]
@@ -309,52 +306,22 @@ def _kernel_model(w: np.ndarray, heads: np.ndarray, items: int, threads: int,
             seen.append(seen[-1] | ff[j])
         return loc, seen
 
-    def tile_warps(t):
+    out = np.zeros(ntiles * tile, np.float32)
+    e = f32(0)  # E[t] = P[t-1], P[-1] = 0
+    for t in range(ntiles):
         chunks = [chunk(t, tid) for tid in range(threads)]
         lanes = []
         for wi in range(nw):
             c = chunks[wi * warp:(wi + 1) * warp]
             lanes.append(warp_scan([x[0][-1] for x in c],
                                    [x[1][-1] for x in c]))
-        sv, sf = scan_summaries([x[0][-1] for x in lanes],
-                                [x[1][-1] for x in lanes])
-        return chunks, lanes, sv, sf
-
-    # pass 1: tile summaries
-    tile_v, tile_f = [], []
-    for t in range(ntiles):
-        _, _, sv, sf = tile_warps(t)
-        tile_v.append(sv[-1])
-        tile_f.append(sf[-1])
-    # pass 2: carries
-    carry = [f32(0)] * ntiles
-    run = f32(0)
-    for c0 in range(0, ntiles - 1, carry_threads):
-        vals = [(tile_v[i], tile_f[i]) if i < ntiles else (f32(0), 0)
-                for i in range(c0, c0 + carry_threads)]
-        lanes = [warp_scan([x[0] for x in vals[k * warp:(k + 1) * warp]],
-                           [x[1] for x in vals[k * warp:(k + 1) * warp]])
-                 for k in range(cw)]
-        gv, gf = scan_summaries([x[0][-1] for x in lanes],
-                                [x[1][-1] for x in lanes])
-        incl = []
-        for k in range(cw):
-            win = run if k == 0 else (gv[k - 1] if gf[k - 1]
-                                      else f32(run + gv[k - 1]))
-            for lane in range(warp):
-                v, f = lanes[k][0][lane], lanes[k][1][lane]
-                incl.append(v if f else f32(win + v))
-        for tid in range(carry_threads):
-            if c0 + tid + 1 < ntiles:
-                carry[c0 + tid + 1] = incl[tid]
-        run = incl[-1]
-    # pass 3: down-sweep
-    out = np.zeros(ntiles * tile, np.float32)
-    for t in range(ntiles):
-        chunks, lanes, sv, sf = tile_warps(t)
+        # warp 0 over the warp summaries, padded to a warp; the last is A[t]
+        sv, sf = warp_scan([x[0][-1] for x in lanes] + [f32(0)] * (warp - nw),
+                           [x[1][-1] for x in lanes] + [0] * (warp - nw))
+        av, af = sv[nw - 1], sf[nw - 1]
         for wi in range(nw):
-            win = carry[t] if wi == 0 else (
-                sv[wi - 1] if sf[wi - 1] else f32(carry[t] + sv[wi - 1]))
+            win = e if wi == 0 else (
+                sv[wi - 1] if sf[wi - 1] else f32(e + sv[wi - 1]))
             tv, tf = lanes[wi]
             for lane in range(warp):
                 tin = win if lane == 0 else (
@@ -363,6 +330,7 @@ def _kernel_model(w: np.ndarray, heads: np.ndarray, items: int, threads: int,
                 base = t * tile + (wi * warp + lane) * items
                 for j in range(items):
                     out[base + j] = loc[j] if seen[j] else f32(tin + loc[j])
+        e = av if af else f32(e + av)  # P[t], published for tile t + 1
     return out[:n]
 
 
@@ -389,13 +357,162 @@ def test_plain_bitwise_vs_kernel_model(n, pattern, geo):
     assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
 
 
+# ------------------------------------------- the look-back's carry, simulated
+
+
+def _fold_loop(v: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """The serial fold's carries by a scalar loop: carry[t] = P[t-1]."""
+    e, out = v.dtype.type(0), []
+    for x, h in zip(v, f):
+        out.append(e)
+        e = x if h else v.dtype.type(e + x)
+    return np.array(out, v.dtype)
+
+
+def _summaries(ntiles: int, pattern: str, seed: int):
+    """Tile summaries (f32 values, head bits) of a pattern: ``random``
+    heads, ``one-segment`` (a head in tile 0 only: the longest walks),
+    ``no-head`` (the first run folds from P[-1] = 0), ``tile-edges``
+    (every tile a head)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal(ntiles) * 10.0 ** rng.integers(-3, 4, ntiles)
+         ).astype(np.float32)
+    f = {"random": rng.random(ntiles) < 0.15,
+         "one-segment": np.arange(ntiles) == 0,
+         "no-head": np.zeros(ntiles, bool),
+         "tile-edges": np.ones(ntiles, bool)}[pattern]
+    return v, f
+
+
+def _fold_window(words, e, hi):
+    """The kernel's fold_window over lanes hi .. 0: a stop (P, or a head)
+    restarts the fold from its value, any other word adds to it."""
+    for lane in range(hi, -1, -1):
+        inclusive, head, value = words[lane]
+        e = value if inclusive or head else np.float32(e + value)
+    return e
+
+
+def _look_back(read, t: int, window: int):
+    """The kernel's look_back for tile t with windows of ``window`` lanes,
+    as a generator: it yields where the warp would poll again (a word up to
+    the nearest stop is not yet published) and between the forward
+    re-reads, and returns E[t].  ``read(i)`` is tile i's word now:
+    ``(inclusive, head, value)``, or None before it is published."""
+    top = t - 1
+    while True:
+        while True:
+            words = [read(top - lane) if top - lane >= 0
+                     else (True, False, np.float32(0))
+                     for lane in range(window)]
+            stops = [wd is not None and (wd[0] or wd[1]) for wd in words]
+            stop = next((lane for lane in range(window) if stops[lane]),
+                        None)
+            upto = window if stop is None else stop + 1
+            if all(wd is not None for wd in words[:upto]):
+                break
+            yield
+        if stop is not None:
+            break
+        top -= window
+    e = _fold_window(words, np.float32(0), stop)
+    while top < t - 1:
+        top += window
+        yield
+        words = [read(top - lane) for lane in range(window)]
+        assert all(wd is not None for wd in words)
+        e = _fold_window(words, e, window - 1)
+    return e
+
+
+@pytest.mark.parametrize("window", [4, 32])
+@pytest.mark.parametrize("pattern", ["random", "one-segment", "no-head",
+                                     "tile-edges"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_look_back_any_completion_order_gives_serial_fold(seed, pattern,
+                                                          window):
+    """Tiles publish A, walk and publish P in a random interleaving (a walk
+    advances one poll or one re-read at a time); every tile's carry and
+    every published P are the serial fold's bits."""
+    ntiles = 150
+    v, f = _summaries(ntiles, pattern, seed)
+    ref = _fold_loop(v, f)
+    ref_p = np.append(ref[1:], v[-1] if f[-1] else np.float32(ref[-1] + v[-1]))
+    rng = np.random.default_rng(100 + seed)
+    status = [None] * ntiles
+    carry = [None] * ntiles
+    walks, ready_p = {}, {}
+    unstarted = list(range(ntiles))
+    while unstarted or walks or ready_p:
+        kinds = [k for k, live in (("start", unstarted), ("step", walks),
+                                   ("publish", ready_p)) if live]
+        kind = kinds[rng.integers(len(kinds))]
+        if kind == "start":  # a block publishes A[t] and starts its walk
+            t = unstarted.pop(rng.integers(len(unstarted)))
+            status[t] = (False, bool(f[t]), v[t])
+            walks[t] = _look_back(status.__getitem__, t, window)
+        elif kind == "step":
+            t = list(walks)[rng.integers(len(walks))]
+            try:
+                next(walks[t])
+            except StopIteration as done:
+                del walks[t]
+                carry[t] = done.value
+                ready_p[t] = v[t] if f[t] else np.float32(done.value + v[t])
+        else:
+            t = list(ready_p)[rng.integers(len(ready_p))]
+            status[t] = (True, bool(f[t]), ready_p.pop(t))
+    got = np.array(carry, np.float32)
+    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    got_p = np.array([wd[2] for wd in status], np.float32)
+    assert np.array_equal(got_p.view(np.uint32), ref_p.view(np.uint32))
+
+
+@pytest.mark.parametrize("window", [4, 32])
+@pytest.mark.parametrize("pattern", ["random", "one-segment", "no-head",
+                                     "tile-edges"])
+def test_look_back_every_stop_gives_serial_fold(pattern, window):
+    """Every tile t, with every predecessor j (and none) the one that has
+    published P[j]: the walk stops at j or at a nearer head, and its carry
+    is the serial fold's bits."""
+    ntiles = 70
+    v, f = _summaries(ntiles, pattern, seed=7)
+    ref = _fold_loop(v, f)
+    for t in range(ntiles):
+        for j in range(-1, t):
+            status = [(False, bool(f[i]), v[i]) for i in range(t)]
+            if j >= 0:
+                p = v[j] if f[j] else np.float32(ref[j] + v[j])
+                status[j] = (True, bool(f[j]), p)
+            walk = _look_back(status.__getitem__, t, window)
+            try:
+                while True:
+                    next(walk)
+            except StopIteration as done:
+                e = np.float32(done.value)
+            assert e.view(np.uint32) == ref[t].view(np.uint32), (t, j)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("pattern", ["random", "one-segment", "no-head",
+                                     "tile-edges"])
+def test_serial_fold_equals_scalar_loop(pattern, dtype):
+    v, f = _summaries(5000, pattern, seed=3)
+    v = v.astype(dtype)
+    v[0] = -0.0  # P[0] = 0 + -0 = +0 where tile 0 holds no head
+    got = segp.serial_fold(v, f)
+    ref = _fold_loop(v, f)
+    assert got.dtype == dtype
+    assert np.array_equal(got.view(f"u{got.itemsize}"),
+                          ref.view(f"u{ref.itemsize}"))
+
+
 def test_plain_takes_float64():
     prob = j_spmv.generate_problem(5000, 60, 50, iters=4, seed=9)
     f = _flags(prob.n, prob.s[:-1])
     got = segp.spmv_scan_pallas_plain(_t(prob.a).double(),
                                       _t(prob.xx).double(), _t(f), 4,
-                                      items=2, threads=8, warp=4,
-                                      carry_threads=8)
+                                      items=2, threads=8, warp=4)
     assert got.dtype == torch.float64
     ref = golden.host_spmv_scan(prob.a, prob.s[:-1], prob.xx, 4,
                                 dtype=np.float64)
@@ -457,3 +574,19 @@ def test_blocked_cancellation_is_the_reference_s():
     for ours_or_theirs in (0, 1):
         assert errs["blocked"][ours_or_theirs] \
             > 5 * errs["flat"][ours_or_theirs]
+
+
+def test_source_geometry_is_the_plain_versions():
+    """The tile compiled into the kernel's source is the one the plain
+    version assumes (checked again against the library before a launch)."""
+    import re
+
+    from cme213_tpu_torch.ops import _kernels
+
+    src = _kernels.SOURCES["segmented_scan"].read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("kTileItems"), const("kTileThreads"), const("kWarp")) \
+        == segp._GEOMETRY == (segp.TILE_ITEMS, segp.TILE_THREADS, segp.WARP)
