@@ -150,21 +150,39 @@ the run (non-zero exit) when it fails:
    iterations.  The parent's
    package is imported under another name and builds its kernels into its
    own tree.
+16. The runtime core and the headline bench, as a user runs them:
+   ``python -m cme213_tpu_torch doctor --json`` must report the card
+   healthy, with ``torch.cuda.device_count()`` CUDA devices and the card's
+   name; ``python -m cme213_tpu_torch.bench.headline`` (each candidate in
+   its own child process, 4000² order 8) in f32, where every row must be
+   ok, each pipeline row with one tile, and ``pct_hbm_peak`` against the
+   card's peak, then ``--dtype=f64`` (``xla``); each pipeline row's
+   host-clocked ms/iter is printed beside phase 4's CUDA-event time of
+   the same kernel and k; ``--spmv``, whose ``pallas`` (B6) and
+   ``pallas-fused`` (B7) rows at 2^16, 2^20 and 2^22 must carry no error.
+   Each child's row and the ``--spmv`` line report their kernel launches,
+   which must be what their runs imply.  Their JSON lines are printed with
+   the seconds each took.  Then one
+   child's measurement in this process, ``measure_one("pipeline-k1",
+   "f32")``, whose B1 launches must be exactly two calibration runs and
+   the final-count runs its row reports.
 
-The main paths are what phases 2, 4, 5, 6, 8, 10, 11 and 14 drive through
+The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14 and 16 drive through
 the entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
 B1), one solve of each of ``run_heat_pipeline`` and ``run_heat_pipeline2d``
 (B2) at each k, the SpMV-scan runs (B6 through ``pallas``, B7 through
 ``pallas-fused``), the distributed heat solves (B3 through ``pallas``),
 the sharded SpMV-scan, the full-size sweeps (B4, B5, B8, and B1, B2 through
-their rows) and the full-size solves of phase 14.  Every launch count
+their rows), the full-size solves of phase 14 and the headline's child
+measurement of phase 16 (B1).  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
 exactly its own kernels, ``iters + 1`` times for ``run_single`` and
 ``run_spmv_scan`` (one untimed step or iteration, then the solve), ``iters
 / k`` times for a heat solve, ``devices × iters / k`` for a distributed
-solve with ``pallas`` (one launch a device for all its shards), and for the sweeps what their loops imply (each heat row
+solve with ``pallas`` (one launch a device for all its shards), for the
+headline's child what its row reports, and for the sweeps what their loops imply (each heat row
 runs its solve twice, warm-up and timed; the transpose row calls its kernel
 ``1 + sweeps.TIME_ITERS`` times); ``auto``, ``flat``, the ``xla``
 distributed solves and the sharded SpMV-scan launch none.  The launches of
@@ -178,7 +196,8 @@ times and bound (B1, B2, B4, B5: ms per step at 4000² order 8 f32, k = 1
 and for B5 k = 2, with every k in ``per_k``; B3: ms per step of the
 batched call, one launch on the 2-D pallas path's four 1008² blocks at
 2000²; the scan: ms per iteration or per
-scan at pwtk; B8: ms per 4096² f32 transpose).  The last line:
+scan at pwtk; B8: ms per 4096² f32 transpose); B1, B2, B6 and B7 also
+carry their rows of phase 16's headline (``headline``).  The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -189,6 +208,7 @@ import csv
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1457,6 +1477,114 @@ def main(argv=None) -> int:
                                  relative_linf_error(r, g))))
         print(f"old-vs-new turns: {json.dumps(turns)}")
 
+    # ---------------------------------------------------- 16. doctor, headline
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    env.pop("CME213_FAULTS", None)
+
+    def run_module(args, timeout):
+        """``python -m args`` from the checkout: (stdout, seconds).  It runs
+        in a session of its own, so a timeout stops its children too."""
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"{' '.join(args)}: no result in {timeout} s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{' '.join(args)}: rc {proc.returncode}\n{stderr[-3000:]}")
+        return stdout, secs
+
+    out, secs = run_module(["cme213_tpu_torch", "doctor", "--json"], 300)
+    doctor = json.loads(out)
+    devices = doctor["stages"][0]["detail"]["devices"]
+    print(f"doctor --json ({secs:.1f} s): healthy {doctor['healthy']}, "
+          f"platform {doctor['platform']}, {doctor['device_count']} "
+          f"device(s): {[d['kind'] for d in devices]}; liveness "
+          f"{doctor['probe_ms']} ms")
+    if not (doctor["healthy"] and doctor["platform"] == "cuda"
+            and doctor["device_count"] == torch.cuda.device_count()
+            and devices[0]["kind"] == kind):
+        fail(f"doctor: {json.dumps(doctor)}")
+
+    headline = {}
+    for dtype_name in ("f32", "f64"):
+        out, secs = run_module(["cme213_tpu_torch.bench.headline",
+                                f"--dtype={dtype_name}"], 900)
+        line = json.loads(out.strip().splitlines()[-1])
+        headline[dtype_name] = dict(line, seconds=secs)
+        print(f"headline {dtype_name} ({secs:.1f} s): {json.dumps(line)}")
+        bad = [r for r in line["kernels"] if not r.get("ok")]
+        if bad:
+            fail(f"headline {dtype_name}: rows not ok: {bad}")
+        if line["device_kind"] != kind or line["platform"] != "cuda" or \
+                line["pct_hbm_peak"] != round(100 * line["value"]
+                                              / peak.gbs, 1):
+            fail(f"headline {dtype_name}: device or peak: {line}")
+    # each pipeline row beside phase 4's CUDA-event time of its kernel at k
+    beside = []
+    for r in headline["f32"]["kernels"]:
+        if not r["kernel"].startswith("pipeline"):
+            continue
+        entry, k = r["kernel"].split("-k")
+        k = int(k)
+        if r["variant"].count("tile_y=") != 1:
+            fail(f"headline {r['kernel']}: variant {r['variant']}")
+        want = (2 * r["calibration_iters"]
+                + r["final_runs"] * r["iters"]) // k
+        if r["launches"] != {entry: want}:
+            fail(f"headline {r['kernel']}: launches {r['launches']}, "
+                 f"expected {want}")
+        events_ms = next(t["ms"] for t in timings[entry] if t["k"] == k)
+        gap = r["ms_per_iter"] / events_ms - 1
+        beside.append({"kernel": r["kernel"], "variant": r["variant"],
+                       "ms_per_iter": r["ms_per_iter"], "gbs": r["gbs"],
+                       "pct_peak": r["pct_peak"], "iters": r["iters"],
+                       "launches": want, "phase4_ms": events_ms,
+                       "gap": gap})
+        print(f"  {r['kernel']:<14} {r['variant']:<22} {r['ms_per_iter']:.4f}"
+              f" ms/iter host-clocked over {r['iters']} steps, "
+              f"{r['gbs']} GB/s ({r['pct_peak']}%); phase 4 CUDA events "
+              f"{events_ms:.6f}: {gap:+.1%}{'  GAP > 25%' if abs(gap) > 0.25 else ''}")
+    out, secs = run_module(["cme213_tpu_torch.bench.headline", "--spmv"],
+                           600)
+    spmv_line = json.loads(out.strip().splitlines()[-1])
+    headline["spmv"] = dict(spmv_line, seconds=secs)
+    print(f"headline --spmv ({secs:.1f} s): {json.dumps(spmv_line)}")
+    scan_rows = [r for r in spmv_line["kernels"]
+                 if r["kernel"] in SCAN_KERNELS]
+    if len(scan_rows) != 2 * 3 or any(r["error"] for r in scan_rows):
+        fail(f"headline --spmv: {scan_rows}")
+    # one run_spmv_scan a size and kernel: an untimed iteration, then 8
+    want = sum(r["iters"] + 1 for r in scan_rows) // 2
+    if spmv_line["launches"] != {"segscan": want, "spmv_fused": want}:
+        fail(f"headline --spmv: launches {spmv_line['launches']}, "
+             f"expected {want} each")
+    # one child's measurement in this process: B1 launched exactly as its
+    # calibration and timed runs imply
+    from cme213_tpu_torch.bench import headline as hl
+
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
+    row = hl.measure_one("pipeline-k1", "f32")
+    torch.cuda.synchronize()
+    label = "headline measure_one pipeline-k1"
+    paths[label] = {k: v for c in counters for k, v in c.items()}
+    want = 2 * row.get("calibration_iters", 0) + \
+        row.get("final_runs", 0) * row.get("iters", 0)
+    print(f"launches of {label}: {paths[label]} (calibration 2 x "
+          f"{row.get('calibration_iters')}, {row.get('final_runs')} x "
+          f"{row.get('iters')}); {row.get('ms_per_iter')} ms/iter")
+    if not row["ok"] or paths[label] != only("pipeline", want):
+        fail(f"{label}: {row}, launches {paths[label]}, expected {want}")
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single, B2 through its own entry point at k = 1, B6 and B7 through
@@ -1491,6 +1619,10 @@ def main(argv=None) -> int:
             "bound_by": k1["bound_by"], "library_ms": library_ms,
             "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
                     f"f32, k=1", "per_k": timings[name]})
+    kernels[0]["headline"] = [b for b in beside
+                              if b["kernel"].startswith("pipeline-")]
+    kernels[1]["headline"] = [b for b in beside
+                              if b["kernel"].startswith("pipeline2d-")]
     k1 = local_timing[0]
     kernels.append({
         "name": "heat_ksteps (local)", "route": "cuda",
@@ -1521,7 +1653,9 @@ def main(argv=None) -> int:
             "max_abs_err": scan_err[name], "max_ulp": scan_ulp[name],
             "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "library_note": NO_LIBRARY,
-            "cumsum_yardstick_ms": cumsum_ms, "unit": unit})
+            "cumsum_yardstick_ms": cumsum_ms, "unit": unit,
+            "headline": [r for r in spmv_line["kernels"]
+                         if SCAN_KERNELS.get(r["kernel"]) == name]})
     kernels[-1]["paths"] = spmv_rows  # B7's row: every kernel at pwtk
     # B4 and B5: per step at 4000² order 8 f32 tile 200 (B5 at k = 2);
     # their plain versions are run_heat and run_heat_roll, phase 4's

@@ -20,7 +20,12 @@ recovered or final, lands in ``<out>/failures.json``::
 The exit code is 0 when every sweep produced rows, even after a retry; 1
 when a sweep failed both attempts; 2 when ``--only`` names a sweep that is
 unknown or not ported yet.  ``<out>/metrics.json`` holds each sweep's row
-count and wall-clock ms.
+count, wall-clock ms and the ``core/metrics`` delta over the sweep.
+
+Each attempt first consults the fault plan (``faults.maybe_fail(
+"sweep.<name>")``, so ``CME213_FAULTS=fail:sweep.<name>`` exercises the
+retry), and each sweep emits a ``sweep-failed`` event per failed attempt
+and a ``sweep-complete`` event when it produced rows.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ NOT_PORTED = ("data_bandwidth_vector_length", "bandwidth_vs_avg_edges",
 
 
 def main(argv=None) -> int:
+    from ..core import faults, metrics, trace
     from ..core.platform import resolve_device
     from . import sweeps
 
@@ -127,9 +133,11 @@ def main(argv=None) -> int:
         path = os.path.join(args.out, f"{name}.csv")
         kwargs = quick if args.quick else full
         rows = None
+        before = metrics.snapshot()
         t0 = time.perf_counter()
         for attempt in (1, 2):  # one retry: a flake cannot zero the run
             try:
+                faults.maybe_fail(f"sweep.{name}")
                 rows = getattr(sweeps, fn_name)(**kwargs, device=device)
                 break
             except Exception as e:  # noqa: BLE001 — recorded, then retried
@@ -138,16 +146,22 @@ def main(argv=None) -> int:
                 print(f"{name}.csv: FAILED attempt {attempt}/2 "
                       f"({type(e).__name__}: {e})", file=sys.stderr)
                 (retried if attempt == 1 else failed).append(rec)
+                trace.record_event("sweep-failed", sweep=name,
+                                   attempt=attempt, error=type(e).__name__)
         if rows is None:
             continue
         ms = round((time.perf_counter() - t0) * 1e3, 1)
-        sweep_metrics[name] = {"rows": len(rows), "ms": ms}
+        trace.record_event("sweep-complete", sweep=name, rows=len(rows),
+                           ms=ms)
+        sweep_metrics[name] = {"rows": len(rows), "ms": ms,
+                               "metrics": metrics.delta(before,
+                                                        metrics.snapshot())}
         sweeps.write_csv(rows, path)
         print(f"{path}: {len(rows)} rows")
     with open(os.path.join(args.out, "failures.json"), "w") as f:
         json.dump({"failed": failed, "retried": retried}, f, indent=2)
     with open(os.path.join(args.out, "metrics.json"), "w") as f:
-        json.dump(sweep_metrics, f, indent=2)
+        json.dump(sweep_metrics, f, indent=2, default=str)
     # nonzero only on a sweep failing BOTH attempts; retry-recovered flakes
     # exit 0 and stay auditable in failures.json
     return 1 if failed else 0

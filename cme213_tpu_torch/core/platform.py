@@ -1,13 +1,24 @@
-"""Device choice, the kernel build directory and the card's identity.
+"""Device choice, the device preflight, the kernel build directory and the
+card's identity.
 
-The port's entry points run on ``cuda`` unless the caller asks for the CPU.
-They never fall back to the CPU on their own: with no device given and no
-CUDA device present, :func:`resolve_device` raises.
+Counterpart of ``cme213_tpu/core/platform.py``.  The port's entry points run
+on ``cuda`` unless the caller asks for the CPU.  They never fall back to the
+CPU on their own: with no device given and no CUDA device present,
+:func:`resolve_device` raises, and :func:`device_preflight` answers False.
+
+Three functions of the JAX package have no counterpart here.
+``apply_platform_env`` re-applies ``JAX_PLATFORMS``, and torch has no
+platform override to re-apply; ``enable_compile_cache`` turns on XLA's
+persistent compilation cache, and torch has none (the CUDA kernels are
+built once into ``BUILD_DIR`` and loaded from there by every later
+process); ``force_cpu_devices`` splits the host into virtual XLA devices,
+whose counterpart is :func:`virtual_devices`.
 """
 
 from __future__ import annotations
 
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -29,6 +40,45 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device available; pass device='cpu' (or --device=cpu) "
             "to run on the CPU")
     return dev
+
+
+def device_preflight(seconds: float = 90.0, device=None) -> bool:
+    """True iff a trivial op on the device completes within ``seconds``.
+
+    The device is ``device`` if given, else ``cuda``; with no CUDA device
+    and no ``device`` the answer is False: the CPU is never probed in the
+    card's place.  A ``CME213_FAULTS`` ``unreachable`` clause answers
+    False first.  The op runs on a daemon thread that synchronises the
+    device, and the caller waits at most ``seconds``, so a hung device
+    yields False instead of a hung caller; an op that fails at once
+    answers False at once.
+    """
+    from .faults import maybe_unreachable
+
+    if maybe_unreachable("device.preflight"):
+        return False
+    try:
+        dev = resolve_device(device)
+    except RuntimeError:
+        return False
+
+    done = threading.Event()
+    ok = [False]
+
+    def probe():
+        try:
+            x = torch.ones((8, 8), device=dev) * 2
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ok[0] = bool(x.sum().item() == 128.0)
+        except Exception:  # noqa: BLE001 — a failing device answers False
+            pass
+        finally:
+            done.set()
+
+    threading.Thread(target=probe, daemon=True,
+                     name="device-preflight").start()
+    return done.wait(seconds) and ok[0]
 
 
 def virtual_devices(n: int, device=None) -> list[torch.device]:

@@ -3,6 +3,8 @@
 Counterpart of ``cme213_tpu/core/timing.py``.  CUDA work is asynchronous:
 a phase's clock stops only after the devices of the tensors handed to
 ``.block`` have synchronised, the analog of ``cudaEventSynchronize``.
+Each phase is also a ``core/trace.span`` of its label; the span's records
+are emitted outside the phase's clock, so phase times do not move.
 """
 
 from __future__ import annotations
@@ -18,21 +20,6 @@ import torch
 class PhaseRecord:
     label: str
     ms: float
-
-
-class _Phase:
-    def __init__(self):
-        self._blocked: list[torch.Tensor] = []
-
-    def block(self, *tensors: torch.Tensor) -> None:
-        """Wait for ``tensors`` before the phase's clock stops."""
-        self._blocked.extend(tensors)
-
-
-def _synchronize(tensors) -> None:
-    for t in tensors:
-        if torch.is_tensor(t) and t.is_cuda:
-            torch.cuda.synchronize(t.device)
 
 
 @dataclass
@@ -53,17 +40,22 @@ class PhaseTimer:
 
     @contextmanager
     def phase(self, label: str):
-        ph = _Phase()
-        start = time.perf_counter()
-        try:
-            yield ph
-        finally:
-            _synchronize(ph._blocked)
-            ms = (time.perf_counter() - start) * 1e3
-            self.records.append(PhaseRecord(label, ms))
-            if self.verbose:
-                # labeled timing printout, like stop_timer's "%s took %.1f ms"
-                print(f"{label} took {ms:.1f} ms")
+        from .trace import span, synchronize
+
+        # the clock starts after span-begin is emitted and stops before
+        # span-end is, so the records stay outside the measured window
+        with span(label) as ph:
+            start = time.perf_counter()
+            try:
+                yield ph
+            finally:
+                synchronize(ph._blocked)
+                ms = (time.perf_counter() - start) * 1e3
+                self.records.append(PhaseRecord(label, ms))
+                if self.verbose:
+                    # labeled timing printout, like stop_timer's
+                    # "%s took %.1f ms"
+                    print(f"{label} took {ms:.1f} ms")
 
     def ms(self, label: str) -> float:
         """Total milliseconds across all phases with this label."""
@@ -91,9 +83,11 @@ def time_fn(fn, *args, warmup: int = 1, iters: int = 3) -> float:
     around the call (device time of everything the call enqueued);
     otherwise with the host clock.
     """
+    from .trace import synchronize
+
     cuda = [a for a in args if torch.is_tensor(a) and a.is_cuda]
     for _ in range(warmup):
-        _synchronize([fn(*args)])
+        synchronize([fn(*args)])
     best = float("inf")
     for _ in range(iters):
         if cuda:

@@ -30,6 +30,12 @@ def _spmv_scan(argv: list[str]) -> int:
     return spmv_scan.main(["spmv_scan", *argv])
 
 
+def _doctor(argv: list[str]) -> int:
+    from . import doctor_cli
+
+    return doctor_cli.main(argv)
+
+
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
@@ -43,6 +49,12 @@ WORKLOADS: dict[str, Workload] = {
                  "(--kernel=pallas|pallas-fused), f64 golden check; "
                  "--distributed shards the sequence over every card",
                  _spmv_scan),
+        # not a reference workload: the diagnostic layer standing in for
+        # the reference's checkCudaErrors/cudaGetLastError discipline
+        Workload("doctor", "diagnostics", "staged device-health ladder "
+                 "(enumerate, memory, timed liveness; exit 1 when "
+                 "unhealthy, --json for the structured report, "
+                 "--device=cpu to probe the CPU)", _doctor),
     )
 }
 

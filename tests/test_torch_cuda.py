@@ -670,3 +670,77 @@ def test_transpose_kernel_bitwise(cuda, shape, dtype):
     # flatten first: a (3000, 1) result is contiguous at stride 3000
     assert torch.equal(out.flatten().view(torch.uint8),
                        ref.flatten().view(torch.uint8))
+
+
+# ------------------------------------------- runtime core and headline bench
+
+
+def test_device_preflight_on_the_card(cuda):
+    from cme213_tpu_torch.core import device_preflight
+
+    assert device_preflight(60.0) is True
+    assert device_preflight(60.0, device=cuda) is True
+
+
+def test_real_out_of_memory_classifies_resource(cuda):
+    from cme213_tpu_torch.core import FailureKind, classify_failure
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+        torch.empty(1 << 50, dtype=torch.uint8, device=cuda)
+    assert classify_failure(info.value) == FailureKind.RESOURCE
+    torch.cuda.synchronize()
+
+
+def test_span_block_waits_for_a_cuda_tensor(cuda):
+    from cme213_tpu_torch.core import trace
+
+    trace.clear_events()
+    x = torch.ones(8, device=cuda)
+    torch.cuda.synchronize()
+    with trace.span("unblocked"):
+        torch.cuda._sleep(500_000_000)  # ~0.25 s of device time
+        y = x * 2
+    torch.cuda.synchronize()
+    with trace.span("blocked") as s:
+        torch.cuda._sleep(500_000_000)
+        y = x * 2
+        s.block(y)
+    ends = {e["span"]: e["ms"] for e in trace.events("span-end")}
+    assert ends["blocked"] > 100.0 > ends["unblocked"]
+    trace.clear_events()
+
+
+def test_doctor_names_the_card(cuda):
+    from cme213_tpu_torch.core import diag
+
+    rep = diag.health_report(timeout_s=120.0)
+    assert rep["healthy"] and rep["platform"] == "cuda"
+    assert rep["device_count"] == torch.cuda.device_count()
+    devices = rep["stages"][0]["detail"]["devices"]
+    assert devices[0]["kind"] == torch.cuda.get_device_name(0)
+    assert devices[0]["capability"] == list(
+        torch.cuda.get_device_capability(0))
+    mem = rep["stages"][1]["detail"]["0"]
+    assert mem["bytes_limit"] > mem["bytes_free"] > 0
+
+
+@pytest.mark.parametrize("name", ["pipeline-k1", "pipeline-k4",
+                                  "pipeline2d-k8"])
+def test_headline_child_runs_the_kernel(cuda, monkeypatch, name):
+    """A headline child at a small size: the row is ok and the kernel made
+    every launch the calibration and the timed runs imply."""
+    from cme213_tpu_torch.bench import headline
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    monkeypatch.setattr(headline, "SIZE", 256)
+    entry = "pipeline2d" if name.startswith("pipeline2d") else "pipeline"
+    k = int(name.split("-k")[1])
+    before = sp.LAUNCHES[entry]
+    row = headline.measure_one(name, "f32")
+    assert row["ok"], row
+    assert row["platform"] == "cuda"
+    assert row["device_kind"] == torch.cuda.get_device_name(0)
+    want = (2 * row["calibration_iters"]
+            + row["final_runs"] * row["iters"]) // k
+    assert sp.LAUNCHES[entry] - before == want
+    assert row["launches"] == {entry: want}

@@ -47,7 +47,11 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, cme213_tpu_torch.apps.heat2d, cme213_tpu_torch.convert,"
             " cme213_tpu_torch.apps.spmv_scan, cme213_tpu_torch.apps.matrix_market,"
             " cme213_tpu_torch.models, cme213_tpu_torch.dist,"
-            " cme213_tpu_torch.bench.run_all, cme213_tpu_torch.ops.stencil_pallas;"
+            " cme213_tpu_torch.bench.run_all, cme213_tpu_torch.ops.stencil_pallas,"
+            " cme213_tpu_torch.bench.headline, cme213_tpu_torch.doctor_cli,"
+            " cme213_tpu_torch.core.metrics, cme213_tpu_torch.core.trace,"
+            " cme213_tpu_torch.core.faults, cme213_tpu_torch.core.diag,"
+            " cme213_tpu_torch.core.resilience;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

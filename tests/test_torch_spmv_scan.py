@@ -113,11 +113,17 @@ def test_reader_rejects_like_reference(tmp_path, text):
 
 
 def test_data_error_carries_its_record():
+    """The record is the emitted ``data-validation`` trace event: its
+    fields, plus the process tags every trace record carries."""
     err = data_error("f.mtx", "banner", "x" * 400)
+    ref = j_errors.data_error("f.mtx", "banner", "x" * 400)
     assert isinstance(err, DataValidationError)
-    assert err.record == {"event": "data-validation", "source": "f.mtx",
-                          "invariant": "banner", "detail": "x" * 300}
-    assert str(err) == str(j_errors.data_error("f.mtx", "banner", "x" * 400))
+    tags = ("t", "pid", "rank", "incarnation", "trace")
+    assert {k: v for k, v in err.record.items() if k not in tags} == \
+        {"event": "data-validation", "source": "f.mtx",
+         "invariant": "banner", "detail": "x" * 300}
+    assert sorted(err.record) == sorted(ref.record)
+    assert str(err) == str(ref)
 
 
 def test_problem_files_cross_both_ways(tmp_path):
