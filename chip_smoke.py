@@ -15,7 +15,9 @@ the run (non-zero exit) when it fails:
    registers and spills.
 2. The example: ``apps.heat2d.run_single`` on ``examples/params.in``
    (512², order 8, 400 iterations) on ``cuda``: both phases pass the
-   numpy-golden ULP-10 check and the kernel was launched.
+   numpy-golden ULP-10 check, the kernel was launched, and the ladder
+   (``ops.stencil_pipeline.run_heat_resilient``) served ``pipeline``
+   undemoted after its first conformance probe.
 3. Kernel against its plain version on the card, on the same CUDA
    tensors: ``run_heat_pipeline`` and ``run_heat_pipeline2d`` × k ∈
    {1,2,3,4,8} × order ∈ {2,4,8} at 1000² f32 (8·k iterations), f64
@@ -36,8 +38,9 @@ the run (non-zero exit) when it fails:
    ``apps.spmv_scan.main``, in a temporary directory: ``gen`` at its
    default size (n = 100,000, p = 1,000, q = 999, seed 0), then a run with
    ``cpu_check`` for each of ``--kernel=pallas-fused`` (B7) and
-   ``--kernel=pallas`` (B6); each must print "Worked!" (the numpy f64
-   golden at rel L2 ≤ 1e-4 and rel L∞ ≤ 1e-3).
+   ``--kernel=pallas`` (B6), each through the ladder, whose first use of
+   the kernel runs its conformance probe; each must print "Worked!" (the
+   numpy f64 golden at rel L2 ≤ 1e-4 and rel L∞ ≤ 1e-3).
 6. A real instance at full size: the suite's Williams/dense2
    reconstruction (``dense2_problem(iters=10, seed=0)``: n = 4,000,000,
    2,000 segments, N = 10) through ``run_spmv_scan`` with each kernel, held
@@ -166,12 +169,55 @@ the run (non-zero exit) when it fails:
    child's measurement in this process, ``measure_one("pipeline-k1",
    "f32")``, whose B1 launches must be exactly two calibration runs and
    the final-count runs its row reports.
+17. The guarded main path at full width: ``run_single`` at 4000² order 8
+   f32, 1000 steps, with the conformance verdicts and the program cache
+   emptied first, then again in the same process.  The first run must be
+   served by ``pipeline`` undemoted after exactly one ``conformance-probe``
+   (ok) of ``pipeline``; the second must make no program-cache miss and no
+   probe; both grids 0 ULP from ``ops.run_heat``.  Prints each probe's
+   milliseconds, each ``heat.compile`` span (a miss), and the "gpu
+   computation shared" ms/step of each run beside phase 4's CUDA-event
+   time of B1 at k = 1, with the gap.
+18. Injected demotions at 4000² order 8, 100 steps, each in a child
+   process of its own, all started together: ``fail:heat.pipeline`` and
+   ``wrong:heat`` are served by ``pipeline2d`` (B2; one ``wrong:`` clause
+   perturbs the first probe only); ``wrong:heat,wrong:heat`` refuses both
+   kernel rungs, so the ladder raises, and with ``plain_fallback=True``
+   is served by ``xla``; ``oom:heat.pipeline`` is served by ``pipeline``
+   at half the picked ``tile_y``; each served result 0 ULP from
+   ``ops.run_heat``.
+19. The SpMV-scan ladder: pwtk through ``run_spmv_scan`` with
+   ``pallas-fused`` (cold since phase 17: the probe's 4 launches, the
+   warm-up and ``n_it``) served undemoted within the CLI's bounds of the
+   f64 run; the gen example with
+   ``--canonical`` (n = 100,000 into the 131,072 bucket) through the
+   bucket gate, bitwise equal to the unpadded solve; then on the gen
+   example ``fail:spmv_scan.pallas-fused`` served by ``pallas`` (B6),
+   both kernels failed raising, and both failed with
+   ``plain_fallback=True`` served by ``flat``; each served result within
+   the CLI's bounds of the f64 golden (rel L2 ≤ 1e-4, rel L∞ ≤ 1e-3).
+20. The distributed gates: ``run_distributed_heat`` at 2000² order 8 on
+   the 2×2 mesh of four virtual shards with ``pallas`` and
+   ``conformance=True`` (verdicts emptied first): one probe ``pallas-k1``
+   ok, no demotion, bit for bit phase 10's one-device ``run_heat``; and
+   ``make_iterated_sharded_scan_gated`` on four shards serves ``ring``.
+21. The tuner: ``tune run --op heat`` at 4000² order 8 k = 1 over
+   ``tile_y`` ∈ {picked/2, picked, 2·picked} (and ``xla``), 100 steps a
+   trial, median of 5, every clock read
+   after a device synchronise, into a temporary ``CME213_TUNE_CACHE``;
+   each candidate's median printed; then ``run_heat_resilient`` with open
+   tile knobs must resolve the winner from that cache (``tune-hit``) and
+   run at its ``tile_y``.
+22. ``python -m cme213_tpu_torch doctor calibrate --json`` exits 0 with
+   its four rows (the roofline models of spmv_scan and heat against a
+   torch rung's FlopCounterMode count and a kernel rung's launch plan).
 
-The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14 and 16 drive through
-the entry points a user calls: ``run_single`` at 512² and at 4000² (kernel
-B1), one solve of each of ``run_heat_pipeline`` and ``run_heat_pipeline2d``
-(B2) at each k, the SpMV-scan runs (B6 through ``pallas``, B7 through
-``pallas-fused``), the distributed heat solves (B3 through ``pallas``),
+The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16 and 17-20
+drive through the entry points a user calls: ``run_single`` at 512² and at
+4000² (kernel B1, through the ladder), one solve of each of
+``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
+SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
+distributed heat solves (B3 through ``pallas``),
 the sharded SpMV-scan, the full-size sweeps (B4, B5, B8, and B1, B2 through
 their rows), the full-size solves of phase 14 and the headline's child
 measurement of phase 16 (B1).  Every launch count
@@ -179,9 +225,14 @@ measurement of phase 16 (B1).  Every launch count
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
 exactly its own kernels, ``iters + 1`` times for ``run_single`` and
-``run_spmv_scan`` (one untimed step or iteration, then the solve), ``iters
-/ k`` times for a heat solve, ``devices × iters / k`` for a distributed
-solve with ``pallas`` (one launch a device for all its shards), for the
+``run_spmv_scan`` on a program-cache miss (one untimed step or iteration,
+then the solve) and ``iters`` on a hit, plus a gate's probe on the first
+use of a kernel rung (5 launches for heat: the probe program's warm-up
+and 4 k-step launches; 4 for the SpMV-scan kernels: a warm-up iteration
+and the probe's 3), ``iters / k`` times for a heat solve, ``devices ×
+iters / k`` for a distributed solve with ``pallas`` (one launch a device
+for all its shards) plus 4 for its gate's probe solve on the first use of
+a (mesh, k, order), for the
 headline's child what its row reports, and for the sweeps what their loops imply (each heat row
 runs its solve twice, warm-up and timed; the transpose row calls its kernel
 ``1 + sweeps.TIME_ITERS`` times); ``auto``, ``flat``, the ``xla``
@@ -232,6 +283,14 @@ REPLACES = {"pipeline": "cme213_tpu/ops/stencil_pipeline.py:169",
             "multistep": "cme213_tpu/ops/stencil_pallas.py:241",
             "transpose": "cme213_tpu/ops/transpose.py:34"}
 MAX_ULPS = 10
+#: launches of one heat gate probe (``ops/stencil_pipeline.
+#: _heat_conformance_gate``): its program's warm-up launch, then 4k steps
+#: in k-step launches
+HEAT_PROBE_LAUNCHES = 5
+#: launches of one distributed-heat gate probe on one card
+#: (``dist/heat._gated_heat_config``): a 4k-step solve in k-step launches,
+#: one launch a device for all its shards
+DIST_PROBE_LAUNCHES = 4
 FULL_N, FULL_ORDER, FULL_ITERS = 4000, 8, 1000
 #: hw5's largest size (BASELINE.md, hw5 table), on four shards of the card
 DIST_N, DIST_ITERS, DIST_SHARDS = 2000, 1000, 4
@@ -628,21 +687,34 @@ def main(argv=None) -> int:
         return {key: (n if key == name else 0)
                 for counter in counters for key in counter}
 
+    def served(op):
+        """The rung that last served ``op`` (its ``served`` event)."""
+        ev = [e for e in core.trace.events("served") if e["op"] == op]
+        if not ev:
+            fail(f"no served event for {op}")
+        return ev[-1]
+
     params = config.SimParams.from_file(
         os.path.join(HERE, "examples", "params.in"))
     with tempfile.TemporaryDirectory() as out_dir:
-        # run_single launches one untimed step, then the timed solve
+        # run_single goes through the ladder: the first use of the kernel
+        # rung runs its conformance probe, then the program's warm-up
+        # launch, then the timed solve
         res = counted(
             f"run_single {params.nx}x{params.ny}",
-            only("pipeline", params.iters + 1),
+            only("pipeline", params.iters + 1 + HEAT_PROBE_LAUNCHES),
             lambda: heat2d.run_single(params, check_cpu=True,
                                       save_files=True, out_dir=out_dir,
                                       device="cuda"))
         dumps = sorted(os.listdir(out_dir))
+    ev = served("heat")
     print(f"example {params.nx}x{params.ny} order {params.order} "
-          f"{params.iters} iters: ok={res.ok} dumps={dumps}")
+          f"{params.iters} iters: ok={res.ok} dumps={dumps}, served by "
+          f"{ev['rung']} (demoted {ev['demoted']})")
     if not res.ok:
         fail("the example failed its golden ULP-10 check")
+    if ev["rung"] != "pipeline" or ev["demoted"]:
+        fail(f"the example was served demoted: {ev}")
     if len(dumps) != 4:
         fail(f"example: dumps {dumps}")
 
@@ -775,6 +847,9 @@ def main(argv=None) -> int:
             if spmv.main(["spmv_scan", "gen", "a.txt", "x.txt"]) != 0:
                 fail("spmv_scan gen")
             gen = spmv.load_problem("a.txt", "x.txt")
+            # the first use of each kernel rung runs its conformance probe:
+            # the probe program's warm-up iteration and its iterations
+            scan_probe = 1 + spmv._PROBE_SHAPE["iters"]
             for kernel, name in SCAN_KERNELS.items():
                 buf = io.StringIO()
 
@@ -783,7 +858,7 @@ def main(argv=None) -> int:
                         return spmv.main(["spmv_scan", "a.txt", "x.txt",
                                           "cpu_check", f"--kernel={kernel}"])
                 rc = counted(f"spmv_scan CLI gen n={gen.n} {kernel}",
-                             only(name, gen.iters + 1), cli)
+                             only(name, gen.iters + 1 + scan_probe), cli)
                 print(buf.getvalue(), end="")
                 if rc != 0 or "Worked!" not in buf.getvalue():
                     fail(f"spmv_scan CLI --kernel={kernel}: rc {rc}, no "
@@ -1058,6 +1133,17 @@ def main(argv=None) -> int:
               f"{dist_bound:.6f} ms/step by {dist_by}; vs run_heat: max "
               f"ULP {ulp}, max |err| {err:.3g}")
 
+    # the first gated use of pallas per (mesh shape, k, order) runs the
+    # gate's probe solve on that mesh
+    gated = set()
+
+    def dist_probe(mesh, k, order):
+        key = (mesh.devices.shape, k, order)
+        if key in gated:
+            return 0
+        gated.add(key)
+        return DIST_PROBE_LAUNCHES
+
     for dim, sync, kernel in [("1d", True, "xla"), ("1d", False, "xla"),
                               ("2d", True, "xla"), ("2d", False, "xla"),
                               ("1d", True, "pallas"), ("2d", True, "pallas")]:
@@ -1066,7 +1152,9 @@ def main(argv=None) -> int:
         label = (f"run_distributed {DIST_N}x{DIST_N} {dim} "
                  f"{'sync' if sync else 'async'} {kernel}")
         # one launch a device a step: the four shards share the card
-        n_local = DIST_ITERS if kernel == "pallas" else 0
+        n_local = DIST_ITERS + dist_probe(
+            dist.mesh_for_method(p.grid_method, devices=vdev), 1,
+            p.order) if kernel == "pallas" else 0
         out = counted(label, only("local", n_local),
                       lambda p=p, kernel=kernel: heat2d.run_distributed(
                           p, local_kernel=kernel, devices=vdev))
@@ -1082,7 +1170,8 @@ def main(argv=None) -> int:
         devices = len(set(mesh.devices.flat))
         label = (f"run_distributed_heat {DIST_N}x{DIST_N} "
                  f"{'x'.join(map(str, mesh.devices.shape))} {kernel} k={k}")
-        n_local = devices * DIST_ITERS // k if kernel == "pallas" else 0
+        n_local = devices * DIST_ITERS // k + dist_probe(
+            mesh, k, dist_p.order) if kernel == "pallas" else 0
         out = counted(label, only("local", n_local),
                       lambda mesh=mesh, k=k, kernel=kernel:
                       dist.run_distributed_heat(
@@ -1162,9 +1251,12 @@ def main(argv=None) -> int:
         os.chdir(out_dir)
         heat2d.run_distributed = catch
         try:
+            cli_mesh = dist.mesh_for_method(cli_p.grid_method)
             rc = counted(f"heat2d CLI --distributed pallas {cli_p.nx}x"
                          f"{cli_p.ny}", only("local", cli_p.iters
-                                             * torch.cuda.device_count()),
+                                             * torch.cuda.device_count()
+                                             + dist_probe(cli_mesh, 1,
+                                                          cli_p.order)),
                          lambda: heat2d.main(["heat2d", params_dist,
                                               "--distributed",
                                               "--local-kernel=pallas"]))
@@ -1585,11 +1677,343 @@ def main(argv=None) -> int:
     if not row["ok"] or paths[label] != only("pipeline", want):
         fail(f"{label}: {row}, launches {paths[label]}, expected {want}")
 
+    # ---------------------------------------------------- 17. guarded path
+    # the main path as a user reaches it: run_single at full width through
+    # the ladder, cold (no verdict, no program) and then warm; the grid and
+    # the timer are caught on their way out of the ladder
+    core.trace.clear_events()  # also empties the program cache
+    core.conformance.reset()
+    real_ladder = heat2d.run_heat_resilient
+    caught_runs = []
+
+    def catch_ladder(*a, **kw):
+        res = real_ladder(*a, **kw)
+        caught_runs.append((res, kw["timer"].last_ms(
+            kw.get("phase_label", "gpu computation shared"))))
+        return res
+
+    guarded = {}
+    heat2d.run_heat_resilient = catch_ladder
+    try:
+        for turn, expect in (("cold", full.iters + 1 + HEAT_PROBE_LAUNCHES),
+                             ("warm", full.iters)):
+            mark = len(core.trace.events())
+            label = f"run_single {FULL_N}x{FULL_N} guarded {turn}"
+            out = counted(label, only("pipeline", expect),
+                          lambda: heat2d.run_single(full, check_cpu=False,
+                                                    device="cuda"))
+            if not out.ok:
+                fail(f"{label}: not ok")
+            new = core.trace.events()[mark:]
+            guarded[turn] = {
+                "ms": caught_runs[-1][1],
+                "probes": [e for e in new
+                           if e["event"] == "conformance-probe"],
+                "misses": [e for e in new
+                           if e["event"] == "program-cache-miss"],
+                "compile_ms": [e["ms"] for e in new
+                               if e["event"] == "span-end"
+                               and e["span"] == "heat.compile"],
+                "report": out.reports[1]}
+    finally:
+        heat2d.run_heat_resilient = real_ladder
+    for res, _ in caught_runs:
+        if res.rung != "pipeline" or res.demoted:
+            fail(f"guarded run_single served {res.rung}, failures "
+                 f"{res.failures}")
+    cold, warm = guarded["cold"], guarded["warm"]
+    if [(e["op"], e["rung"], e["ok"]) for e in cold["probes"]] != \
+            [("heat", "pipeline", True)]:
+        fail(f"guarded cold run: probes {cold['probes']}")
+    if warm["probes"] or warm["misses"]:
+        fail(f"guarded warm run: {len(warm['misses'])} program-cache "
+             f"misses, {len(warm['probes'])} probes (expected none)")
+    guarded_ref = ops.run_heat(grid.make_initial_grid(full, device=dev),
+                               full.iters, full.order, full.xcfl, full.ycfl)
+    ulp = max(max_errors(res.value, guarded_ref, limit=0)[0]
+              for res, _ in caught_runs)
+    b1_ms = timings["pipeline"][0]["ms"]
+    guarded_row = {
+        "probe_ms": {e["rung"]: e["ms"] for e in cold["probes"]},
+        "miss_ms": cold["compile_ms"], "cold_misses": len(cold["misses"]),
+        "warm_misses": 0, "warm_probes": 0,
+        "shared_ms_per_step": {t: g["ms"] / full.iters
+                               for t, g in guarded.items()},
+        "b1_cuda_event_ms": b1_ms,
+        "gap": {t: g["ms"] / full.iters / b1_ms - 1
+                for t, g in guarded.items()},
+        "max_ulp_vs_run_heat": ulp}
+    print(f"guarded run_single {FULL_N}x{FULL_N}: served pipeline, "
+          f"undemoted; probe {guarded_row['probe_ms']} ms at first use; "
+          f"program-cache misses {cold['compile_ms']} ms (heat.compile "
+          f"spans: the probe's pipeline and xla programs, the solve's); "
+          f"warm run: 0 misses, 0 probes; vs run_heat max ULP {ulp}")
+    for turn, g in guarded.items():
+        per = g["ms"] / full.iters
+        print(f"  'gpu computation shared' {turn}: {per:.6f} ms/step "
+              f"({g['report']}); B1 k=1 by CUDA events (phase 4) "
+              f"{b1_ms:.6f}: gap {per / b1_ms - 1:+.2%}")
+
+    # ---------------------------------------------------- 18. demotions
+    # injected faults, each in a child process of its own (its fault plan
+    # read from CME213_FAULTS at start), all started together; a child
+    # whose ladder raises reports the error
+    child = (
+        "import json, os, sys\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "from cme213_tpu_torch import config, core, grid, ops\n"
+        "from cme213_tpu_torch.core import programs\n"
+        "from cme213_tpu_torch.ops import stencil_pipeline as sp\n"
+        f"p = config.SimParams(nx={FULL_N}, ny={FULL_N}, order=8, "
+        "iters=100)\n"
+        "u = grid.make_initial_grid(p, device='cuda')\n"
+        "plain = os.environ.get('SMOKE_PLAIN_FALLBACK') == '1'\n"
+        "try:\n"
+        "    res = sp.run_heat_resilient(u, p.iters, 8, p.xcfl, p.ycfl,\n"
+        "                                p.bc, plain_fallback=plain)\n"
+        "except core.FrameworkError as e:\n"
+        "    print(json.dumps({'rung': None, 'error': str(e)[:300],\n"
+        "                      'launches': dict(sp.LAUNCHES)}))\n"
+        "    sys.exit(0)\n"
+        "ref = ops.run_heat(u, p.iters, 8, p.xcfl, p.ycfl)\n"
+        "ulp = int(core.ulp_distance(res.value.cpu().numpy(),\n"
+        "                            ref.cpu().numpy()).max())\n"
+        "tiles = sorted({dict(k[5]).get('tile_y') for k in programs.keys()\n"
+        "                if k[1] == res.rung and k[2].startswith('4008')})\n"
+        "print(json.dumps({'rung': res.rung, 'ulp': ulp,\n"
+        "    'failed': [[f.rung, f.kind.value] for f in res.failures],\n"
+        "    'shrunk': [[e['from_size'], e['to_size']]\n"
+        "               for e in core.trace.events('chunk-shrunk')],\n"
+        "    'tiles': tiles, 'launches': dict(sp.LAUNCHES)}))\n")
+    picked = sp.pick_pipeline_tile(full.gy, 1, full.order)
+    # a single wrong: clause perturbs the first probe only (pipeline's), so
+    # pipeline2d serves; two clauses perturb both kernel rungs' probes, and
+    # on the card the ladder then raises unless the caller asks for xla
+    both = "wrong:heat,wrong:heat"
+    plans = {("fail:heat.pipeline", False): ("pipeline2d", []),
+             ("wrong:heat", False): ("pipeline2d", []),
+             (both, False): (None, []),
+             (both, True): ("xla", []),
+             ("oom:heat.pipeline", False): ("pipeline",
+                                            [[picked, picked // 2]])}
+    procs = {}
+    for plan, plain in plans:
+        child_env = dict(env, CME213_FAULTS=plan,
+                         SMOKE_PLAIN_FALLBACK="1" if plain else "0")
+        procs[plan, plain] = subprocess.Popen(
+            [sys.executable, "-c", child], cwd=HERE, env=child_env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+    demotions = {}
+    for (plan, plain), proc in procs.items():
+        name = f"{plan}{' plain_fallback' if plain else ''}"
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                if other.poll() is None:
+                    os.killpg(other.pid, signal.SIGKILL)
+                    other.communicate()
+            fail(f"demotion child {name}: no result in 300 s")
+        if proc.returncode != 0:
+            fail(f"demotion child {name}: rc {proc.returncode}\n"
+                 f"{stderr[-3000:]}")
+        row = json.loads(stdout.strip().splitlines()[-1])
+        demotions[name] = row
+        want_rung, want_shrunk = plans[plan, plain]
+        if want_rung is None:
+            print(f"CME213_FAULTS={name}: raised ({row['error']}), "
+                  f"launches {row['launches']}")
+            if row["rung"] is not None or "all 2 rungs of heat" not in \
+                    row["error"]:
+                fail(f"{name}: {row}, expected the ladder to raise")
+            continue
+        print(f"CME213_FAULTS={name}: served {row['rung']} (failed "
+              f"{row['failed']}), tile_y {row['tiles']}, shrunk "
+              f"{row['shrunk']}, vs run_heat max ULP {row['ulp']}, "
+              f"launches {row['launches']}")
+        if row["rung"] != want_rung or row["ulp"] != 0 or \
+                row["shrunk"] != want_shrunk:
+            fail(f"{name}: {row}, expected {want_rung} at 0 ULP, shrunk "
+                 f"{want_shrunk}")
+        kernel = {"pipeline": "pipeline", "pipeline2d": "pipeline2d"}.get(
+            want_rung)
+        if kernel and row["launches"][kernel] < 100:
+            fail(f"{name}: the serving kernel {kernel} was not launched")
+    if demotions["oom:heat.pipeline"]["tiles"] != [str(picked // 2)]:
+        fail(f"oom: served at tile_y {demotions['oom:heat.pipeline']}")
+
+    # ---------------------------------------------------- 19. SpMV ladder
+    # pwtk through the ladder, cold again (phase 17 emptied the verdicts
+    # and the programs): the gate's probe, the warm-up iteration, the solve
+    label = f"run_spmv_scan {SUITE} pallas-fused guarded"
+    out = counted(label, only("spmv_fused", n_it + 1 + scan_probe),
+                  lambda: spmv.run_spmv_scan(prob, kernel="pallas-fused",
+                                             device=dev))
+    ev = served("spmv_scan")
+    rel_l2 = relative_l2_error(ref64, out)
+    rel_linf = relative_linf_error(ref64, out)
+    print(f"{label}: served {ev['rung']} (demoted {ev['demoted']}), vs f64 "
+          f"plain: rel L2 {rel_l2:.3e}, rel Linf {rel_linf:.3e}")
+    if ev["rung"] != "pallas-fused" or ev["demoted"] or not (
+            rel_l2 <= 1e-4 and rel_linf <= 1e-3):
+        fail(f"{label}: {ev}, rel L2 {rel_l2}, rel Linf {rel_linf}")
+    spmv_guarded = {"pwtk": {"rung": ev["rung"], "rel_l2": rel_l2,
+                             "rel_linf": rel_linf}}
+    with tempfile.TemporaryDirectory() as out_dir:
+        os.chdir(out_dir)
+        try:
+            if spmv.main(["spmv_scan", "gen", "a.txt", "x.txt"]) != 0:
+                fail("spmv_scan gen")
+            gen = spmv.load_problem("a.txt", "x.txt")
+            exact = spmv.run_spmv_scan(gen, kernel="pallas-fused",
+                                       device=dev)
+            mark = len(core.trace.events())
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = spmv.main(["spmv_scan", "a.txt", "x.txt", "cpu_check",
+                                "--kernel=pallas-fused", "--canonical"])
+            padded = np.loadtxt("b.txt", dtype=np.float32)
+        finally:
+            os.chdir(cwd)
+    pad_probes = [e for e in core.trace.events()[mark:]
+                  if e["event"] == "conformance-probe"
+                  and e["op"] == "spmv_scan.pad"]
+    n_to = core.programs.canonical_size(gen.n)
+    print(f"spmv_scan CLI --canonical gen n={gen.n} -> bucket {n_to}: rc "
+          f"{rc}, bucket gate {[(e['rung'], e['ok']) for e in pad_probes]},"
+          f" bitwise equal to the unpadded solve: "
+          f"{np.array_equal(padded, exact)}")
+    if rc != 0 or "Worked!" not in buf.getvalue() or \
+            [(e["rung"], e["ok"]) for e in pad_probes] != \
+            [("pallas-fused", True)] or not np.array_equal(padded, exact):
+        fail(f"--canonical: rc {rc}, probes {pad_probes}\n{buf.getvalue()}")
+    if not any(k[2] == f"n{n_to}/i{gen.iters}"
+               for k in core.programs.keys()):
+        fail("--canonical did not solve in its bucket")
+    # on the card a kernel demotes only to the other kernel (B7 to B6), and
+    # to flat, the gate's reference, only when the caller asks; each
+    # demoted result is held to the CLI's own bounds of the f64 golden
+    both = "fail:spmv_scan.pallas-fused,fail:spmv_scan.pallas"
+    fail_cases = (("fail:spmv_scan.pallas-fused", False, "pallas"),
+                  (both, False, None), (both, True, "flat"))
+    for plan, plain, want in fail_cases:
+        name = f"{plan}{' plain_fallback' if plain else ''}"
+        marked = len(core.trace.events("served"))
+        try:
+            with core.faults.injected(plan):
+                out = spmv.run_spmv_scan(gen, kernel="pallas-fused",
+                                         plain_fallback=plain, device=dev)
+        except core.FrameworkError as e:
+            print(f"CME213_FAULTS={name}: raised ({str(e)[:200]})")
+            if want is not None or "all 2 rungs of spmv_scan" not in str(e) \
+                    or len(core.trace.events("served")) != marked:
+                fail(f"{name}: raised {e}")
+            spmv_guarded[name] = {"rung": None}
+            continue
+        ev = served("spmv_scan")
+        errs = spmv.external_check(gen, out)
+        print(f"CME213_FAULTS={name}: served {ev['rung']} (failed "
+              f"{ev['failed_rungs']}); vs f64: rel L2 "
+              f"{errs['rel_l2']:.3e}, rel Linf {errs['rel_linf']:.3e}")
+        if ev["rung"] != want or not (errs["rel_l2"] <= 1e-4
+                                      and errs["rel_linf"] <= 1e-3):
+            fail(f"{name}: {ev}, {errs}, expected {want} within the CLI's "
+                 f"bounds")
+        spmv_guarded[name] = {"rung": ev["rung"], **errs}
+    spmv_guarded.update(canonical={"n": gen.n, "bucket": n_to,
+                                   "bitwise": True})
+
+    # ---------------------------------------------------- 20. hw5 gates
+    core.conformance.reset()
+    mark = len(core.trace.events())
+    label = (f"run_distributed_heat {DIST_N}x{DIST_N} 2x2 pallas "
+             f"conformance")
+    out = counted(label, only("local", DIST_ITERS + DIST_PROBE_LAUNCHES),
+                  lambda: dist.run_distributed_heat(dist_p, mesh2d,
+                                                    local_kernel="pallas"))
+    new = core.trace.events()[mark:]
+    probes = [(e["rung"], e["ok"]) for e in new
+              if e["event"] == "conformance-probe"]
+    demoted = [e for e in new if e["event"] == "rung-failed"]
+    ulp, err = max_errors(torch.from_numpy(out), dist_ref, limit=0)
+    print(f"{label}: probes {probes}, demotions {len(demoted)}, vs the "
+          f"1-device run_heat max ULP {ulp}")
+    if probes != [("pallas-k1", True)] or demoted:
+        fail(f"{label}: probes {probes}, demotions {demoted}")
+    _, mode = dist.make_iterated_sharded_scan_gated(
+        dist.make_mesh_1d(devices=vdev))
+    print(f"make_iterated_sharded_scan_gated on {DIST_SHARDS} shards: "
+          f"serves {mode}")
+    if mode != "ring":
+        fail(f"the gated sharded scan served {mode}")
+
+    # ---------------------------------------------------- 21. tune
+    from cme213_tpu_torch import tune_cli
+    from cme213_tpu_torch.core import tune
+
+    tune_iters = 100
+    with tempfile.TemporaryDirectory() as tune_dir:
+        os.environ[tune.CACHE_ENV] = os.path.join(tune_dir, "tune.json")
+        tune.reset()
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tune_cli.main([
+                    "run", "--op", "heat", "--gy", str(FULL_N), "--gx",
+                    str(FULL_N), "--order", str(FULL_ORDER), "--k", "1",
+                    "--heat-iters", str(tune_iters), "--runs", "5",
+                    "--json"])
+            if rc != 0:
+                fail(f"tune run --op heat: rc {rc}\n{buf.getvalue()}")
+            (tune_rep,) = json.loads(buf.getvalue())
+            tune.reset()  # the winner comes back from the disk cache
+            core.programs.reset()  # only the next solve's programs
+            mark = len(core.trace.events())
+            u = grid.make_initial_grid(full, device=dev)
+            res = sp.run_heat_resilient(u, tune_iters, full.order,
+                                        full.xcfl, full.ycfl, full.bc)
+            hits = [e for e in core.trace.events()[mark:]
+                    if e["event"] == "tune-hit" and e["op"] == "heat"]
+        finally:
+            del os.environ[tune.CACHE_ENV]
+            tune.reset()
+    win = tune_rep["winner"]
+    print(f"tune run --op heat {tune_rep['shape_class']} on "
+          f"{tune_rep['device']}: winner {win['candidate']} "
+          f"{json.dumps(win['statics'])}")
+    for t in tune_rep["trials"]:
+        print(f"  {t['candidate']:<24} median {t['ms'] / tune_iters:.6f} "
+              f"ms/step over {tune_iters} steps (device-synchronised), "
+              f"ok {t['ok']}")
+    if not all(t["ok"] for t in tune_rep["trials"]) or len(
+            tune_rep["trials"]) != 1 + 3:
+        fail(f"tune: {tune_rep}")
+    ty_run = {dict(k[5]).get("tile_y") for k in core.programs.keys()
+              if k[1] == res.rung and k[2] == tune_rep["shape_class"]
+              and dict(k[5]).get("iters") == str(tune_iters)}
+    print(f"run_heat_resilient with open tiles: tune-hit {hits[-1:]}, "
+          f"served {res.rung} at tile_y {sorted(ty_run)}")
+    if not hits or (win["statics"] and ty_run != {
+            str(win["statics"]["tile_y"])}):
+        fail(f"the tuned winner did not serve: hits {hits}, tiles {ty_run}")
+
+    # ---------------------------------------------------- 22. calibrate
+    out, secs = run_module(["cme213_tpu_torch", "doctor", "calibrate",
+                            "--json"], 300)
+    calibration = json.loads(out)
+    print(f"doctor calibrate --json ({secs:.1f} s):")
+    for r in calibration:
+        print(f"  {json.dumps(r)}")
+    if len(calibration) != 4 or any("error" in r for r in calibration):
+        fail(f"doctor calibrate: {calibration}")
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
-    # run_single, B2 through its own entry point at k = 1, B6 and B7 through
-    # run_spmv_scan at pwtk)
-    main_path = {"pipeline": full_path,
+    # run_single behind the ladder, cold: its gate's probe included; B2
+    # through its own entry point at k = 1; B6 and B7 through run_spmv_scan
+    # at pwtk)
+    main_path = {"pipeline": f"run_single {FULL_N}x{FULL_N} guarded cold",
                  "pipeline2d": f"run_heat_pipeline2d {FULL_N}x{FULL_N} k=1",
                  "local": f"run_distributed {DIST_N}x{DIST_N} 2d sync "
                           f"pallas",
@@ -1621,6 +2045,8 @@ def main(argv=None) -> int:
                     f"f32, k=1", "per_k": timings[name]})
     kernels[0]["headline"] = [b for b in beside
                               if b["kernel"].startswith("pipeline-")]
+    kernels[0]["guarded"] = dict(guarded_row, demotions=demotions,
+                                 tune=tune_rep)
     kernels[1]["headline"] = [b for b in beside
                               if b["kernel"].startswith("pipeline2d-")]
     k1 = local_timing[0]
@@ -1657,6 +2083,7 @@ def main(argv=None) -> int:
             "headline": [r for r in spmv_line["kernels"]
                          if SCAN_KERNELS.get(r["kernel"]) == name]})
     kernels[-1]["paths"] = spmv_rows  # B7's row: every kernel at pwtk
+    kernels[-1]["guarded"] = spmv_guarded
     # B4 and B5: per step at 4000² order 8 f32 tile 200 (B5 at k = 2);
     # their plain versions are run_heat and run_heat_roll, phase 4's
     band_rows = {"stencil_full": (band_timing["stencil_full"], torch_ms),

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core import PhaseTimer, check_op, resolve_device
+from ..core.tune import dtype_name
 from ..ops.segmented import (head_flags_from_starts, segmented_scan,
                              segmented_scan_blocked, segmented_scan_dense,
                              segmented_scan_flat, validate_segments)
@@ -251,8 +252,206 @@ def problem_tensors(prob: Problem, dtype=torch.float32, device=None):
             head_flags_from_starts(starts, prob.n), starts)
 
 
+#: demotion ladder per requested kernel, the JAX package's: the kernel
+#: rungs degrade to the blocked O(n) torch scan, then to the flat
+#: log-sweep; the torch rungs degrade straight to flat
+FALLBACK_LADDERS = {
+    "pallas-fused": ("pallas-fused", "blocked", "flat"),
+    "pallas": ("pallas", "blocked", "flat"),
+    "auto": ("auto", "flat"),
+    "blocked": ("blocked", "flat"),
+    "dense": ("dense", "flat"),
+    "flat": ("flat",),
+}
+
+#: a kernel's ladder on a CUDA device: kernel rungs only, B7 demoting to
+#: B6 (``core/resilience.allows_plain_rungs``)
+KERNEL_LADDERS = {
+    "pallas-fused": ("pallas-fused", "pallas"),
+    "pallas": ("pallas",),
+}
+
+
+def ladder(kernel: str, device, plain_fallback: bool = False) -> tuple:
+    """The rungs ``run_spmv_scan`` tries for ``kernel`` on ``device``.
+
+    On the CPU, and for a torch scan asked for by name, they are
+    ``FALLBACK_LADDERS[kernel]``.  A kernel on a CUDA device demotes only
+    to the other kernel (``KERNEL_LADDERS``) and, when the caller asks for
+    a plain rung (``plain_fallback``), then to ``flat``, the gate's
+    reference.  Not to ``blocked``: its block sums minus the sum before a
+    segment's head cancel, and on the generated example that misses the
+    engine's own check (rel L2 1e-4)."""
+    from ..core.resilience import allows_plain_rungs
+
+    if kernel not in KERNEL_LADDERS or allows_plain_rungs(device):
+        return FALLBACK_LADDERS[kernel]
+    rungs = KERNEL_LADDERS[kernel]
+    return rungs + ("flat",) if plain_fallback else rungs
+
+#: conformance tolerance per rung against the ``flat`` reference scan
+#: (probe rel-L2).  Every other kernel associates the segment sums
+#: differently (the blocked decomposition, the kernel's tile carries, the
+#: dense rows), so bitwise is not its contract; a wrong kernel lands
+#: orders of magnitude out.
+CONFORMANCE_REL_L2 = {
+    "flat": 0.0,
+    "blocked": 1e-5,
+    "pallas": 1e-5,
+    "pallas-fused": 1e-5,
+    "dense": 1e-5,
+}
+
+#: canonical probe instance for the conformance gate: large enough to
+#: cross tiles and blocks in every kernel, small enough to be negligible
+_PROBE_SHAPE = dict(n=2048, p=48, q=47, iters=3, seed=1234)
+_PROBE_PROBLEM: "Problem | None" = None
+
+
+def _probe_problem() -> Problem:
+    global _PROBE_PROBLEM
+    if _PROBE_PROBLEM is None:
+        _PROBE_PROBLEM = generate_problem(**_PROBE_SHAPE)
+    return _PROBE_PROBLEM
+
+
+def _program(rung: str, n: int, iters: int, dtype, device, *, warm_args,
+             p: int | None = None, max_len: int | None = None,
+             block_size: int | None = None):
+    """The cached program of ``rung`` for ``(n{n}/i{iters}, dtype,
+    device)`` (``core/programs.get``): ``fn(a, xx, flags, starts)`` runs
+    all ``iters`` iterations.
+
+    On a miss the build loads the scan kernel's library for a kernel rung
+    on a CUDA device, and the warm-up runs one iteration on
+    ``warm_args()`` (the caller's tensors) behind a rung-named
+    ``check_op`` barrier, so a build or launch failure surfaces there.  A
+    kernel rung's runner carries ``staged_cost`` for the attribution
+    check: its launches' reads of values, ``xx`` (fused) and flags, writes
+    of the values, and the look-back's workspace words."""
+    from ..core import check_op, programs, roofline
+    from ..core.platform import resolve_device
+    from ..ops import _kernels
+    from ..ops import segmented_pallas as segp
+
+    dev = resolve_device(device)
+    static = {"iters": iters}
+    if rung not in ("auto", "blocked"):
+        block_size = None  # a block size only shapes the torch scans
+    if block_size is not None:
+        static["block_size"] = block_size
+    if rung == "dense":
+        static.update(p=p, max_len=max_len)
+
+    def build():
+        if rung in ("pallas", "pallas-fused") and dev.type == "cuda":
+            _kernels.library("segmented_scan")
+        fn = _build_runner(rung, iters, max_len=max_len,
+                           block_size=block_size)
+        if rung in ("pallas", "pallas-fused"):
+            fused = rung == "pallas-fused"
+
+            def staged(a, xx, flags, starts):
+                elem = a.element_size()
+                tiles = -(-n // segp.TILE)
+                # fused: read a, xx, flags, write a; unfused: the multiply
+                # is a torch op (read a, xx, write w), then the kernel
+                # reads w and flags and writes a
+                per_it = n * ((3 * elem + 4) if fused else (5 * elem + 4))
+                per_it += tiles * 4 * 4  # workspace words, written and read
+                return roofline.Cost(per_it * iters, 2 * n * iters)
+            fn.staged_cost = staged
+        return fn
+
+    def warm(fn):
+        check_op(f"spmv_scan.{rung}",
+                 _build_runner(rung, 1, max_len=max_len,
+                               block_size=block_size)(*warm_args()))
+
+    return programs.get(
+        "spmv_scan", rung, f"n{n}/i{iters}", build, dtype=dtype_name(dtype),
+        device=dev, warm=warm,
+        cost=roofline.spmv_scan_cost(n, iters, dtype=dtype),
+        probe=warm_args, **static)
+
+
+def _conformance_gate(n: int, dtype, device):
+    """``gate(rung) -> bool`` for ``with_fallback``: the first use of a
+    non-reference rung (per process × dtype × device) runs the canonical
+    probe through that rung and through ``flat``, compares to the rung's
+    declared tolerance and caches the verdict (``core/conformance.py``).
+    ``auto`` is resolved to the scan the size dispatch picks for ``n``
+    (``ops.segmented.scan_threshold``), so the probed
+    kernel is the serving kernel."""
+    from ..core import conformance
+    from ..core.platform import build_identity, resolve_device
+    from ..ops.segmented import scan_threshold
+
+    dev = resolve_device(device)
+
+    def gate(rung: str) -> bool:
+        kernel = rung
+        if kernel == "auto":
+            kernel = "flat" if n < scan_threshold() else "blocked"
+        if kernel == "flat":
+            return True  # the reference rung needs no probe
+        prob = _probe_problem()
+        probe = {}  # the probe's tensors, uploaded only on a verdict miss
+
+        def probe_args():
+            if not probe:
+                probe["args"] = problem_tensors(prob, dtype, dev)
+            return probe["args"]
+
+        def run(k):
+            return lambda: _program(
+                k, prob.n, prob.iters, dtype, dev, p=prob.p,
+                max_len=int(np.diff(prob.s).max()),
+                warm_args=probe_args)(*probe_args())
+
+        return conformance.check(
+            "spmv_scan", kernel,
+            shape_class=f"{dtype_name(dtype)}/{build_identity(dev)}",
+            candidate=run(kernel), reference=run("flat"),
+            rel_l2=CONFORMANCE_REL_L2[kernel]).ok
+
+    return gate
+
+
+def _bucket_gate(n_to: int, kernel: str, dtype, device) -> bool:
+    """One verdict per (bucket, kernel, dtype, device): prove pad-and-mask
+    exact before serving from the bucket.  A probe problem inside the
+    bucket is solved padded-then-sliced and unpadded; the two must be
+    bitwise equal (``pad_problem``'s quarantined tail).  A failing probe
+    keeps the caller on its exact shape."""
+    from ..core import conformance
+    from ..core.platform import build_identity, resolve_device
+
+    dev = resolve_device(device)
+    n_from = max(2, (3 * n_to) // 4)
+    if n_from >= n_to:
+        return False  # bucket too small to pad into
+    probe = generate_problem(n_from, p=max(3, min(9, n_from // 2)), q=7,
+                             iters=2, seed=99)
+
+    def solve(pr: Problem):
+        args = problem_tensors(pr, dtype, dev)
+        fn = _program(kernel, pr.n, pr.iters, dtype, dev, p=pr.p,
+                      max_len=int(np.diff(pr.s).max()),
+                      warm_args=lambda: args)
+        return fn(*args)
+
+    return conformance.check(
+        "spmv_scan.pad", kernel,
+        shape_class=f"n{n_to}/{dtype_name(dtype)}/{build_identity(dev)}",
+        candidate=lambda: solve(pad_problem(probe, n_to))[:probe.n],
+        reference=lambda: solve(probe), rel_l2=0.0).ok
+
+
 def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
                   dtype=torch.float32, kernel: str = "auto",
+                  fallback: bool = True, canonical: bool = False,
+                  plain_fallback: bool = False,
                   device=None) -> np.ndarray:
     """Device pipeline (fp.cu:154-190): upload, N × (multiply + segmented
     scan), download; prints the spec-mandated timing line (Final.pdf §4.2
@@ -260,8 +459,8 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
 
     ``kernel``:
 
-    - "auto" (default): the flat log-sweep below
-      ``ops.BLOCKED_SCAN_THRESHOLD`` elements, the blocked O(n) scan above;
+    - "auto" (default): the flat log-sweep below ``scan_threshold()``
+      elements, the blocked O(n) scan above;
     - "flat"/"blocked": force the respective torch scan;
     - "pallas-fused": the hand-written kernel with the multiply fused into
       the scan's load (B7, ``ops/segmented_pallas.spmv_scan_pallas``);
@@ -269,44 +468,90 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
       torch (B6, ``segmented_scan_pallas``);
     - "dense": the per-segment dense-matrix strawman.
 
-    The upload happens outside the timed phase, and one untimed iteration
-    runs first, so the kernel's build and the device's lazy set-up stay out
-    of it; a failed build or launch raises there.  Nothing falls back to
-    another kernel.
+    With ``fallback`` (default) the rungs of ``ladder(kernel, device,
+    plain_fallback)`` run behind ``core/resilience.with_fallback`` and the
+    conformance gate (``_conformance_gate``): an injected fault
+    (``fail:spmv_scan.<rung>``) or a diverging probe demotes the rung.  On
+    a CUDA device a kernel demotes only to the other kernel, and to
+    ``flat`` when ``plain_fallback`` asks for it; a ladder whose rungs are
+    all refused raises.  A kernel that cannot build or launch raises
+    (``KernelError``) and never demotes.  ``fallback=False`` runs the
+    requested kernel alone, ungated (bench rows are data).
+
+    Each rung's program comes from the process-wide cache: a miss builds
+    it and runs one untimed iteration (the kernel's build and the device's
+    set-up stay out of the timed phase); a hit does neither.
+
+    With ``canonical``, the problem is snapped to its power-of-two bucket
+    first (``core/programs.canonical_size``): zero-padded with a
+    quarantined tail segment (``pad_problem``) and the output sliced back.
+    Each (bucket, kernel, dtype, device) is probed once (``_bucket_gate``:
+    padded-then-sliced bitwise equal to unpadded); a failing probe keeps
+    the exact shape.
     """
+    from ..core import programs, roofline, span, with_fallback
+
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} ({'|'.join(KERNELS)})")
     prob.validate()
-    a, xx, flags, starts = problem_tensors(prob, dtype, device)
+    dev = resolve_device(device)
+    if canonical:
+        n_to = programs.canonical_size(prob.n)
+        if n_to != prob.n and _bucket_gate(n_to, kernel, dtype, dev):
+            out = run_spmv_scan(pad_problem(prob, n_to), timer=timer,
+                                dtype=dtype, kernel=kernel,
+                                fallback=fallback,
+                                plain_fallback=plain_fallback, device=dev)
+            return out[:prob.n]
+    args = problem_tensors(prob, dtype, dev)
     max_len = int(np.diff(prob.s).max())
     timer = timer or PhaseTimer()
-    check_op(f"spmv_scan.{kernel}",
-             _build_runner(kernel, 1, max_len)(a, xx, flags, starts))
-    runner = _build_runner(kernel, prob.iters, max_len)
-    with timer.phase("spmv_scan") as ph:
-        out = runner(a, xx, flags, starts)
-        ph.block(out)
+    shape_class = f"n{prob.n}/i{prob.iters}"
+    cost = roofline.spmv_scan_cost(prob.n, prob.iters, dtype=dtype)
+
+    def attempt(rung: str):
+        def thunk():
+            runner = _program(rung, prob.n, prob.iters, dtype, dev,
+                              p=prob.p, max_len=max_len,
+                              warm_args=lambda: args)
+            with span("spmv_scan.run", kernel=rung, n=prob.n,
+                      iters=prob.iters, shape_class=shape_class) as sp:
+                sp.roofline(cost.nbytes, cost.flops)
+                with timer.phase("spmv_scan") as ph:
+                    out = runner(*args)
+                    ph.block(out)
+            return out
+        return thunk
+
+    rungs = ladder(kernel, dev, plain_fallback) if fallback else (kernel,)
+    gate = _conformance_gate(prob.n, dtype, dev) if fallback else None
+    res = with_fallback("spmv_scan", [(r, attempt(r)) for r in rungs],
+                        gate=gate)
+    if res.demoted:
+        print(f"spmv_scan: kernel {kernel!r} demoted to {res.rung!r} "
+              f"(failed: {', '.join(f.rung for f in res.failures)})")
     ms = timer.last_ms("spmv_scan")
     print(f"The running time of my code for {prob.iters} iterations is: "
           f"{ms} milliseconds.")
-    return out.cpu().numpy()
+    return res.value.cpu().numpy()
 
 
 def run_spmv_scan_distributed(prob: Problem, mesh, dtype=torch.float32,
                               timer: PhaseTimer | None = None) -> np.ndarray:
     """Mesh-parallel pipeline: the value sequence is cut over the mesh's
     first axis and each iteration runs the multi-device segmented scan
-    (``dist/scan.py``) with the ``ring`` carry combine, the rung the JAX
-    package's gate serves when its probe passes.  The per-shard scan keeps
-    the flat/blocked size dispatch.  Pads to a shard multiple with
+    (``dist/scan.py``).  The carry combine is conformance-gated
+    (``dist/scan.make_iterated_sharded_scan_gated``): ``ring`` demotes to
+    ``gather`` if its probe diverges.  The per-shard scan keeps the
+    flat/blocked size dispatch.  Pads to a shard multiple with
     zero-valued, own-segment tail elements (they never touch a real
     segment).  One untimed iteration runs first; the timed phase is
     "spmv_scan_distributed"."""
-    from ..dist.scan import make_iterated_sharded_scan
+    from ..dist.scan import make_iterated_sharded_scan_gated
 
     prob.validate()
     a, xx, flags, n = _shard_problem(prob, mesh, dtype)
-    iterate = make_iterated_sharded_scan(mesh, carry_mode="ring")
+    iterate, _ = make_iterated_sharded_scan_gated(mesh)
     timer = timer or PhaseTimer()
     for s in iterate(a, xx, flags, 1):
         check_op("spmv_scan.distributed", s)
@@ -404,7 +649,7 @@ def main(argv: list[str]) -> int:
 
         spmv_scan a.txt x.txt [cpu_check]
                   [--kernel=auto|flat|blocked|pallas|pallas-fused|dense]
-                  [--device=cuda|cpu] [--distributed]
+                  [--device=cuda|cpu] [--distributed] [--canonical]
         spmv_scan gen a.txt x.txt [n p q [iters]] [--seed=S]
         spmv_scan mtx matrix.mtx|dense2 [cpu_check] [--kernel=...]
                   [--seed=S] [--device=...]
@@ -416,13 +661,15 @@ def main(argv: list[str]) -> int:
     1e-4 and rel L∞ ≤ 1e-3, exit 1 otherwise).  ``--distributed`` runs
     ``run_spmv_scan_distributed`` with one shard on each physical device
     (every CUDA device, or the CPU with ``--device=cpu``) in place of
-    ``--kernel``.
+    ``--kernel``.  ``--canonical`` pads the problem to its power-of-two
+    bucket behind the bucket gate (``run_spmv_scan``).
     """
     args = [a for a in argv[1:] if not a.startswith("--")]
     kernel = "auto"
     seed = 0
     device = None
     distributed = False
+    canonical = False
     for a in argv[1:]:
         if a.startswith("--kernel="):
             kernel = a.split("=", 1)[1]
@@ -433,9 +680,7 @@ def main(argv: list[str]) -> int:
         elif a == "--distributed":
             distributed = True
         elif a == "--canonical":
-            raise NotImplementedError(
-                "--canonical needs the program cache and the bucket gate, "
-                "not ported yet (ROADMAP.md, queue A: resilience ladder)")
+            canonical = True
         elif a.startswith("--"):
             print(f"error: unknown option {a!r} (flags use --name=value)")
             return 2
@@ -501,7 +746,8 @@ def main(argv: list[str]) -> int:
         print(f"The running time of my code for {prob.iters} iterations "
               f"is: {ms} milliseconds. ({len(devices)} devices)")
     else:
-        out = run_spmv_scan(prob, kernel=kernel, device=device)
+        out = run_spmv_scan(prob, kernel=kernel, device=device,
+                            canonical=canonical)
 
     _write_floats("b.txt", out)
     rc = 0

@@ -572,14 +572,14 @@ def spmv_scan_sweep(ns=(1 << 16, 1 << 20, 1 << 22), iters: int = 8,
     Byte accounting is ``roofline.spmv_scan_cost``: every kernel is quoted
     against the single-pass useful-byte count, so the GB/s column shows the
     flat sweep's log2(n) extra traffic.  ``kernels=None`` picks all four on
-    the card but only the torch pair on the CPU.  ``run_spmv_scan`` never
-    falls back to another kernel, so a kernel failing at a shape is a data
-    row.  The ``tuned`` column stays empty until the tuning cache
-    (``core/tune.py``) is ported: the JAX package writes it empty when no
-    winner is cached.
+    the card but only the torch pair on the CPU.  ``run_spmv_scan`` runs
+    with ``fallback=False``, so a kernel failing at a shape is a data row.
+    The ``tuned`` column names the cached winner (``core/tune.py``, op
+    ``spmv_scan`` at the canonical size) that ``auto`` would dispatch to,
+    empty when none is cached.
     """
     from ..apps import spmv_scan as sp
-    from ..core import PhaseTimer
+    from ..core import PhaseTimer, programs, tune
     from ..core.roofline import spmv_scan_cost
 
     dev = resolve_device(device)
@@ -592,12 +592,14 @@ def spmv_scan_sweep(ns=(1 << 16, 1 << 20, 1 << 22), iters: int = 8,
         prob = sp.generate_problem(n, p, max(2, p - 1), iters=iters,
                                    seed=n % 97)
         cost = spmv_scan_cost(n, iters)
-        tuned = ""
+        rec = tune.lookup("spmv_scan", f"n{programs.canonical_size(n)}",
+                          device=dev)
+        tuned = rec["candidate"] if rec else ""
         for kernel in kernels:
             timer = PhaseTimer()
             try:
                 out = sp.run_spmv_scan(prob, timer=timer, kernel=kernel,
-                                       device=dev)
+                                       fallback=False, device=dev)
             except Exception as e:  # a kernel failing at a shape is data
                 _raise_if_device_error(e)
                 rows.append({"n": n, "p": p, "iters": iters,
@@ -641,8 +643,9 @@ def spmv_pallas_coverage(names=None, scale: float = 1.0, iters: int = 1,
         rel = None
         try:
             out_pallas = sp.run_spmv_scan(prob, kernel="pallas-fused",
-                                          device=dev)
-            out_flat = sp.run_spmv_scan(prob, kernel="flat", device=dev)
+                                          fallback=False, device=dev)
+            out_flat = sp.run_spmv_scan(prob, kernel="flat",
+                                        fallback=False, device=dev)
             rel = float(np.linalg.norm(out_pallas - out_flat)
                         / max(np.linalg.norm(out_flat), 1e-30))
             ok, err = bool(rel < 1e-4), ""

@@ -1,6 +1,6 @@
 from .compare import almost_equal_ulps, ulp_distance
-from .errors import (DataValidationError, FrameworkError, check_op,
-                     data_error)
+from .errors import (DataValidationError, FrameworkError, KernelError,
+                     check_op, data_error)
 from .platform import (BUILD_DIR, card_identity, device_preflight,
                        resolve_device, virtual_devices)
 from .resilience import (FailureKind, FallbackResult, NonFiniteError,
@@ -9,11 +9,13 @@ from .resilience import (FailureKind, FallbackResult, NonFiniteError,
 from .timing import PhaseRecord, PhaseTimer, bandwidth_gbs, gflops, time_fn
 from .trace import (EVENT_SCHEMA, clear_events, events, flush_sink,
                     record_event, span, validate_record)
-from . import diag, faults, metrics, roofline
+from . import (admission, conformance, diag, faults, metrics, programs,
+               roofline, tune)
 
 __all__ = [
     "almost_equal_ulps", "ulp_distance",
-    "DataValidationError", "FrameworkError", "check_op", "data_error",
+    "DataValidationError", "FrameworkError", "KernelError", "check_op",
+    "data_error",
     "BUILD_DIR", "card_identity", "device_preflight", "resolve_device",
     "virtual_devices",
     "FailureKind", "FallbackResult", "NonFiniteError", "RetryPolicy",
@@ -21,5 +23,6 @@ __all__ = [
     "PhaseRecord", "PhaseTimer", "bandwidth_gbs", "gflops", "time_fn",
     "EVENT_SCHEMA", "clear_events", "events", "flush_sink", "record_event",
     "span", "validate_record",
-    "diag", "faults", "metrics", "roofline",
+    "admission", "conformance", "diag", "faults", "metrics", "programs",
+    "roofline", "tune",
 ]

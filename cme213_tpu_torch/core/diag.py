@@ -30,12 +30,22 @@ layer that says which, in two pillars:
   ``execute``, and the JAX package's markers keep their meaning.
   :func:`forensics_state` exposes the open and last-failed stage.
 
-The JAX package's third pillar, predicted-vs-measured cost attribution
-(``measured_cost`` over XLA's ``cost_analysis``, ``check_attribution``,
-``calibrate``), runs from its program cache and is not ported yet.
+- **Predicted-vs-measured attribution** (:func:`check_attribution`): the
+  roofline cost model an op is graded with (``core/roofline.py``) against
+  what the rung itself moves and computes.  Torch has no
+  ``cost_analysis()``: a hand-written kernel rung's runner carries
+  ``staged_cost``, the bytes its launch plan stages (windows × bytes a
+  window, halo re-reads included) and the operations its micro-tiles
+  issue; a plain torch rung is counted by
+  ``torch.utils.flop_counter.FlopCounterMode``, which is ``None`` ("no
+  signal") where it counts nothing, as for elementwise stencils and
+  scans.  A ratio outside ``[1/tol, tol]`` (``CME213_DIAG_TOL``, default
+  2) is an ``attribution-mismatch`` event.  The program cache runs the
+  check on every fresh program when ``CME213_DIAG_ATTRIBUTION=1``;
+  ``doctor calibrate`` (:func:`calibrate`) always runs it.
 
-CLI: ``python -m cme213_tpu_torch doctor [--json] [--device=cpu]``
-(``doctor_cli.py``).  This module imports only the standard library and
+CLI: ``python -m cme213_tpu_torch doctor [--json] [--device=cpu]`` and
+``doctor calibrate [--json] [--device=cpu]`` (``doctor_cli.py``).  This module imports only the standard library and
 sibling modules (``metrics``, ``trace``, lazily ``faults``, ``platform``
 and torch), so the resilience layer can import it without cycles.
 """
@@ -53,6 +63,11 @@ DIAG_DIR_ENV = "CME213_DIAG_DIR"
 #: per-stage watchdog budget for health probes, seconds
 TIMEOUT_ENV = "CME213_DOCTOR_TIMEOUT_S"
 
+#: opt-in: check each fresh program's cost model at dispatch
+ATTRIBUTION_ENV = "CME213_DIAG_ATTRIBUTION"
+#: attribution ratio tolerance (a ratio outside [1/tol, tol] mismatches)
+TOLERANCE_ENV = "CME213_DIAG_TOL"
+
 RING_NAME = "health-ring.jsonl"
 RING_CAP = 256
 
@@ -67,6 +82,7 @@ _LOCK = threading.Lock()
 _LAST_HEALTH: dict | None = None
 _OPEN_STAGE: dict | None = None
 _LAST_FAILED_STAGE: dict | None = None
+_ATTRIBUTION: list = []
 
 # message fragments that identify a stage when an exception carries no
 # explicit tag.  The port's own: its kernel build (``ops/_kernels.py``:
@@ -393,3 +409,177 @@ def reset() -> None:
         _LAST_HEALTH = None
         _OPEN_STAGE = None
         _LAST_FAILED_STAGE = None
+        _ATTRIBUTION.clear()
+
+
+# ------------------------------------------- predicted-vs-measured costs
+
+def attribution_enabled() -> bool:
+    return os.environ.get(ATTRIBUTION_ENV, "").strip().lower() in (
+        "1", "true", "yes", "on")
+
+
+def tolerance() -> float:
+    try:
+        tol = float(os.environ.get(TOLERANCE_ENV, "2.0") or 2.0)
+    except ValueError:
+        tol = 2.0
+    return max(tol, 1.0)
+
+
+def measured_cost(fn, args: tuple) -> dict:
+    """What ``fn(*args)`` itself moves and computes: ``{"flops",
+    "bytes", "source"}``, each count ``None`` where there is no signal.
+
+    A hand-written kernel rung's runner carries ``staged_cost(*args)`` (a
+    ``roofline.Cost`` from its launch plan), which is read without running
+    anything.  Any other callable runs once under
+    ``torch.utils.flop_counter.FlopCounterMode``: its operations where the
+    counter has formulas (matrix products, convolutions), ``None`` where it
+    counts nothing; bytes ``None``."""
+    staged = getattr(fn, "staged_cost", None)
+    if staged is not None:
+        c = staged(*args)
+        return {"flops": float(c.flops), "bytes": float(c.nbytes),
+                "source": "launch plan"}
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    flops = counter.get_total_flops()
+    return {"flops": float(flops) if flops else None, "bytes": None,
+            "source": "FlopCounterMode"}
+
+
+def check_attribution(op: str, rung: str, shape_class: str, fn,
+                      args: tuple, cost, tol: float | None = None) -> dict:
+    """Compare the roofline model ``cost`` (a ``roofline.Cost``) with
+    :func:`measured_cost` of ``fn(*args)``; record the row in the
+    in-process calibration table and emit ``attribution-mismatch`` when a
+    ratio falls outside ``[1/tol, tol]``.  A column with no signal on
+    either side is skipped."""
+    from .metrics import counter
+    from .trace import record_event
+
+    tol = tolerance() if tol is None else max(float(tol), 1.0)
+    measured = measured_cost(fn, args)
+    row = {"op": op, "rung": rung, "shape_class": shape_class, "tol": tol,
+           "source": measured["source"],
+           "predicted_flops": float(cost.flops),
+           "predicted_bytes": float(cost.nbytes),
+           "measured_flops": measured["flops"],
+           "measured_bytes": measured["bytes"],
+           "flops_ratio": None, "bytes_ratio": None,
+           "mismatches": [], "ok": True}
+    for metric, predicted, got in (
+            ("flops", float(cost.flops), measured["flops"]),
+            ("bytes", float(cost.nbytes), measured["bytes"])):
+        if got is None or got <= 0 or predicted <= 0:
+            continue  # no signal from one side: nothing to contradict
+        ratio = round(got / predicted, 4)
+        row[f"{metric}_ratio"] = ratio
+        if ratio > tol or ratio < 1.0 / tol:
+            row["ok"] = False
+            row["mismatches"].append(metric)
+            counter("diag.attribution.mismatches").inc()
+            record_event("attribution-mismatch", op=op, rung=rung,
+                         shape_class=shape_class, metric=metric,
+                         predicted=predicted, measured=got, ratio=ratio)
+    counter("diag.attribution.checks").inc()
+    with _LOCK:
+        _ATTRIBUTION.append(row)
+    return row
+
+
+def maybe_check_attribution(op: str, rung: str, shape_class: str, fn,
+                            probe, cost):
+    """Dispatch-time hook (``programs.get``): run the check only when
+    ``CME213_DIAG_ATTRIBUTION`` is on, and never let a diagnostics failure
+    take the program cache down with it."""
+    if cost is None or probe is None or not attribution_enabled():
+        return None
+    from .metrics import counter
+
+    try:
+        args = probe() if callable(probe) else tuple(probe)
+        return check_attribution(op, rung, shape_class, fn, args, cost)
+    except Exception:  # noqa: BLE001 — attribution is best-effort
+        counter("diag.attribution.errors").inc()
+        return None
+
+
+def attribution_records() -> list:
+    """The in-process calibration table (one row a check)."""
+    with _LOCK:
+        return [dict(r) for r in _ATTRIBUTION]
+
+
+def calibrate(device=None) -> list:
+    """Predicted-vs-measured table for the flagship ops on ``device``
+    (default ``cuda``): one program of each rung kind, checked against the
+    ``core/roofline.py`` models their bench rows are graded with.
+
+    - ``spmv_scan``: ``flat`` (a torch rung: FlopCounterMode) and
+      ``pallas-fused`` (B7: its launches' staged traffic), n = 2^18, 4
+      iterations;
+    - ``heat``: ``xla`` (torch ``run_heat``) and ``pipeline`` (B1: its
+      launch plan's windows and micro-tiles), 1024² order 8, 4 steps.
+
+    The programs come from the program cache (a miss builds and warms
+    them).  On the CPU the kernel rungs run their plain versions, and
+    their row is still the kernel's plan: it is a count from shapes, not a
+    measurement of a device.  A program that fails to build becomes a row
+    with its error.  Returns the rows (also appended to
+    :func:`attribution_records`)."""
+    import torch
+
+    from . import roofline
+    from .platform import resolve_device
+
+    dev = resolve_device(device)
+    rows = []
+
+    def run(op, rung, shape_class, make, cost):
+        try:
+            fn, args = make()
+            rows.append(check_attribution(op, rung, shape_class, fn,
+                                          tuple(args), cost))
+        except Exception as e:  # noqa: BLE001 — report, don't die
+            rows.append({"op": op, "rung": rung, "shape_class": shape_class,
+                         "error": f"{type(e).__name__}: {e}"[:300],
+                         "ok": False})
+
+    n, iters = 1 << 18, 4
+
+    def spmv(rung):
+        from ..apps import spmv_scan as sp
+
+        prob = sp.generate_problem(n, p=n // 64, q=n // 128, iters=iters,
+                                   seed=0)
+        args = sp.problem_tensors(prob, torch.float32, dev)
+        return sp._program(rung, n, iters, torch.float32, dev,
+                           warm_args=lambda: args), args
+
+    for rung in ("flat", "pallas-fused"):
+        run("spmv_scan", rung, f"n{n}/i{iters}", lambda r=rung: spmv(r),
+            roofline.spmv_scan_cost(n, iters))
+
+    side, order = 1024, 8
+
+    def heat(rung):
+        from ..config import SimParams
+        from ..grid import make_initial_grid
+        from ..ops.stencil_pipeline import _heat_program, pick_pipeline_tile
+
+        p = SimParams(nx=side, ny=side, order=order, iters=iters)
+        u = make_initial_grid(p, device=dev)
+        ty = pick_pipeline_tile(p.gy, 1, order)
+        return _heat_program(rung, u, iters, order, p.xcfl, p.ycfl, p.bc,
+                             1, ty), (u,)
+
+    for rung in ("xla", "pipeline"):
+        run("heat", rung, f"order{order}/{side + order}x{side + order}",
+            lambda r=rung: heat(r),
+            roofline.heat_cost(side + order, side + order, order=order,
+                               iters=iters))
+    return rows

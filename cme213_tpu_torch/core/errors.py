@@ -26,6 +26,15 @@ class FrameworkError(RuntimeError):
     record: dict | None = None
 
 
+class KernelError(FrameworkError):
+    """A hand-written kernel could not be built (``nvcc``/``ptxas``, a
+    missing toolchain) or its launch was refused (a CUDA error code out of
+    the C entry).  The resilience ladder re-raises it instead of demoting:
+    a rung whose kernel cannot build or launch is a fault of the program,
+    not a reason to serve another rung (``core/resilience.with_fallback``).
+    """
+
+
 class DataValidationError(FrameworkError):
     """External input data failed an invariant check at ingestion (corrupt
     or truncated matrix file, inconsistent header, out-of-range indices,

@@ -90,6 +90,21 @@ def virtual_devices(n: int, device=None) -> list[torch.device]:
     return [resolve_device(device)] * n
 
 
+def build_identity(device) -> str:
+    """What a conformance verdict or a tuned winner measured on ``device``
+    stands for: ``cpu`` on the CPU (the plain versions); on a CUDA device
+    the card's name (``torch.cuda.get_device_name``) and a digest of the
+    kernel sources, their headers and the build flags
+    (``ops/_kernels.sources_digest``), so that a record made on another
+    card or before a kernel was edited is never replayed."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    from ..ops._kernels import sources_digest
+
+    return f"{torch.cuda.get_device_name(dev)}/{sources_digest()}"
+
+
 def card_identity() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them
     (``name, power.limit`` per line)."""

@@ -23,8 +23,16 @@ ground, in three pieces:
   consult the fault plan per rung (``faults.maybe_fail``), record every
   demotion through the structured trace log, and report which rung
   actually served the request.  A rung whose kernel cannot be built or
-  launched fails like any other rung: the ladder records it and moves on
-  only because the caller listed another rung.
+  launched is an error, not a demotion: a ``KernelError`` out of a rung or
+  out of its conformance probe is recorded as a ``kernel-failure`` and
+  re-raised, so the ladder never hides a broken kernel behind a slower
+  rung.  What demotes is what the JAX package demotes on with a working
+  kernel: injected faults (``fail:``, ``stage:``, ``oom:``, ``wrong:``),
+  a conformance verdict, a RESOURCE failure the caller chose not to absorb,
+  and an open circuit breaker.  On a CUDA device the callers' ladders hold
+  only kernel rungs unless the caller asks for a plain one
+  (``allows_plain_rungs``), so a demotion moves between kernels, and a
+  ladder whose rungs are all refused raises.
 
 Every guard here runs in host Python at solve level: zero device work,
 and zero work at all when no faults are installed and the first rung holds.
@@ -38,7 +46,7 @@ from enum import Enum
 
 from . import metrics
 from .diag import failure_stage
-from .errors import FrameworkError
+from .errors import FrameworkError, KernelError
 from .faults import maybe_fail, maybe_fail_stage
 from .trace import record_event
 
@@ -323,6 +331,29 @@ class CircuitBreaker:
         st.failures = 0
 
 
+def allows_plain_rungs(device, plain_fallback: bool = False) -> bool:
+    """May a ladder over tensors on ``device`` end at a plain PyTorch rung?
+
+    On the CPU every rung is a plain version, so the ladder keeps the JAX
+    package's rungs.  On a CUDA device it ends at its kernel rungs unless
+    the caller asks for the plain one (``plain_fallback``): a kernel that
+    is refused raises rather than being replaced, unasked, by the plain
+    version."""
+    import torch
+
+    return plain_fallback or torch.device(device).type != "cuda"
+
+
+def _kernel_failed(op: str, rung: str, exc: KernelError,
+                   default: str) -> None:
+    """Forensics for a kernel that cannot build or launch, which the
+    ladder re-raises rather than demotes."""
+    metrics.counter("fallback.kernel_errors").inc()
+    record_event("kernel-failure", op=op, kernel=rung,
+                 error=type(exc).__name__,
+                 stage=failure_stage(exc, default=default))
+
+
 def with_fallback(op: str, ladder, policy: RetryPolicy | None = None,
                   gate=None, breaker: CircuitBreaker | None = None,
                   ) -> FallbackResult:
@@ -346,7 +377,9 @@ def with_fallback(op: str, ladder, policy: RetryPolicy | None = None,
     exception's stage tag or message); the serving rung emits ``served``
     with ``demoted`` and the failure list, so capture logs show which
     kernel actually handled the request.  All-rungs-failed raises
-    FrameworkError chained to the last failure.
+    FrameworkError chained to the last failure.  A ``KernelError`` (a
+    kernel that cannot build or launch) out of a rung or its probe is
+    re-raised as it is, after its ``kernel-failure`` event: no demotion.
     """
     failures: list[RungFailure] = []
     last: Exception | None = None
@@ -366,6 +399,9 @@ def with_fallback(op: str, ladder, policy: RetryPolicy | None = None,
         if gate is not None:
             try:
                 admitted = gate(name)
+            except KernelError as e:
+                _kernel_failed(op, name, e, "conformance")
+                raise
             except Exception as e:  # noqa: BLE001 — a crashed probe is a
                 # rung failure: the rung cannot even run its probe problem
                 kind = classify_failure(e)
@@ -398,6 +434,9 @@ def with_fallback(op: str, ladder, policy: RetryPolicy | None = None,
             maybe_fail_stage(f"{op}.{name}", "execute")
             value = (thunk() if policy is None
                      else policy.run(thunk, op=f"{op}.{name}"))
+        except KernelError as e:
+            _kernel_failed(op, name, e, "execute")
+            raise
         except Exception as e:  # noqa: BLE001 — every rung failure is data
             kind = classify_failure(e)
             failures.append(RungFailure(name, kind, type(e).__name__,

@@ -411,13 +411,19 @@ def events(event: str | None = None) -> list[dict]:
 
 def clear_events() -> None:
     """Drop recorded events (and the retrace detector's compile counts
-    and pending tail buffers) and re-read the ring-buffer cap env."""
+    and pending tail buffers) and re-read the ring-buffer cap env.  The
+    program cache (``core/programs.py``) resets with the compile counts:
+    the two move together, so "the first call builds, later calls hit"
+    stays an invariant a fresh telemetry slate can rely on."""
     global _EVENTS, _BUFFER_CONFIGURED
     with _LOCK:
         _EVENTS = deque()
         _BUFFER_CONFIGURED = False
         _COMPILE_COUNTS.clear()
         _TAIL_BUFFERS.clear()
+    from . import programs
+
+    programs.reset()
 
 
 # ------------------------------------------------- tail-based sampling

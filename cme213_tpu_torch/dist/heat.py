@@ -380,12 +380,89 @@ def _pad_interior_for_mesh(u: np.ndarray, params: SimParams,
     return u
 
 
+def _probe_params(params: SimParams, mesh: Mesh, k: int) -> SimParams:
+    """A small probe configuration for ``mesh`` and the
+    communication-avoiding factor ``k``: every shard keeps at least K =
+    k·border rows and columns; the caller's order and grid method."""
+    axes = mesh.shape
+    y_size = axes.get("y", 1)
+    x_size = axes.get("x", 1)
+    b = params.border_size
+    loc = max(8, k * b)
+    return SimParams(nx=max(40, x_size * loc), ny=y_size * loc,
+                     order=params.order, iters=4 * k, bc_top=2.0,
+                     bc_left=0.5, bc_bottom=1.0, bc_right=3.0,
+                     grid_method=params.grid_method)
+
+
+def _gated_heat_config(params: SimParams, mesh: Mesh, local_kernel: str,
+                       k: int, dtype,
+                       plain_fallback: bool = False) -> tuple[str, int]:
+    """Conformance-gate the distributed heat rungs before they serve:
+
+    - the ``pallas`` local kernel (B3) is probed against the ``xla`` local
+      step at the same communication-avoiding factor;
+    - the k > 1 exchange-every-k path against the k = 1 path;
+
+    each on a small distributed solve on this mesh, bit for bit (both are
+    the port's contracts), demoting to ``xla`` / k = 1 on divergence with
+    a ``rung-failed`` (``wrong_answer``) event.  On a CUDA mesh a diverging
+    ``pallas`` kernel raises ``FrameworkError`` instead, unless the caller
+    asks for the plain step (``plain_fallback``; ``core/resilience.
+    allows_plain_rungs``).  Verdicts cache per process × order × k × mesh
+    shape × device and kernel build.  A kernel that cannot build or launch
+    raises out of the probe (``KernelError``)."""
+    from ..core import conformance, metrics
+    from ..core.errors import FrameworkError
+    from ..core.platform import build_identity
+    from ..core.resilience import FailureKind, allows_plain_rungs
+    from ..core.trace import record_event
+
+    device = next(iter(mesh.devices.flat))
+    dev = build_identity(device)
+
+    def probe(kernel: str, kk: int, ref_kernel: str, ref_k: int) -> bool:
+        p = _probe_params(params, mesh, max(kk, ref_k))
+
+        def solve(kern, sk):
+            return lambda: torch.from_numpy(run_distributed_heat(
+                p, mesh, dtype=dtype, overlap=False, steps_per_exchange=sk,
+                local_kernel=kern, conformance=False))
+
+        shape = "x".join(str(s) for s in mesh.devices.shape)
+        return conformance.check(
+            "dist_heat", f"{kernel}-k{kk}",
+            shape_class=f"order{params.order}/k{kk}/mesh{shape}/{dev}",
+            candidate=solve(kernel, kk), reference=solve(ref_kernel, ref_k)
+        ).ok
+
+    def demote(rung: str) -> None:
+        metrics.counter("fallback.demotions").inc()
+        record_event("rung-failed", op="dist_heat", rung=rung,
+                     kind=FailureKind.WRONG_ANSWER.value,
+                     error="ConformanceFailed")
+
+    if local_kernel == "pallas" and not probe("pallas", k, "xla", k):
+        demote(f"pallas-k{k}")
+        if not allows_plain_rungs(device, plain_fallback):
+            raise FrameworkError(
+                f"the pallas local kernel (B3) at k={k}, order "
+                f"{params.order} failed its conformance probe on {device}; "
+                f"plain_fallback=True serves the xla step instead")
+        local_kernel = "xla"
+    if local_kernel == "xla" and k > 1 and not probe("xla", k, "xla", 1):
+        demote(f"xla-k{k}")
+        k = 1
+    return local_kernel, k
+
+
 def run_distributed_heat(params: SimParams, mesh: Mesh,
                          iters: int | None = None, dtype=torch.float32,
                          overlap: bool | None = None,
                          steps_per_exchange: int = 1,
                          local_kernel: str = "xla",
-                         conformance: bool = True) -> np.ndarray:
+                         conformance: bool = True,
+                         plain_fallback: bool = False) -> np.ndarray:
     """Full distributed solve.  Returns the final full halo grid (gy, gx)
     as numpy, for direct comparison with the single-device solve and the
     reference's per-rank ``grid{rank}_final.txt`` methodology.
@@ -394,12 +471,20 @@ def run_distributed_heat(params: SimParams, mesh: Mesh,
     ``local_kernel="pallas"`` runs the hand-written kernel (B3), one launch a
     device for all its shards.
 
-    ``conformance`` is accepted for the JAX package's signature.  There it
-    probes the ``pallas`` and k>1 rungs against the reference first and
-    demotes a diverging one; the port has no conformance gate yet
-    (``core/conformance.py``, ROADMAP.md), so the requested rung always
-    runs.  A kernel that fails to build or launch raises.
+    With ``conformance`` (default), the non-reference rungs (the
+    ``pallas`` local kernel, and the k > 1 communication-avoiding
+    exchange) are probed on first use against the reference rungs on a
+    small solve on this mesh and demoted (``WRONG_ANSWER``) on divergence
+    (``_gated_heat_config``): the hw5 N-vs-1 comparison in the serving
+    path.  On a CUDA mesh a diverging ``pallas`` kernel raises rather than
+    demoting to ``xla``, unless ``plain_fallback`` asks for the plain step.
+    ``conformance=False`` pins the requested rung.  A kernel that fails to
+    build or launch raises.
     """
+    if conformance and (local_kernel == "pallas" or steps_per_exchange > 1):
+        local_kernel, steps_per_exchange = _gated_heat_config(
+            params, mesh, local_kernel, steps_per_exchange, dtype,
+            plain_fallback)
     iterate, _, _ = prepare_distributed_heat(
         params, mesh, iters=iters, dtype=dtype, overlap=overlap,
         steps_per_exchange=steps_per_exchange, local_kernel=local_kernel)

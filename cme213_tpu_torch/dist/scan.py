@@ -129,6 +129,59 @@ def make_iterated_sharded_scan(mesh: Mesh, axis_name: str | None = None,
     return iterate
 
 
+def make_iterated_sharded_scan_gated(mesh: Mesh,
+                                     axis_name: str | None = None):
+    """``make_iterated_sharded_scan`` behind the conformance gate.
+
+    The carry-combine backends form a ladder, ``ring`` (log-P shifts, the
+    fast path) demoting to ``gather`` (one device combines), and each
+    mode's first use per process is probed: a small deterministic sharded
+    scan against the single-device ``segmented_scan_flat`` on the first
+    shard's device, to the iterated-scan tolerance (rel-L2 1e-5; both
+    modes reorder the carry combine, so bitwise is not their contract).  A
+    mode whose probe diverges (``CME213_FAULTS=wrong:dist_scan``) is
+    demoted with ``WRONG_ANSWER`` before it serves.  Returns ``(iterate,
+    carry_mode)``."""
+    import numpy as np
+
+    from ..core import conformance
+    from ..core.platform import build_identity
+    from ..core.resilience import with_fallback
+    from ..ops.segmented import segmented_scan_flat
+
+    devices = _axis_devices(mesh, axis_name)
+    n = 64 * len(devices)
+
+    def probe_inputs():
+        values = torch.from_numpy(
+            np.sin(np.arange(n, dtype=np.float32)) + np.float32(0.5))
+        flags = torch.from_numpy((np.arange(n) % 23 == 0).astype(np.int32))
+        return values, flags
+
+    def gate(mode: str) -> bool:
+        def probe():
+            values, flags = probe_inputs()
+            return distributed_segmented_scan(values, flags, mesh,
+                                              axis_name, carry_mode=mode)
+
+        def reference():
+            values, flags = probe_inputs()
+            return segmented_scan_flat(values.to(devices[0]),
+                                       flags.to(devices[0]))
+
+        return conformance.check(
+            "dist_scan", mode,
+            shape_class=f"p{len(devices)}/{build_identity(devices[0])}",
+            candidate=probe, reference=reference, rel_l2=1e-5).ok
+
+    res = with_fallback(
+        "dist_scan",
+        [(mode, lambda m=mode: make_iterated_sharded_scan(
+            mesh, axis_name, carry_mode=m)) for mode in ("ring", "gather")],
+        gate=gate)
+    return res.value, res.rung
+
+
 def distributed_segmented_scan(values: torch.Tensor, head_flags: torch.Tensor,
                                mesh: Mesh, axis_name: str | None = None,
                                carry_mode: str = "ring") -> torch.Tensor:

@@ -36,6 +36,12 @@ def _doctor(argv: list[str]) -> int:
     return doctor_cli.main(argv)
 
 
+def _tune(argv: list[str]) -> int:
+    from . import tune_cli
+
+    return tune_cli.main(argv)
+
+
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
@@ -54,7 +60,12 @@ WORKLOADS: dict[str, Workload] = {
         Workload("doctor", "diagnostics", "staged device-health ladder "
                  "(enumerate, memory, timed liveness; exit 1 when "
                  "unhealthy, --json for the structured report, "
-                 "--device=cpu to probe the CPU)", _doctor),
+                 "--device=cpu to probe the CPU; calibrate: roofline "
+                 "cost models against what each rung stages)", _doctor),
+        Workload("tune", "tuning", "measured autotuning of dispatch "
+                 "statics: run --op heat,spmv_scan,segmented_scan | show | "
+                 "clear (CME213_TUNE_CACHE; CME213_TUNE=0 disables)",
+                 _tune),
     )
 }
 

@@ -7,7 +7,8 @@ and the flags, and loaded with ``ctypes``.  A library is built at the first
 launch on a CUDA tensor that needs it; ``build()`` builds several at once,
 one ``nvcc`` each, all started together.  Importing this module builds
 nothing, so the CPU tests import it without a toolchain; a missing ``nvcc``
-or a failed build raises ``FrameworkError`` at that first launch.  Nothing
+or a failed build raises ``KernelError`` (a ``FrameworkError``) at that
+first launch, and so does a launch the C entry refuses.  Nothing
 falls back to another implementation.
 """
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from ..core.errors import FrameworkError
+from ..core.errors import KernelError
 from ..core.platform import BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -53,7 +55,7 @@ def _nvcc() -> str:
                  "/usr/local/cuda"):
         if root and (Path(root) / "bin" / "nvcc").is_file():
             return str(Path(root) / "bin" / "nvcc")
-    raise FrameworkError(
+    raise KernelError(
         "nvcc not found (PATH, CUDA_HOME, CUDA_PATH, /usr/local/cuda): the "
         "CUDA kernels are built from cme213_tpu_torch/csrc at first use on "
         "a CUDA tensor")
@@ -70,12 +72,22 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+@functools.cache
+def sources_digest() -> str:
+    """A digest of every kernel source, header and the build flags: it
+    changes whenever any library would be rebuilt."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted([*SOURCES.values(), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode() + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(*names: str) -> dict[str, Path]:
     """Compile the named libraries (default: all) unless already built.
 
     One ``nvcc`` per missing library, all started together and all waited
     for.  The compiler's output (``-Xptxas -v``) goes to a ``.log`` beside
-    each library.  Raises ``FrameworkError`` when ``nvcc`` is missing or any
+    each library.  Raises ``KernelError`` when ``nvcc`` is missing or any
     build fails.
     """
     names = names or tuple(SOURCES)
@@ -107,7 +119,7 @@ def build(*names: str) -> dict[str, Path]:
                 proc.kill()
                 proc.wait()
     if failed:
-        raise FrameworkError("nvcc failed on " + "\n".join(failed))
+        raise KernelError("nvcc failed on " + "\n".join(failed))
     return out
 
 
@@ -204,7 +216,7 @@ def heat_ksteps(shards, *, order: int, k: int, tile_y: int, tile_x: int,
     element [0, 0] and ``(ny, nx)`` the global interior extents, which
     place the Dirichlet bands.  ``(tile_y, tile_x)``, ``run`` and
     ``smem_bytes`` are the launch's decomposition
-    (``stencil_pipeline.launch_plan``).  Raises ``FrameworkError`` when the
+    (``stencil_pipeline.launch_plan``).  Raises ``KernelError`` when the
     launch is refused.
     """
     n = len(shards)
@@ -251,7 +263,7 @@ def heat_ksteps(shards, *, order: int, k: int, tile_y: int, tile_x: int,
         err = fn(table, n, H, W, ny, nx, order, k, tile_y, tile_x, run,
                  smem_bytes, xcfl, ycfl, *bc, stream)
     if err != 0:
-        raise FrameworkError(
+        raise KernelError(
             f"heat_ksteps launch failed: "
             f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
             f"order={order} k={k} tile={tile_y}x{tile_x} run={run} "
@@ -271,7 +283,7 @@ def heat_ksteps_occupancy(device: torch.device, dtype_bytes: int, order: int,
         err = lib.heat_ksteps_occupancy(dtype_bytes, order, k, smem_bytes,
                                         buf)
     if err != 0:
-        raise FrameworkError(
+        raise KernelError(
             f"heat_ksteps occupancy query failed: "
             f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
             f"order={order} k={k} smem={smem_bytes} {dtype_bytes}-byte)")
@@ -285,7 +297,7 @@ def heat_ksteps_design(dtype_bytes: int, k: int) -> tuple[int, int, int]:
     lib = library("heat_stencil")
     err = lib.heat_ksteps_design(dtype_bytes, k, buf)
     if err != 0:
-        raise FrameworkError(f"no heat_ksteps design for {dtype_bytes}-byte "
+        raise KernelError(f"no heat_ksteps design for {dtype_bytes}-byte "
                              f"values at k={k}")
     return tuple(buf)
 
@@ -311,7 +323,7 @@ def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
     ``values``, ``xx`` and ``out`` of n elements, int32 ``flags`` of n, and
     a 32-bit ``workspace`` of at least 2 + 2 words per tile, zero before
     its first call; ``epoch`` (1 ≤ epoch < 2³⁰) is new to the workspace
-    since it was zeroed.  Raises ``FrameworkError`` when the C entry
+    since it was zeroed.  Raises ``KernelError`` when the C entry
     refuses the call or the launch.
     """
     tensors = [values, flags, out, workspace] + ([] if xx is None else [xx])
@@ -341,7 +353,7 @@ def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
             flags.data_ptr(), out.data_ptr(), n, workspace.data_ptr(),
             workspace.shape[0], epoch, stream)
     if err != 0:
-        raise FrameworkError(
+        raise KernelError(
             f"segmented_scan launch failed: "
             f"{lib.segmented_scan_error_string(err).decode()} (cudaError "
             f"{err}; n={n} fused={xx is not None} "
@@ -356,7 +368,7 @@ def heat_band_launchers(pairs, *, order: int, k: int, tile_y: int,
     heat_band``: a call with no argument enqueues ``k`` fused heat steps of
     the (gy, gx) halo grid ``src`` into the (ny, nx) = (gy − order, gx −
     order) interior ``dst`` on the stream that was current when the
-    launchers were made, and raises ``FrameworkError`` when the launch is
+    launchers were made, and raises ``KernelError`` when the launch is
     refused.
 
     The tensors are checked here, once: ``src`` a contiguous float32/
@@ -413,7 +425,7 @@ def heat_band_launchers(pairs, *, order: int, k: int, tile_y: int,
             else:
                 err = fn(*args)
             if err != 0:
-                raise FrameworkError(
+                raise KernelError(
                     f"heat_band launch failed: "
                     f"{lib.heat_band_error_string(err).decode()} "
                     f"(cudaError {err}; {what})")
@@ -433,7 +445,7 @@ def heat_band_occupancy(device: torch.device, dtype_bytes: int, order: int,
     with torch.cuda.device(device):
         err = lib.heat_band_occupancy(dtype_bytes, order, k, smem_bytes, buf)
     if err != 0:
-        raise FrameworkError(
+        raise KernelError(
             f"heat_band occupancy query failed: "
             f"{lib.heat_band_error_string(err).decode()} (cudaError {err}; "
             f"order={order} k={k} smem={smem_bytes} {dtype_bytes}-byte)")
@@ -448,7 +460,7 @@ def heat_band_design(dtype_bytes: int, k: int) -> tuple[int, int, int, int]:
     lib = library("heat_band")
     err = lib.heat_band_design(dtype_bytes, k, buf)
     if err != 0:
-        raise FrameworkError(f"no heat_band design for {dtype_bytes}-byte "
+        raise KernelError(f"no heat_band design for {dtype_bytes}-byte "
                              f"values at k={k}")
     return tuple(buf)
 
@@ -456,7 +468,7 @@ def heat_band_design(dtype_bytes: int, k: int) -> tuple[int, int, int, int]:
 def transpose_tiles(src: torch.Tensor, dst: torch.Tensor) -> None:
     """Enqueue one launch of ``csrc/transpose.cu``: ``dst = src.T`` for a
     contiguous (M, N) ``src`` and a contiguous (N, M) ``dst`` of one dtype
-    of 1, 2, 4 or 8 bytes on one CUDA device.  Raises ``FrameworkError``
+    of 1, 2, 4 or 8 bytes on one CUDA device.  Raises ``KernelError``
     when the launch is refused."""
     if not (src.is_cuda and dst.device == src.device):
         raise ValueError("transpose_tiles takes two tensors on one CUDA "
@@ -477,7 +489,7 @@ def transpose_tiles(src: torch.Tensor, dst: torch.Tensor) -> None:
         err = lib.transpose_tiles(src.data_ptr(), dst.data_ptr(), M, N,
                                   src.element_size(), stream)
     if err != 0:
-        raise FrameworkError(
+        raise KernelError(
             f"transpose_tiles launch failed: "
             f"{lib.transpose_error_string(err).decode()} (cudaError {err}; "
             f"{M}x{N} {src.dtype})")

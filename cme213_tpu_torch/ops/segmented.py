@@ -48,8 +48,9 @@ def segment_ids_from_starts(seg_starts: torch.Tensor, n: int) -> torch.Tensor:
 
 def scan_threshold() -> int:
     """The flat/blocked crossover of the auto dispatch: the built-in
-    ``BLOCKED_SCAN_THRESHOLD`` (the tuning cache that may override it in
-    the reference comes with ``core/tune.py``)."""
+    ``BLOCKED_SCAN_THRESHOLD``.  The tuner's ``segmented_scan`` space
+    measures the crossover (``core/tune.py``); the dispatch reads no
+    winner until a measurement on the card says which to serve."""
     return BLOCKED_SCAN_THRESHOLD
 
 

@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _kernels
+from ..core.errors import KernelError
 from ._kernels import MAX_SHARDS
 from .stencil import BORDER_FOR_ORDER, run_heat_roll, stencil_interior
 
@@ -190,8 +191,9 @@ def launch_plan(grid: torch.Tensor, shards: int, k: int, order: int,
     placed like ``grid``, computed once per (device, dtype, order, k, shape,
     shards, tile_y) and kept: the tile (``pick_pipeline_tile`` unless
     ``tile_y`` is given), its shared memory, the blocks an SM from the
-    occupancy calculator and the runs.  Raises ``ValueError`` when the
-    tile's windows do not fit in a block's shared memory."""
+    occupancy calculator and the runs.  Raises ``KernelError`` when the
+    tile's windows do not fit in a block's shared memory: the kernel
+    cannot launch at that tile."""
     H, W = grid.shape
     key = (grid.device, grid.dtype, order, k, H, W, shards, tile_y)
     plan = _PLANS.get(key)
@@ -200,7 +202,7 @@ def launch_plan(grid: torch.Tensor, shards: int, k: int, order: int,
         ty = tile_y or pick_pipeline_tile(H, k, order, dtype_bytes=elem)
         need = smem_bytes(ty, k, order, elem)
         if need > SMEM_BUDGET_BYTES:
-            raise ValueError(
+            raise KernelError(
                 f"tile_y={ty} at k={k}, order {order} needs {need} B of "
                 f"shared memory; a block has {SMEM_BUDGET_BYTES}")
         per_sm, _, _ = _kernels.heat_ksteps_occupancy(grid.device, elem,
@@ -401,3 +403,288 @@ def stencil_local_multistep(p: torch.Tensor, gy0: int, gx0: int, ny: int,
     return stencil_local_multistep_shards([p], [(gy0, gx0)], ny, nx, order,
                                           xcfl, ycfl, bc, k=k,
                                           tile_y=tile_y)[0]
+
+
+# ------------------------------------------------------------- the ladder
+
+def staged_cost(H: int, W: int, k: int, order: int, tile_y: int,
+                dtype_bytes: int = 4, launches: int = 1):
+    """What ``launches`` launches of ``heat_ksteps`` over one (H, W) grid
+    at ``tile_y`` stage and compute, from the launch's decomposition
+    (``csrc/heat_stencil.cu``) rather than from the useful work
+    (``core/roofline.heat_cost``).
+
+    Bytes: every tile of every strip stages a window of the tile's rows
+    rounded up to whole micro-tiles plus K = k·border halo rows above and
+    below, by the strip plus ceil4(K) halo columns each side, reading the
+    part that lies in the grid (the halo re-reads included); every launch
+    writes the grid once.  Operations: the micro-tiles each sub-step
+    issues (sub-step s < k covers the cells within (k−s)·border of the
+    tile, sub-step k the tile's rounded rows), ``flops_per_point`` each
+    cell.  Returns a ``core.roofline.Cost``.
+    """
+    from ..core.roofline import Cost
+    from .stencil import flops_per_point
+
+    d = design(k, dtype_bytes)
+    b = BORDER_FOR_ORDER[order]
+    K = k * b
+    KA = -(-K // 4) * 4
+    TX, R = d.tile_x, d.rows
+    TYp = -(-tile_y // R) * R
+    WY = TYp + 2 * K
+    tiles = -(-H // tile_y)
+    strips = -(-W // TX)
+
+    def inside(lo, extent, size):
+        return max(0, min(size, lo + extent) - max(0, lo))
+
+    rows = sum(inside(t * tile_y - K, WY, H) for t in range(tiles))
+    cols = sum(inside(c * TX - KA, TX + 2 * KA, W) for c in range(strips))
+    cells = (TX // 4) * (TYp // R) * 4 * R
+    for s in range(1, k):
+        E = -(-((k - s) * b) // 4) * 4
+        cells += ((TX + 2 * E) // 4) * (-(-(TYp + 2 * (k - s) * b) // R)) \
+            * 4 * R
+    per_launch = Cost((rows * cols + H * W) * dtype_bytes,
+                      cells * tiles * strips * flops_per_point(order))
+    return Cost(per_launch.nbytes * launches, per_launch.flops * launches)
+
+
+def _heat_program(rung: str, u: torch.Tensor, iters: int, order: int, xcfl,
+                  ycfl, bc, k: int, tile_y: int | None, cost=None):
+    """The cached program (``core/programs.get``) of one heat rung for
+    grids shaped, typed and placed like ``u``: ``runner(v, n=iters)``
+    solves ``n`` steps of ``v``.
+
+    ``pipeline`` and ``pipeline2d`` are ``run_heat_pipeline`` and
+    ``run_heat_pipeline2d`` (at its default width); on a CUDA grid their build
+    loads ``heat_stencil``'s library and fixes the launch plan, and the
+    runner carries ``staged_cost`` for the attribution check.  ``xla`` is
+    the torch ``run_heat`` (no tile).  The warm-up is one k-step launch of
+    ``u`` behind a ``check_op`` barrier named for the rung.
+    """
+    from ..core import check_op, programs
+    from ..core.tune import dtype_name
+    from .stencil import run_heat
+
+    gy, gx = u.shape
+    if rung == "xla":
+        tile_y = None
+
+    def build():
+        if rung == "xla":
+            def runner(v, n=iters):
+                return run_heat(v, n, order, xcfl, ycfl)
+            return runner
+        if rung == "pipeline":
+            def entry(v, n, ty):
+                return run_heat_pipeline(v, n, order, xcfl, ycfl, bc, k=k,
+                                         tile_y=ty)
+        else:
+            def entry(v, n, ty):
+                return run_heat_pipeline2d(v, n, order, xcfl, ycfl, bc, k=k,
+                                           tile_y=ty)
+        ty = tile_y or pick_pipeline_tile(gy, k, order,
+                                          dtype_bytes=u.element_size())
+        if u.is_cuda:
+            _kernels.library("heat_stencil")
+            ty = launch_plan(u.contiguous(), 1, k, order, ty).tile_y
+
+        def runner(v, n=iters):
+            return entry(v, n, ty)
+        runner.staged_cost = lambda v: staged_cost(
+            gy, gx, k, order, ty, v.element_size(), launches=iters // k)
+        return runner
+
+    def warm(fn):
+        check_op(f"heat.{rung}", fn(u, k))
+
+    return programs.get(
+        "heat", rung, f"{gy}x{gx}/order{order}/k{k}", build,
+        dtype=dtype_name(u.dtype), device=u.device, warm=warm, cost=cost,
+        probe=lambda: (u,), iters=iters, xcfl=xcfl, ycfl=ycfl,
+        bc=tuple(bc), k=k, tile_y=tile_y)
+
+
+#: canonical conformance-probe state: distinct Dirichlet values on all
+#: four sides (the JAX package's probe)
+_PROBE_BC = (1.5, 0.5, 2.0, 0.25)
+
+
+def _conformance_probe_grid(order: int, dtype=torch.float32, device=None):
+    """(params, u0): the small canonical probe, 40×44 with a gradient
+    interior and distinct Dirichlet values on all four sides, on
+    ``device`` (default ``cuda``)."""
+    import numpy as np
+
+    from ..config import SimParams
+    from ..core.platform import resolve_device
+    from ..grid import make_initial_grid
+
+    p = SimParams(nx=44, ny=40, order=order, iters=1, bc_top=_PROBE_BC[0],
+                  bc_left=_PROBE_BC[1], bc_bottom=_PROBE_BC[2],
+                  bc_right=_PROBE_BC[3])
+    u0 = make_initial_grid(p, dtype=torch.float32, device="cpu")
+    b = BORDER_FOR_ORDER[order]
+    u0[b:-b, b:-b] += torch.from_numpy(np.linspace(
+        0, 1, p.ny * p.nx, dtype=np.float32).reshape(p.ny, p.nx))
+    return p, u0.to(device=resolve_device(device), dtype=dtype)
+
+
+def _heat_conformance_gate(order: int, k: int, dtype=torch.float32,
+                           device=None):
+    """``gate(rung) -> bool`` for the heat ladder: the first use of a
+    kernel rung (per process × order × k × dtype × device) runs the
+    canonical probe (``4k`` steps) through that rung and through the
+    ``xla`` rung, the torch ``run_heat``, and compares them bit for bit:
+    the kernel equals its plain version and ``run_heat`` at 0 ULP, so
+    anything else is a wrong answer.  Both probes run through the program
+    cache, so gating a rung also builds and warms its probe program."""
+    from ..core import conformance
+    from ..core.platform import build_identity, resolve_device
+    from ..core.tune import dtype_name
+
+    dev = resolve_device(device)
+
+    def gate(rung: str) -> bool:
+        if rung == "xla":
+            return True  # the reference rung needs no probe
+        probe = {}  # the probe grid, built only on a verdict miss
+
+        def run(r):
+            def thunk():
+                if not probe:
+                    probe["p"], probe["u0"] = _conformance_probe_grid(
+                        order, dtype, dev)
+                p, u0 = probe["p"], probe["u0"]
+                ty = pick_pipeline_tile(u0.shape[0], k, order, target=64,
+                                        dtype_bytes=u0.element_size())
+                return _heat_program(r, u0, 4 * k, order, p.xcfl, p.ycfl,
+                                     p.bc, k, ty)(u0)
+            return thunk
+
+        return conformance.check(
+            "heat", rung,
+            shape_class=(f"order{order}/k{k}/{dtype_name(dtype)}/"
+                         f"{build_identity(dev)}"),
+            candidate=run(rung), reference=run("xla")).ok
+
+    return gate
+
+
+def run_heat_resilient(u: torch.Tensor, iters: int, order: int, xcfl, ycfl,
+                       bc: tuple[float, float, float, float], k: int = 1,
+                       tile_y: int | None = None, timer=None,
+                       phase_label: str = "gpu computation shared",
+                       conformance: bool = True,
+                       plain_fallback: bool = False):
+    """The heat stencil behind the kernel fallback ladder: ``pipeline``
+    (``run_heat_pipeline``, B1) → ``pipeline2d`` (``run_heat_pipeline2d``,
+    B2) → ``xla`` (the torch ``run_heat``).
+
+    On a CUDA grid the ladder ends at its kernel rungs: ``xla`` is a rung
+    only on the CPU, where every rung is a plain version, or when the
+    caller asks for it with ``plain_fallback``.  A ladder whose rungs are
+    all refused raises (``FrameworkError``), so a CUDA grid is never served
+    by the plain version unasked.
+
+    With ``conformance`` (default), each kernel rung's first use per
+    process × (order, k, dtype, device and kernel build) runs a small probe
+    against ``run_heat`` bit for bit (``_heat_conformance_gate``) and a
+    diverging rung is demoted with ``WRONG_ANSWER`` before it serves.
+    Injected faults demote too (``fail:heat.pipeline``, ``stage:``,
+    ``wrong:heat``), as does an open breaker.  A rung whose kernel cannot
+    build or launch raises (``KernelError``, a tile whose windows do not
+    fit shared memory included).
+
+    A ``tile_y`` the caller leaves open resolves through
+    ``core/tune.resolve`` (keyed by ``"{gy}x{gx}/order{order}/k{k}"``);
+    with no cached winner or ``CME213_TUNE=0`` it is
+    ``pick_pipeline_tile``'s.  Both kernel rungs run the k class's one
+    design (``design``), so the width is no knob.  A kernel rung that dies
+    RESOURCE halves its ``tile_y``, down to the design's micro-tile rows,
+    before it demotes, each halving a ``chunk-shrunk`` event; the
+    allocator's out-of-memory is not halved, since the grid's buffers are
+    the same at every tile.  Before any of it, the solve's buffers (the
+    grid and two ping-pong grids) are held to ``core/admission.
+    memory_budget`` and a grid over it raises ``AdmissionError``.
+
+    ``pipeline2d`` is in the ladder when its smallest tile fits a block's
+    shared memory (``smem_bytes`` at one micro-tile of rows against
+    ``SMEM_BUDGET_BYTES``), the port's own limit; the JAX package's
+    ``k·border ≤ 128`` is a Pallas layout limit that does not apply here.
+
+    Every attempt fetches its program through ``core/programs.get`` (a
+    miss builds it and makes one warm-up launch; a hit does neither) and
+    runs under a ``heat.run`` span carrying ``heat_cost``, timed as
+    ``phase_label`` on ``timer``.  Returns a ``FallbackResult``: ``.value``
+    the grid (``u`` is not modified), ``.rung`` the rung that served.
+    """
+    from ..core import PhaseTimer, admission, metrics, span, with_fallback
+    from ..core.faults import maybe_oom
+    from ..core.resilience import (FailureKind, allows_plain_rungs,
+                                   classify_failure)
+    from ..core.roofline import heat_cost
+    from ..core.trace import record_event
+
+    _check_grid(u)
+    if iters % k != 0:
+        raise ValueError(f"iters={iters} must divide by k={k}")
+    gy, gx = u.shape
+    elem = u.element_size()
+    admission.admit("heat", 3 * u.numel() * elem, u.device)
+    shape_class = f"{gy}x{gx}/order{order}/k{k}"
+    if tile_y is None:
+        from ..core import tune
+
+        tile_y = tune.resolve("heat", shape_class, tune.dtype_name(u.dtype),
+                              device=u.device, tile_y=None)["tile_y"]
+    quantum = design(k, elem).rows
+    ty = tile_y or pick_pipeline_tile(gy, k, order, dtype_bytes=elem)
+    timer = timer or PhaseTimer()
+    cost = heat_cost(gy, gx, order=order, iters=iters, dtype=u.dtype)
+
+    def timed(rung, shrinkable=True):
+        def attempt(ty_cur):
+            maybe_oom(f"heat.{rung}")
+            runner = _heat_program(rung, u, iters, order, xcfl, ycfl, bc, k,
+                                   ty_cur, cost)
+            with span("heat.run", kernel=rung, size=gy, iters=iters,
+                      shape_class=shape_class) as sp:
+                sp.roofline(cost.nbytes, cost.flops)
+                with timer.phase(phase_label) as ph:
+                    out = runner(u)
+                    ph.block(out)
+            return out
+
+        def thunk():
+            ty_cur = ty
+            while True:
+                try:
+                    return attempt(ty_cur)
+                except Exception as e:  # noqa: BLE001 — classified below
+                    if (not shrinkable or ty_cur <= quantum
+                            or isinstance(e, torch.cuda.OutOfMemoryError)
+                            or classify_failure(e)
+                            is not FailureKind.RESOURCE):
+                        raise
+                    ty_new = max(quantum, -(-(ty_cur // 2) // quantum)
+                                 * quantum)
+                    if ty_new >= ty_cur:
+                        raise
+                    metrics.counter("admission.chunk_shrunk").inc()
+                    record_event("chunk-shrunk", op=f"heat.{rung}",
+                                 from_size=ty_cur, to_size=ty_new,
+                                 reason=type(e).__name__)
+                    ty_cur = ty_new
+        return thunk
+
+    ladder = [("pipeline", timed("pipeline"))]
+    if smem_bytes(quantum, k, order, elem) <= SMEM_BUDGET_BYTES:
+        ladder.append(("pipeline2d", timed("pipeline2d")))
+    if allows_plain_rungs(u.device, plain_fallback):
+        ladder.append(("xla", timed("xla", shrinkable=False)))
+    gate = (_heat_conformance_gate(order, k, u.dtype, u.device)
+            if conformance else None)
+    return with_fallback("heat", ladder, gate=gate)

@@ -18,8 +18,8 @@ import torch
 from cme213_tpu_torch.apps import heat2d
 from cme213_tpu_torch.apps import spmv_scan as spmv
 from cme213_tpu_torch.config import SimParams
-from cme213_tpu_torch.core import (FrameworkError, ulp_distance,
-                                   virtual_devices)
+from cme213_tpu_torch.core import (FrameworkError, KernelError,
+                                   ulp_distance, virtual_devices)
 from cme213_tpu_torch.dist import (make_mesh_1d, make_mesh_2d,
                                    run_distributed_heat)
 from cme213_tpu_torch.grid import make_initial_grid
@@ -97,10 +97,11 @@ def test_kernel_matches_run_heat(cuda):
 def test_over_budget_tile_raises(cuda):
     p = SimParams(nx=300, ny=200, order=8)
     u = make_initial_grid(p, device=cuda)
-    # k = 16 at order 8: no tile's windows fit in a block
-    with pytest.raises(ValueError, match="shared memory"):
+    # k = 16 at order 8: no tile's windows fit in a block; the kernel
+    # cannot launch, a KernelError that no ladder demotes
+    with pytest.raises(KernelError, match="shared memory"):
         run_heat_pipeline2d(u, 16, 8, p.xcfl, p.ycfl, p.bc, k=16)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(KernelError, match="shared memory"):
         run_heat_pipeline(u, 8, 8, p.xcfl, p.ycfl, p.bc, k=8, tile_y=512)
     with pytest.raises(ValueError, match="tile_x=1024"):
         run_heat_pipeline2d(u, 8, 8, p.xcfl, p.ycfl, p.bc, k=8, tile_y=64,
@@ -151,12 +152,24 @@ def test_heat_occupancy_and_no_spills(cuda, order, k, elem):
         assert blocks >= {1: 2, 2: 3, 3: 2, 4: 2}.get(k, 1)
 
 
+def _cold():
+    """No conformance verdict and no program cached: the next gated call
+    probes and builds."""
+    from cme213_tpu_torch.core import conformance, trace
+
+    conformance.reset()
+    trace.clear_events()
+
+
 def test_run_single_on_card(cuda, tmp_path):
     p = SimParams(nx=100, ny=90, order=4, iters=20)
+    _cold()
     before = LAUNCHES["pipeline"]
     res = heat2d.run_single(p, save_files=True, out_dir=str(tmp_path))
     assert res.ok
-    assert LAUNCHES["pipeline"] - before == p.iters + 1  # + the warm-up
+    # the gate's probe (a warm-up launch and four steps), the program's
+    # warm-up launch, the solve
+    assert LAUNCHES["pipeline"] - before == 5 + 1 + p.iters
     assert (tmp_path / "grid_final_gpu_shared.txt").exists()
 
 
@@ -358,9 +371,12 @@ def test_segscan_in_place_bitwise_vs_plain(cuda, fused):
 def test_run_spmv_scan_on_card(cuda, kernel):
     prob = spmv.generate_problem(50_000, 700, 500, iters=6, seed=3)
     name = "segscan" if kernel == "pallas" else "spmv_fused"
+    _cold()
     before = dict(segp.LAUNCHES)
     out = spmv.run_spmv_scan(prob, kernel=kernel)
-    assert segp.LAUNCHES[name] - before[name] == prob.iters + 1
+    # the gate's probe (a warm-up iteration and three), the program's
+    # warm-up iteration, the solve
+    assert segp.LAUNCHES[name] - before[name] == 4 + 1 + prob.iters
     other = "spmv_fused" if kernel == "pallas" else "segscan"
     assert segp.LAUNCHES[other] == before[other]
     errs = spmv.external_check(prob, out)
@@ -463,12 +479,14 @@ def test_distributed_2x2_virtual_mesh_equals_run_heat(cuda, kernel, k,
     p = SimParams(nx=300, ny=200, order=8, iters=24, bc_top=1.5,
                   bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
     mesh = make_mesh_2d(2, 2, devices=virtual_devices(4))
+    _cold()
     before = LAUNCHES["local"]
     out = run_distributed_heat(p, mesh, overlap=overlap,
                                steps_per_exchange=k, local_kernel=kernel)
     launched = LAUNCHES["local"] - before
-    # one launch a device (the four shards share one) a halo exchange
-    assert launched == (p.iters // k if kernel == "pallas" else 0)
+    # one launch a device (the four shards share one) a halo exchange,
+    # after the gate's probe solve (4k steps, k a launch)
+    assert launched == (4 + p.iters // k if kernel == "pallas" else 0)
     ref = run_heat(make_initial_grid(p, device=cuda), p.iters, p.order,
                    p.xcfl, p.ycfl).cpu().numpy()
     np.testing.assert_array_equal(out, ref)
@@ -744,3 +762,120 @@ def test_headline_child_runs_the_kernel(cuda, monkeypatch, name):
             + row["final_runs"] * row["iters"]) // k
     assert sp.LAUNCHES[entry] - before == want
     assert row["launches"] == {entry: want}
+
+
+# ------------------------------------------------ the guarded main path
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_gate_admits_both_kernel_rungs_bitwise(cuda, order, k):
+    """The heat gate's probe through the kernel on the card equals
+    ``run_heat`` bit for bit, so both kernel rungs are admitted at every
+    order and k; the probes launch the kernel."""
+    from cme213_tpu_torch.core import conformance, trace
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    conformance.reset()
+    trace.clear_events()
+    before = dict(LAUNCHES)
+    gate = sp._heat_conformance_gate(order, k, device=cuda)
+    assert gate("pipeline") and gate("pipeline2d")
+    probes = trace.events("conformance-probe")
+    assert [(e["rung"], e["ok"]) for e in probes] == [("pipeline", True),
+                                                     ("pipeline2d", True)]
+    # a probe: one warm-up launch, then 4k steps in k-step launches
+    assert LAUNCHES["pipeline"] - before["pipeline"] == 5
+    assert LAUNCHES["pipeline2d"] - before["pipeline2d"] == 5
+
+
+def test_repeated_resilient_solve_builds_and_probes_nothing(cuda):
+    from cme213_tpu_torch.core import conformance, trace
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    conformance.reset()
+    trace.clear_events()
+    p = SimParams(nx=300, ny=260, order=8, iters=20)
+    u = _grid(p, torch.float32, cuda, seed=3)
+    first = sp.run_heat_resilient(u, 20, 8, p.xcfl, p.ycfl, p.bc)
+    assert first.rung == "pipeline" and not first.demoted
+    misses = len(trace.events("program-cache-miss"))
+    probes = len(trace.events("conformance-probe"))
+    before = LAUNCHES["pipeline"]
+    second = sp.run_heat_resilient(u, 20, 8, p.xcfl, p.ycfl, p.bc)
+    assert len(trace.events("program-cache-miss")) == misses
+    assert len(trace.events("conformance-probe")) == probes
+    assert LAUNCHES["pipeline"] - before == 20  # the solve alone
+    torch.testing.assert_close(second.value, first.value, rtol=0, atol=0)
+    torch.testing.assert_close(first.value,
+                               run_heat(u, 20, 8, p.xcfl, p.ycfl),
+                               rtol=0, atol=0)
+
+
+def test_refused_kernel_rungs_raise_on_the_card(cuda):
+    """On the card the heat ladder ends at its kernel rungs: with both
+    probes perturbed it raises, and serves ``xla`` only when asked."""
+    from cme213_tpu_torch.core import conformance, faults, trace
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    conformance.reset()
+    trace.clear_events()
+    p = SimParams(nx=64, ny=64, order=4, iters=4)
+    u = _grid(p, torch.float32, cuda, seed=5)
+    with faults.injected("wrong:heat,wrong:heat"):
+        with pytest.raises(FrameworkError, match="all 2 rungs of heat"):
+            sp.run_heat_resilient(u, 4, 4, p.xcfl, p.ycfl, p.bc)
+    conformance.reset()
+    with faults.injected("wrong:heat,wrong:heat"):
+        res = sp.run_heat_resilient(u, 4, 4, p.xcfl, p.ycfl, p.bc,
+                                    plain_fallback=True)
+    assert res.rung == "xla"
+    torch.testing.assert_close(res.value, run_heat(u, 4, 4, p.xcfl,
+                                                   p.ycfl), rtol=0, atol=0)
+
+
+def test_program_key_separates_the_card_from_the_cpu(cuda):
+    from cme213_tpu_torch.core import programs, trace
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    trace.clear_events()
+    p = SimParams(nx=64, ny=64, order=4, iters=4)
+    u_card = _grid(p, torch.float32, cuda)
+    u_cpu = u_card.cpu()
+    run_card = sp._heat_program("pipeline", u_card, 4, 4, p.xcfl, p.ycfl,
+                                p.bc, 1, 32)
+    run_cpu = sp._heat_program("pipeline", u_cpu, 4, 4, p.xcfl, p.ycfl,
+                               p.bc, 1, 32)
+    assert run_card is not run_cpu
+    devices = {k[4] for k in programs.keys()}
+    assert devices == {"cpu", f"cuda:{torch.cuda.current_device()}"}
+    torch.testing.assert_close(run_card(u_card).cpu(), run_cpu(u_cpu),
+                               rtol=0, atol=0)
+
+
+def test_tune_trial_synchronises_before_reading_the_clock(cuda):
+    """Every clock read of a trial finds the device idle: the trial waited
+    for the kernel, rather than timing its enqueue."""
+    from cme213_tpu_torch.core import tune
+
+    idle_at_read = []
+
+    class Clock:
+        def now(self):
+            idle_at_read.append(torch.cuda.current_stream().query())
+            return 0.0
+
+        def sleep(self, seconds):
+            pass
+
+    x = torch.randn(4096, 4096, device=cuda)
+
+    def runner():
+        for _ in range(20):
+            y = x @ x  # long enough to be in flight at an early read
+        return y
+
+    space = tune.TuneSpace("toy", "sc", "float32",
+                           (tune.Candidate("mm", {}, lambda: runner),),
+                           device=str(cuda))
+    tune.run_space(space, clock=Clock(), runs=3, persist=False)
+    assert idle_at_read == [True] * 6

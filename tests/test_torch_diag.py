@@ -15,6 +15,7 @@ import sys
 import threading
 
 import pytest
+import torch
 
 from cme213_tpu.core import diag as jdiag
 from cme213_tpu.core import faults as jfaults
@@ -261,9 +262,13 @@ def test_doctor_injected_unreachable_exits_1(capsys):
     assert not rep["healthy"] and "unreachable" in live["detail"]
 
 
-def test_doctor_calibrate_is_not_ported(capsys):
-    assert doctor_cli.main(["calibrate"]) == 2
-    assert "not ported" in capsys.readouterr().err
+def test_doctor_calibrate_is_not_ported(capsys, monkeypatch):
+    """``doctor calibrate`` runs since the program cache came: like every
+    entry point it needs a card or ``--device=cpu``; with neither it exits
+    1 and says so (the cost table itself: tests/test_torch_guarded.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert doctor_cli.main(["calibrate"]) == 1
+    assert "device='cpu'" in capsys.readouterr().err
 
 
 def test_doctor_cli_without_a_card_exits_1():

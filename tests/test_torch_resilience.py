@@ -25,6 +25,7 @@ from cme213_tpu_torch.core import metrics as tmetrics
 from cme213_tpu_torch.core import resilience as tres
 from cme213_tpu_torch.core import trace as ttrace
 from cme213_tpu_torch.core.errors import FrameworkError as TFrameworkError
+from cme213_tpu_torch.core.errors import KernelError
 from cme213_tpu_torch.ops import _kernels
 
 SIDES = ((jres, jfaults, jtrace, jmetrics, JFrameworkError),
@@ -329,17 +330,20 @@ def test_breaker_matches_reference():
 
 
 def test_a_failed_build_is_a_recorded_rung_failure(tmp_path, monkeypatch):
-    """A rung whose kernel cannot be built fails like any rung: COMPILE,
-    stage ``compile``, and the ladder serves the next rung only because
-    the caller listed one."""
+    """A rung whose kernel cannot be built is recorded as a
+    ``kernel-failure`` (COMPILE, stage ``compile``) and raises out of the
+    ladder: a kernel that cannot build is an error, not a demotion, even
+    where the caller listed another rung."""
     def build():
         _kernels.build("transpose")
 
     _nvcc_failure(tmp_path, monkeypatch)  # arms the failing nvcc
-    r = tres.with_fallback("heat", [("pipeline", build),
+    with pytest.raises(KernelError) as info:
+        tres.with_fallback("heat", [("pipeline", build),
                                     ("xla", lambda: "plain")])
-    assert r.rung == "xla" and r.failures[0].kind == tres.FailureKind.COMPILE
+    assert tres.classify_failure(info.value) == tres.FailureKind.COMPILE
     kf = ttrace.events("kernel-failure")
     assert kf[0]["stage"] == "compile" and kf[0]["kernel"] == "pipeline"
+    assert not ttrace.events("served")
     with pytest.raises(TFrameworkError):
         tres.with_fallback("heat", [("pipeline", build)])
