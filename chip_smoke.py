@@ -211,6 +211,55 @@ the run (non-zero exit) when it fails:
 22. ``python -m cme213_tpu_torch doctor calibrate --json`` exits 0 with
    its four rows (the roofline models of spmv_scan and heat against a
    torch rung's FlopCounterMode count and a kernel rung's launch plan).
+23. The checkpointed heat solve at the headline grid (4000² order 8 f32,
+   1000 steps, a checkpoint every 250, in a temporary directory):
+   ``apps.heat2d.run_heat_checkpointed`` equals the uninterrupted
+   ``ops.run_heat`` bit for bit with one ``solver-progress`` event a
+   chunk; a run to 500 steps and a second call to 1000 from the same path,
+   ``nan:heat2d:2`` (a rollback) and ``oom:heat_chunk:1`` (250 → 125) each
+   equal it bit for bit.  Prints ms a chunk (the ``checkpoint.chunk``
+   spans, the guard's wait for the device included) and ms a save (the
+   ``checkpoint.save`` spans: copy to the host, CRC, ``np.savez``,
+   rename), the saves' share of the solve's host-clock time and the
+   share checkpointing adds over the uninterrupted solve.  The
+   preflight's byte count (``ops.stencil.run_heat_bytes``) must lie within
+   [1×, 2×] of one chunk's measured peak (the rise of
+   ``max_memory_allocated()`` over ``memory_allocated()`` before it), and a
+   ``CME213_MEMORY_BUDGET`` one byte below the count refuses the solve
+   (``AdmissionError``) with no chunk run.
+24. The checkpointed SpMV-scan at pwtk (25 iterations, a checkpoint every
+   5) with ``auto``, ``flat`` and ``blocked``: each equals
+   ``apps.spmv_scan._iterate`` on the card bit for bit, within
+   ``PWTK_TOL`` of phase 8's f64 plain solve, one ``solver-progress``
+   event a chunk; resume, ``nan:spmv_scan:2`` and
+   ``oom:spmv_scan_chunk:1`` as in phase 23, and the preflight's count
+   (``apps.spmv_scan.spmv_chunk_bytes``, the scan's workspace from
+   ``ops.segmented.scan_peak_bytes``) within [1×, 2×] of one chunk's
+   measured peak, as in phase 23.
+25. The batched heat solve, B = 8 lanes with per-lane CFL factors (alpha
+   drawn from the seed): the serving traffic's class (24², order 2, 4
+   steps; ``cme213_tpu/serve/loadgen.py``) and ``examples/params.in``
+   (512², order 8, 400 steps).  Every lane equals its serial
+   ``ops.run_heat`` bit for bit; ms a batch (warm, results on the host)
+   beside 8 serial solves that also end on the host, host clock between
+   device synchronisations; and the solves alone, stacked and serial, on
+   tensors already on the card (CUDA events).
+26. The batched SpMV-scan: B = 8 at n = 512 and 1024, 6 iterations, with
+   ``flat`` and ``blocked`` (the load generator's classes), and B = 4 at
+   pwtk with ``blocked``.  Every lane equals its serial ``_iterate`` bit
+   for bit; ms a batch beside the serial solves, each of which also
+   uploads its problem (``problem_tensors``) and copies its result back;
+   and the solves alone, as in phase 25.
+27. The flight recorder on the card: a child process with
+   ``CME213_FLIGHT_DIR`` set and ``CME213_FAULTS=nan:heat2d:1,
+   nan:heat2d:2`` runs a checkpointed 4000² heat solve with
+   ``max_retries=1`` and dies of the unhandled ``NonFiniteError``.  It
+   finds CUDA uninitialised at its start and after a first dump (which
+   names no card); the abort's dump, taken inside the open
+   ``checkpoint.chunk`` span, and the excepthook's both name the card.
+   The seconds of phases 23-27 are printed, and their numbers on a
+   ``{"runners": ...}`` line.  These runners launch no hand-written
+   kernel: their paths are counted and must launch none.
 
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16 and 17-20
 drive through the entry points a user calls: ``run_single`` at 512² and at
@@ -309,9 +358,11 @@ BAND_TILE, SIDE, SIDE_TILE = 200, 4096, 256
 #: minus the cumsum before the segment's head; that cancellation costs
 #: ~1e-5 over pwtk's 25 iterations in the reference too (JAX's blocked scan
 #: on the CPU at a tenth of pwtk: 1.8e-5), so it is held to the engine's own
-#: pass bound (``apps/spmv_scan.py`` ``cpu_check``).
+#: pass bound (``apps/spmv_scan.py`` ``cpu_check``); ``blocked`` by name
+#: (phase 24) is the same scan.
 PWTK_TOL = {"pallas-fused": (1e-5, 1e-3), "pallas": (1e-5, 1e-3),
-            "flat": (1e-5, 1e-3), "auto": (1e-4, 1e-3)}
+            "flat": (1e-5, 1e-3), "auto": (1e-4, 1e-3),
+            "blocked": (1e-4, 1e-3)}
 
 
 def fail(msg: str) -> None:
@@ -585,6 +636,434 @@ def old_new_turns(parent, torch, np, config, core, grid, ops, dist, dheat,
         lambda: [segp.segmented_scan_pallas(w, one) for _ in range(n_it)],
         n_it)
     return out
+
+
+#: phase 23: the checkpointed solve at the headline grid, its chunk
+RUNNER_EVERY = 250
+#: phase 25: the batched heat cases, (label, params.in or None, B)
+HEAT_BATCH = 8
+#: phase 26: the load generator's SpMV classes (serve/loadgen.py), B = 8
+SPMV_BATCH_N, SPMV_BATCH, PWTK_BATCH = (512, 1024), 8, 4
+
+
+def _events_since(core, mark, event=None, op=None):
+    return [e for e in core.trace.events()[mark:]
+            if (event is None or e["event"] == event)
+            and (op is None or e.get("op") == op)]
+
+
+def _span_ms(core, mark, name):
+    return [e["ms"] for e in _events_since(core, mark, "span-end")
+            if e["span"] == name]
+
+
+def runner_phases(counted, only, pwtk, pwtk_ref64):
+    """Phases 23-27: the checkpointed and batched runners and the flight
+    recorder on the card (see the module's docstring).  ``counted`` and
+    ``only`` are ``main``'s launch-count helpers; ``pwtk`` is phase 8's
+    problem and ``pwtk_ref64`` its f64 plain solve.  Returns the numbers
+    for the ``runners`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import config, core, grid, ops
+    from cme213_tpu_torch.apps import heat2d
+    from cme213_tpu_torch.apps import spmv_scan as spmv
+    from cme213_tpu_torch.verify.checkers import (relative_l2_error,
+                                                  relative_linf_error)
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    none = only(None, 0)  # the runners launch no hand-written kernel
+    t_phases = time.perf_counter()
+    rows = {}
+
+    def bitwise(label, out, ref):
+        out, ref = np.asarray(out), np.asarray(ref)
+        if not (np.isfinite(out).all() and out.shape == ref.shape
+                and np.array_equal(out.view(np.uint32),
+                                   ref.view(np.uint32))):
+            fail(f"{label}: not bit for bit the uninterrupted solve")
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def device_ms(fn, anchor):
+        """CUDA events around ``fn()`` (best of 2 after a warm-up); the
+        inputs are already on the card and the outputs stay there."""
+        return core.time_fn(lambda _: fn(), anchor, warmup=1, iters=2)
+
+    # ------------------------------------------- 23. checkpointed heat
+    full = config.SimParams(nx=FULL_N, ny=FULL_N, order=FULL_ORDER,
+                            iters=FULL_ITERS)
+    fargs = (full.order, full.xcfl, full.ycfl)
+    u0 = grid.make_initial_grid(full, device=dev)
+    ops.run_heat(u0, 1, *fargs)  # the device's lazy set-up
+    ref_t, plain_ms = host_ms(lambda: ops.run_heat(u0, full.iters, *fargs))
+    ref = ref_t.cpu().numpy()
+    del ref_t
+    n_chunks = full.iters // RUNNER_EVERY
+    with tempfile.TemporaryDirectory() as ck_dir:
+        ck = os.path.join(ck_dir, "heat.npz")
+        mark = len(core.trace.events())
+        t0 = time.perf_counter()
+        out = counted(f"run_heat_checkpointed {FULL_N}x{FULL_N}", none,
+                      lambda: heat2d.run_heat_checkpointed(
+                          full, ck, every=RUNNER_EVERY, device="cuda"))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        bitwise("checkpointed heat", out, ref)
+        progress = _events_since(core, mark, "solver-progress", "heat2d")
+        if [e["step"] for e in progress] != [
+                RUNNER_EVERY * (i + 1) for i in range(n_chunks)]:
+            fail(f"checkpointed heat: solver-progress {progress}")
+        chunk_ms = _span_ms(core, mark, "checkpoint.chunk")
+        save_ms = _span_ms(core, mark, "checkpoint.save")
+        if len(chunk_ms) != n_chunks or len(save_ms) != n_chunks:
+            fail(f"checkpointed heat: chunk spans {chunk_ms}, saves "
+                 f"{save_ms}")
+        heat_row = {
+            "wall_ms": wall_ms, "run_heat_ms": plain_ms,
+            "chunk_ms": chunk_ms, "save_ms": save_ms,
+            "save_share": sum(save_ms) / wall_ms,
+            "overhead_share": 1 - plain_ms / wall_ms,
+            "solver_progress": len(progress)}
+        print(f"checkpointed heat {FULL_N}x{FULL_N} order {FULL_ORDER} "
+              f"{full.iters} iters every {RUNNER_EVERY}: {wall_ms:.1f} ms "
+              f"(uninterrupted run_heat {plain_ms:.1f} ms), bit for bit; "
+              f"{len(progress)} solver-progress events; ms a chunk "
+              f"{[round(m, 3) for m in chunk_ms]}, ms a save (host copy, "
+              f"CRC, np.savez, rename) {[round(m, 3) for m in save_ms]}; "
+              f"saves {heat_row['save_share']:.2%} of the solve, "
+              f"checkpointing {heat_row['overhead_share']:.2%}")
+
+        # resume: to half the iterations, then to all from the same path
+        ck2 = os.path.join(ck_dir, "resume.npz")
+        half = dataclasses.replace(full, iters=full.iters // 2)
+        heat2d.run_heat_checkpointed(half, ck2, every=RUNNER_EVERY,
+                                     device="cuda")
+        mark = len(core.trace.events())
+        out = heat2d.run_heat_checkpointed(full, ck2, every=RUNNER_EVERY,
+                                           device="cuda")
+        bitwise("checkpointed heat resumed", out, ref)
+        steps = [e["step"] for e in _events_since(core, mark,
+                                                  "solver-progress")]
+        print(f"  resumed at {half.iters}: bit for bit, progress at "
+              f"{steps}")
+        if steps != list(range(half.iters + RUNNER_EVERY, full.iters + 1,
+                               RUNNER_EVERY)):
+            fail(f"checkpointed heat resume: progress at {steps}")
+
+        # injected faults: a rollback and a halving, both bit for bit
+        for spec, event, want in (
+                ("nan:heat2d:2", "checkpoint-rollback",
+                 [{"resumed_step": RUNNER_EVERY}]),
+                ("oom:heat_chunk:1", "chunk-shrunk",
+                 [{"from_size": RUNNER_EVERY,
+                   "to_size": RUNNER_EVERY // 2}])):
+            mark = len(core.trace.events())
+            with core.faults.injected(spec):
+                out = heat2d.run_heat_checkpointed(
+                    full, os.path.join(ck_dir, f"{spec[:3]}.npz"),
+                    every=RUNNER_EVERY, device="cuda")
+            bitwise(f"checkpointed heat under {spec}", out, ref)
+            seen = [{k: e[k] for k in want[0]}
+                    for e in _events_since(core, mark, event)]
+            print(f"  CME213_FAULTS={spec}: {event} {seen}, bit for bit")
+            if seen != want:
+                fail(f"checkpointed heat under {spec}: {event} {seen}")
+
+        # memory: the preflight's count beside one chunk's measured peak
+        count = ops.stencil.run_heat_bytes(full.gy, full.gx, full.order,
+                                           u0.element_size())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        chunk = ops.run_heat(u0, RUNNER_EVERY, *fargs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del chunk
+        heat_row.update(preflight_bytes=count, chunk_peak_bytes=peak)
+        print(f"  preflight count {count} bytes, one chunk's measured peak "
+              f"{peak} bytes (count/peak {count / peak:.4f})")
+        if not peak <= count <= 2 * peak:
+            fail(f"preflight count {count} outside [1, 2] x the measured "
+                 f"peak {peak}")
+
+        # a budget below the count refuses before any chunk runs
+        ck3 = os.path.join(ck_dir, "refused.npz")
+        os.environ[core.admission.BUDGET_ENV] = str(count - 1)
+        mark = len(core.trace.events())
+        try:
+            heat2d.run_heat_checkpointed(full, ck3, every=RUNNER_EVERY,
+                                         device="cuda")
+            fail("a budget below the count did not refuse the solve")
+        except core.admission.AdmissionError as e:
+            print(f"  {core.admission.BUDGET_ENV}={count - 1}: refused "
+                  f"({e})")
+        finally:
+            del os.environ[core.admission.BUDGET_ENV]
+        if os.path.exists(ck3) or _span_ms(core, mark, "checkpoint.chunk"):
+            fail("the refused solve ran a chunk")
+    del u0
+    rows["heat_checkpointed"] = heat_row
+
+    # ------------------------------------------- 24. checkpointed pwtk
+    a, xx, flags, _ = spmv.problem_tensors(pwtk, device=dev)
+    every, n_it = 5, pwtk.iters
+    spmv_rows = {}
+    with tempfile.TemporaryDirectory() as ck_dir:
+        for kernel in ("auto", "flat", "blocked"):
+            ref_k, plain_ms = host_ms(
+                lambda k=kernel: spmv._iterate(a, xx, flags, n_it, scan=k))
+            ref_k = ref_k.cpu().numpy()
+            mark = len(core.trace.events())
+            t0 = time.perf_counter()
+            out = counted(
+                f"run_spmv_scan_checkpointed {SUITE} {kernel}", none,
+                lambda k=kernel: spmv.run_spmv_scan_checkpointed(
+                    pwtk, os.path.join(ck_dir, f"{k}.npz"), every=every,
+                    kernel=k, device="cuda"))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            bitwise(f"checkpointed {SUITE} {kernel}", out, ref_k)
+            rel_l2 = relative_l2_error(pwtk_ref64, out)
+            rel_linf = relative_linf_error(pwtk_ref64, out)
+            tol_l2, tol_linf = PWTK_TOL[kernel]
+            if not (rel_l2 <= tol_l2 and rel_linf <= tol_linf):
+                fail(f"checkpointed {SUITE} {kernel}: rel L2 {rel_l2:.3e}, "
+                     f"rel Linf {rel_linf:.3e} (limits {tol_l2}, "
+                     f"{tol_linf})")
+            progress = _events_since(core, mark, "solver-progress",
+                                     "spmv_scan")
+            if len(progress) != n_it // every:
+                fail(f"checkpointed {SUITE} {kernel}: {len(progress)} "
+                     f"solver-progress events")
+            row = {"wall_ms": wall_ms, "iterate_ms": plain_ms,
+                   "chunk_ms": _span_ms(core, mark, "checkpoint.chunk"),
+                   "save_ms": _span_ms(core, mark, "checkpoint.save"),
+                   "rel_l2_vs_f64": rel_l2, "rel_linf_vs_f64": rel_linf,
+                   "solver_progress": len(progress)}
+            row["save_share"] = sum(row["save_ms"]) / wall_ms
+            # memory: the preflight's count beside one chunk's measured
+            # peak, as for heat
+            count = spmv.spmv_chunk_bytes(pwtk.n, pwtk.p, a.element_size(),
+                                          kernel)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            chunk = spmv._iterate(a, xx, flags, every, scan=kernel)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del chunk
+            row.update(preflight_bytes=count, chunk_peak_bytes=peak)
+            print(f"  {kernel}: preflight count {count} bytes, one chunk's "
+                  f"measured peak {peak} bytes (count/peak "
+                  f"{count / peak:.4f})")
+            if not peak <= count <= 2 * peak:
+                fail(f"checkpointed {SUITE} {kernel}: preflight count "
+                     f"{count} outside [1, 2] x the measured peak {peak}")
+            # resume from the middle, then a rollback and a halving
+            ck = os.path.join(ck_dir, f"{kernel}-resume.npz")
+            spmv.run_spmv_scan_checkpointed(
+                spmv.Problem(pwtk.a, pwtk.s, pwtk.k, pwtk.x, 2 * every), ck,
+                every=every, kernel=kernel, device="cuda")
+            bitwise(f"checkpointed {SUITE} {kernel} resumed",
+                    spmv.run_spmv_scan_checkpointed(
+                        pwtk, ck, every=every, kernel=kernel, device="cuda"),
+                    ref_k)
+            for spec, event, want in (
+                    ("nan:spmv_scan:2", "checkpoint-rollback",
+                     [{"resumed_step": every}]),
+                    ("oom:spmv_scan_chunk:1", "chunk-shrunk",
+                     [{"from_size": every, "to_size": every // 2}])):
+                mark = len(core.trace.events())
+                with core.faults.injected(spec):
+                    out = spmv.run_spmv_scan_checkpointed(
+                        pwtk, os.path.join(ck_dir, f"{kernel}-{spec[:3]}"
+                                                   ".npz"),
+                        every=every, kernel=kernel, device="cuda")
+                bitwise(f"checkpointed {SUITE} {kernel} under {spec}", out,
+                        ref_k)
+                seen = [{k: e[k] for k in want[0]}
+                        for e in _events_since(core, mark, event)]
+                if seen != want:
+                    fail(f"checkpointed {SUITE} {kernel} under {spec}: "
+                         f"{event} {seen}")
+            spmv_rows[kernel] = row
+            print(f"checkpointed {SUITE} {kernel} {n_it} iters every "
+                  f"{every}: {wall_ms:.1f} ms (_iterate {plain_ms:.1f} ms), "
+                  f"bit for bit, rel L2 {rel_l2:.3e} from f64; ms a chunk "
+                  f"{[round(m, 3) for m in row['chunk_ms']]}, ms a save "
+                  f"{[round(m, 3) for m in row['save_ms']]} (saves "
+                  f"{row['save_share']:.2%}); resume, nan:spmv_scan:2 "
+                  f"(rollback) and oom:spmv_scan_chunk:1 ({every} -> "
+                  f"{every // 2}) bit for bit")
+    del a, xx, flags
+    rows["spmv_checkpointed"] = spmv_rows
+
+    # ------------------------------------------- 25. batched heat
+    rng = np.random.default_rng(25)
+    example = config.SimParams.from_file(
+        os.path.join(HERE, "examples", "params.in"))
+    heat_batches = {}
+    for label, base in (("serving 24x24 order 2", config.SimParams(
+            nx=24, ny=24, order=2, iters=4)), ("params.in", example)):
+        lanes = [dataclasses.replace(base, alpha=float(a))
+                 for a in rng.uniform(0.5, 2.0, HEAT_BATCH) * base.alpha]
+        grids = []
+        for lane in lanes:
+            g = grid.make_initial_grid(lane, device=dev)
+            b = lane.border_size
+            g[b:-b, b:-b] += torch.from_numpy(rng.uniform(
+                0, 1, (lane.ny, lane.nx)).astype(np.float32)).to(dev)
+            grids.append(g)
+        xs, ys = [p.xcfl for p in lanes], [p.ycfl for p in lanes]
+        run = lambda: heat2d.run_heat_batched(  # noqa: E731
+            grids, base.iters, base.order, xs, ys, device="cuda")
+        outs = counted(f"run_heat_batched {label} b{HEAT_BATCH}", none, run)
+        _, batch_ms = host_ms(run)  # warm: a program-cache hit
+        # like for like: each serial solve also ends on the host
+        serial, serial_ms = host_ms(lambda: [ops.run_heat(
+            g, base.iters, base.order, p_.xcfl, p_.ycfl).cpu().numpy()
+            for g, p_ in zip(grids, lanes)])
+        for i, (out, ser) in enumerate(zip(outs, serial)):
+            bitwise(f"batched heat {label} lane {i}", out, ser)
+        # the solves alone, inputs and outputs on the card
+        u = torch.stack(grids)
+        xc = torch.tensor(xs, dtype=torch.float32, device=dev).view(-1, 1, 1)
+        yc = torch.tensor(ys, dtype=torch.float32, device=dev).view(-1, 1, 1)
+        batch_dev = device_ms(lambda: ops.run_heat(
+            u, base.iters, base.order, xc, yc), u)
+        serial_dev = device_ms(lambda: [ops.run_heat(
+            g, base.iters, base.order, p_.xcfl, p_.ycfl)
+            for g, p_ in zip(grids, lanes)], u)
+        heat_batches[label] = {"batch_ms": batch_ms,
+                               "serial_ms": serial_ms,
+                               "batch_device_ms": batch_dev,
+                               "serial_device_ms": serial_dev,
+                               "b": HEAT_BATCH, "shape": [base.gy, base.gx],
+                               "order": base.order, "iters": base.iters}
+        print(f"batched heat {label} ({base.gy}x{base.gx} order "
+              f"{base.order}, {base.iters} iters) b={HEAT_BATCH}: every "
+              f"lane bit for bit its serial run_heat; {batch_ms:.3f} ms a "
+              f"batch, {serial_ms:.3f} ms for {HEAT_BATCH} serial solves; "
+              f"the solves alone (CUDA events) {batch_dev:.3f} and "
+              f"{serial_dev:.3f} ms")
+        del u
+    rows["heat_batched"] = heat_batches
+
+    # ------------------------------------------- 26. batched SpMV-scan
+    spmv_batches = {}
+    cases = [(f"n={n} {k}", k, [spmv.generate_problem(
+        n, p=max(2, n // 64), q=n // 2, iters=6, seed=26 + i)
+        for i in range(SPMV_BATCH)])
+        for n in SPMV_BATCH_N for k in ("flat", "blocked")]
+    cases.append((f"{SUITE} blocked", "blocked", [pwtk] + [
+        spmv.suite_problem(SUITE, seed=s) for s in range(1, PWTK_BATCH)]))
+    for label, kernel, probs in cases:
+        run = lambda k=kernel, pr=probs: spmv.run_spmv_scan_batched(  # noqa
+            pr, kernel=k, device="cuda")
+        outs = counted(f"run_spmv_scan_batched {label} b{len(probs)}",
+                       none, run)
+        _, batch_ms = host_ms(run)
+        # like for like: each serial solve also uploads its problem and
+        # ends on the host, as the batch does
+        serial, serial_ms = host_ms(lambda: [spmv._iterate(
+            *spmv.problem_tensors(pr, device=dev)[:3], pr.iters,
+            scan=kernel).cpu().numpy() for pr in probs])
+        for i, (out, ser) in enumerate(zip(outs, serial)):
+            bitwise(f"batched SpMV-scan {label} lane {i}", out, ser)
+        # the solves alone, inputs and outputs on the card
+        lanes = [spmv.problem_tensors(pr, device=dev)[:3] for pr in probs]
+        stack = [torch.stack(t) for t in zip(*lanes)]
+        n_it = probs[0].iters
+        batch_dev = device_ms(lambda: spmv._iterate(
+            *stack, n_it, scan=kernel), stack[0])
+        serial_dev = device_ms(lambda: [spmv._iterate(
+            *t, n_it, scan=kernel) for t in lanes], stack[0])
+        spmv_batches[label] = {"batch_ms": batch_ms, "serial_ms": serial_ms,
+                               "batch_device_ms": batch_dev,
+                               "serial_device_ms": serial_dev,
+                               "b": len(probs), "n": probs[0].n,
+                               "iters": n_it}
+        print(f"batched SpMV-scan {label} b={len(probs)} ({n_it} iters): "
+              f"every lane bit for bit its serial _iterate; {batch_ms:.3f} "
+              f"ms a batch, {serial_ms:.3f} ms for the serial solves; the "
+              f"solves alone (CUDA events) {batch_dev:.3f} and "
+              f"{serial_dev:.3f} ms")
+        del serial, outs, lanes, stack
+    rows["spmv_batched"] = spmv_batches
+
+    # ------------------------------------------- 27. flight recorder
+    child = (
+        "import json, os, sys\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "import torch\n"
+        "from cme213_tpu_torch.apps import heat2d\n"
+        "from cme213_tpu_torch.config import SimParams\n"
+        "from cme213_tpu_torch.core import flight\n"
+        "start = torch.cuda.is_initialized()\n"
+        "flight.install_from_env()\n"
+        "flight.dump('probe')\n"
+        "print(json.dumps({'cuda_at_start': start,\n"
+        "                  'cuda_after_probe': torch.cuda.is_initialized()}),\n"
+        "      flush=True)\n"
+        f"p = SimParams(nx={FULL_N}, ny={FULL_N}, order={FULL_ORDER}, "
+        f"iters={2 * RUNNER_EVERY})\n"
+        "heat2d.run_heat_checkpointed(p, sys.argv[1], "
+        f"every={RUNNER_EVERY}, max_retries=1, device='cuda')\n")
+    with tempfile.TemporaryDirectory() as fdir:
+        env = dict(os.environ, CME213_FLIGHT_DIR=fdir,
+                   CME213_FAULTS="nan:heat2d:1,nan:heat2d:2")
+        env.pop("CME213_TRACE_FILE", None)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", child, os.path.join(fdir, "h.npz")],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail("flight child: no result in 300 s")
+        state = json.loads(stdout.strip().splitlines()[0])
+        docs = {}
+        for name in sorted(os.listdir(fdir)):
+            if name.startswith("flight-") and name.endswith(".json"):
+                with open(os.path.join(fdir, name)) as f:
+                    doc = json.load(f)
+                docs[doc["reason"]] = doc
+    summary = {r: {"card": d["platform"].get("card"),
+                   "open_spans": [s["span"] for s in d["open_spans"]]}
+               for r, d in docs.items()}
+    print(f"flight child: rc {proc.returncode}, CUDA at start "
+          f"{state['cuda_at_start']}, after a dump {state['cuda_after_probe']};"
+          f" dumps {json.dumps(summary)}")
+    abort = docs.get("numeric-abort")
+    if proc.returncode == 0 or "NonFiniteError" not in stderr:
+        fail(f"flight child did not die of NonFiniteError: rc "
+             f"{proc.returncode}\n{stderr[-2000:]}")
+    if state["cuda_at_start"] or state["cuda_after_probe"]:
+        fail(f"flight child: CUDA initialised before its solve: {state}")
+    if set(docs) != {"probe", "numeric-abort", "unhandled-exception"}:
+        fail(f"flight dumps {sorted(docs)}")
+    if docs["probe"]["platform"].get("card") is not None:
+        fail("a dump before any CUDA work named the card")
+    if any(docs[r]["platform"].get("card") != kind
+           for r in ("numeric-abort", "unhandled-exception")):
+        fail(f"flight dumps do not name the card {kind!r}: {summary}")
+    if "checkpoint.chunk" not in summary["numeric-abort"]["open_spans"] \
+            or "NonFiniteError" not in (abort["traceback"] or ""):
+        fail(f"the abort's dump: {summary['numeric-abort']}")
+    rows["flight"] = {"rc": proc.returncode, "dumps": summary}
+    rows["seconds"] = time.perf_counter() - t_phases
+    print(f"phases 23-27: {rows['seconds']:.1f} s")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2008,6 +2487,10 @@ def main(argv=None) -> int:
     if len(calibration) != 4 or any("error" in r for r in calibration):
         fail(f"doctor calibrate: {calibration}")
 
+    # ---------------------------------------------------- 23-27. runners
+    core.trace.clear_events()
+    runners = runner_phases(counted, only, prob, ref64)
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single behind the ladder, cold: its gate's probe included; B2
@@ -2121,6 +2604,7 @@ def main(argv=None) -> int:
     if turns is not None:
         for row in kernels[:-1]:  # every kernel but B8
             row["turns"] = turns
+    print(json.dumps({"runners": runners}))
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ Report labels: ``torch`` for the plain stencil (the JAX package's
 ``pipeline-><rung>`` when the ladder demoted (its ``pallas-><rung>``).  The
 distributed entry (``run_distributed``, ``--distributed``) is the hw5 main
 (``2dHeat.cpp:817-851``): grid method and sync/async from the params file.
+``run_heat_checkpointed`` is the long-solve form (``run_heat`` in
+checkpointed chunks, ``core/checkpoint.py``) and ``run_heat_batched`` the
+stacked form the serving layer batches same-shape requests through; both
+run the plain torch stencil, as the JAX package runs XLA there.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device=cpu``); with no device and no CUDA it raises.
@@ -25,14 +29,16 @@ import sys
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..config import SimParams
 from ..core import PhaseTimer, bandwidth_gbs, check_op, gflops, resolve_device
+from ..core.numerics import host_array
 from ..dist import mesh_for_method, run_distributed_heat
 from ..dist.mesh import default_devices
 from ..grid import make_initial_grid, save_grid_to_file
 from ..ops import run_heat
-from ..ops.stencil import flops_per_point
+from ..ops.stencil import flops_per_point, run_heat_bytes
 from ..ops.stencil_pipeline import run_heat_resilient
 from ..verify import check_ulp, golden
 
@@ -114,6 +120,99 @@ def run_single(params: SimParams, check_cpu: bool = True,
     return result
 
 
+def run_heat_batched(grids: list, iters: int, order: int, xcfls: list[float],
+                     ycfls: list[float], device=None) -> list[np.ndarray]:
+    """Serve B same-class heat requests (equal grid shape, ``order`` and
+    ``iters``) as one stacked solve, the path the serving layer batches
+    same-shape grids through: ``run_heat`` on the (B, gy, gx) stack (the
+    JAX package's ``_heat_batched``).  CFL factors are per-lane, (B, 1, 1)
+    in the grid's dtype, so requests need not share them to share a
+    batch.  ``grids`` are arrays or tensors; they are stacked in f32 on
+    ``device`` (default ``cuda``).  The program comes from
+    ``core/programs`` (its warm-up, one step on zeros, behind
+    ``check_op``), and the solve runs under the ``heat_batched.run`` span.
+    Returns one host array a lane, each bit for bit its serial
+    ``run_heat``."""
+    if not grids:
+        return []
+    shape = tuple(grids[0].shape)
+    for g in grids:
+        if tuple(g.shape) != shape:
+            raise ValueError(
+                f"batch mixes grid shapes: {tuple(g.shape)} vs {shape}")
+    from ..core import programs, span
+
+    dev = resolve_device(device)
+    b, (gy, gx) = len(grids), shape
+    shape_class = f"{gy}x{gx}/order{order}/i{iters}/b{b}"
+
+    def build():
+        return lambda u, xc, yc: run_heat(u, iters, order, xc, yc)
+
+    def warm(fn):
+        z = torch.zeros(b, 1, 1, dtype=torch.float32, device=dev)
+        check_op("heat_batched.xla", run_heat(
+            torch.zeros(b, gy, gx, dtype=torch.float32, device=dev), 1,
+            order, z, z))
+
+    runner = programs.get("heat_batched", "xla", shape_class, build,
+                          dtype="f32", device=dev, warm=warm, iters=iters,
+                          order=order, batch=b)
+    u = torch.stack([torch.as_tensor(g).to(dev, torch.float32)
+                     for g in grids])
+    # per-lane factors, rounded to f32 as the serial solve rounds its own
+    xc = torch.tensor(xcfls, dtype=torch.float32, device=dev).view(b, 1, 1)
+    yc = torch.tensor(ycfls, dtype=torch.float32, device=dev).view(b, 1, 1)
+    with span("heat_batched.run", kernel="xla",
+              shape_class=shape_class) as sp:
+        out = runner(u, xc, yc)
+        sp.block(out)
+    out = out.cpu().numpy()
+    return [out[i] for i in range(b)]
+
+
+def run_heat_checkpointed(params: SimParams, path: str, every: int = 0,
+                          max_retries: int = 1, device=None) -> np.ndarray:
+    """Long-solve form of the single-device heat driver: ``run_heat`` in
+    checkpointed chunks of ``every`` steps on ``device`` (default
+    ``cuda``), with a finiteness guard between chunks.
+
+    The state is ``{"grid": u}`` (the halo bands ride in the grid).  A NaN
+    blow-up (``CME213_FAULTS=nan:heat2d`` or real) rolls back to the last
+    good checkpoint and retries the chunk; a killed process resumes from
+    ``path``.  Chunking is deterministic, so an interrupted and resumed
+    solve equals an uninterrupted one bit for bit.  The first chunk is
+    preflighted (``core/admission.admit``) at its count of device bytes
+    (``ops.stencil.run_heat_bytes``), and a grid over the budget is
+    refused with ``AdmissionError`` before any allocation; a chunk that
+    dies RESOURCE (``CME213_FAULTS=oom:heat_chunk``) is halved and retried
+    from the last checkpoint.  Returns the final grid on the host.
+    """
+    from ..core import admission
+    from ..core.checkpoint import run_with_checkpoints
+    from ..core.numerics import ConvergenceTracker
+    from ..core.resilience import all_finite
+
+    dev = resolve_device(device)
+    admission.admit("heat2d", run_heat_bytes(params.gy, params.gx,
+                                             params.order, 4), dev)
+    u0 = make_initial_grid(params, device=dev)
+
+    def step(state, k):
+        return {"grid": run_heat(torch.as_tensor(state["grid"]).to(dev), k,
+                                 params.order, params.xcfl, params.ycfl)}
+
+    # diffusion decays toward its steady state, so a residual flat for 3
+    # chunks already means the solve burns iterations for nothing
+    out = run_with_checkpoints(step, {"grid": u0}, params.iters, path,
+                               every=every, guard=all_finite, op="heat2d",
+                               max_retries=max_retries,
+                               chunk_op="heat_chunk",
+                               tracker=ConvergenceTracker(
+                                   "heat2d", stall_epochs=3))
+    return host_array(out["grid"])
+
+
 def run_distributed(params: SimParams, num_devices: int | None = None,
                     save_files: bool = False, out_dir: str = ".",
                     local_kernel: str = "xla", devices=None) -> np.ndarray:
@@ -149,6 +248,11 @@ def run_distributed(params: SimParams, num_devices: int | None = None,
 
 
 def main(argv: list[str]) -> int:
+    # a run that dies uncleanly leaves a flight dump when CME213_FLIGHT_DIR
+    # asks for one
+    from ..core import flight
+
+    flight.install_from_env()
     paths = [a for a in argv[1:] if not a.startswith("--")]
     path = paths[0] if paths else "params.in"
     if "--supervised" in argv:

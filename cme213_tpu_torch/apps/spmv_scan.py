@@ -35,9 +35,10 @@ import torch
 
 from ..core import PhaseTimer, check_op, resolve_device
 from ..core.tune import dtype_name
-from ..ops.segmented import (head_flags_from_starts, segmented_scan,
-                             segmented_scan_blocked, segmented_scan_dense,
-                             segmented_scan_flat, validate_segments)
+from ..ops.segmented import (head_flags_from_starts, scan_peak_bytes,
+                             segmented_scan, segmented_scan_blocked,
+                             segmented_scan_dense, segmented_scan_flat,
+                             validate_segments)
 from ..ops.segmented_pallas import segmented_scan_pallas, spmv_scan_pallas
 from ..verify import golden
 from ..verify.checkers import (l2_distance, relative_l2_error,
@@ -187,7 +188,8 @@ def _scan_fn(scan: str, block_size: int | None):
 
 def _iterate(a, xx, flags, iters: int, scan: str = "auto",
              block_size: int | None = None):
-    """``iters`` × ``a ← scan(a·xx)`` with a plain torch scan."""
+    """``iters`` × ``a ← scan(a·xx)`` with a plain torch scan, along the
+    last dimension (leading dimensions are independent lanes)."""
     scan_fn = _scan_fn(scan, block_size)
     for _ in range(iters):
         a = scan_fn(a * xx, flags)
@@ -534,6 +536,134 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     print(f"The running time of my code for {prob.iters} iterations is: "
           f"{ms} milliseconds.")
     return res.value.cpu().numpy()
+
+
+def run_spmv_scan_batched(probs: list[Problem], kernel: str = "flat",
+                          dtype=torch.float32,
+                          device=None) -> list[np.ndarray]:
+    """Serve B same-class problems (equal ``n`` and ``iters``) as one
+    stacked solve on ``device`` (default ``cuda``), the path the serving
+    layer batches same-shape requests through: ``_iterate`` on (B, n)
+    stacks (the JAX package's ``_iterate_batched``), the scan along the
+    last dimension, so lanes never mix and the blocked scan's blocks stay
+    where a lane's own solve puts them.  Segment structure may differ
+    between lanes.  Only the torch scans batch (``flat``, ``blocked``,
+    ``auto``), at the scans' default block size; each result equals its
+    serial ``_iterate`` solve bit for bit.  The program comes from
+    ``core/programs`` (its warm-up, one iteration on zeros, behind
+    ``check_op``), and the solve runs under the ``spmv_scan_batched.run``
+    span."""
+    from ..core import programs, span
+
+    if kernel not in _SCAN_KERNELS:
+        raise ValueError(f"batched serving uses the torch scans "
+                         f"{tuple(_SCAN_KERNELS)}, not {kernel!r}")
+    if not probs:
+        return []
+    n, iters = probs[0].n, probs[0].iters
+    for p in probs:
+        p.validate()
+        if (p.n, p.iters) != (n, iters):
+            raise ValueError(
+                f"batch mixes shape classes: n{p.n}/i{p.iters} vs "
+                f"n{n}/i{iters}")
+    dev = resolve_device(device)
+    b = len(probs)
+    a = torch.from_numpy(np.stack([p.a for p in probs])).to(dev, dtype)
+    xx = torch.from_numpy(np.stack([p.xx for p in probs])).to(dev, dtype)
+    # head flags in one scatter on the device: the lanes' starts, offset
+    # by lane into the flat (B·n) flags, go up as one int64 vector
+    heads = np.concatenate([np.asarray(p.s[:-1], np.int64) + i * n
+                            for i, p in enumerate(probs)])
+    flags = torch.zeros(b * n, dtype=torch.int32, device=dev)
+    flags[torch.from_numpy(heads).to(dev)] = 1
+    flags = flags.view(b, n)
+    # the batch width shapes the program, so it rides in the shape class
+    shape_class = f"n{n}/i{iters}/b{b}"
+
+    def build():
+        return lambda a, xx, flags: _iterate(a, xx, flags, iters,
+                                             scan=kernel)
+
+    def warm(fn):
+        z = torch.zeros(b, n, dtype=dtype, device=dev)
+        check_op(f"spmv_scan_batched.{kernel}", _iterate(
+            z, z, torch.zeros(b, n, dtype=torch.int32, device=dev), 1,
+            scan=kernel))
+
+    runner = programs.get("spmv_scan_batched", kernel, shape_class, build,
+                          dtype=dtype_name(dtype), device=dev, warm=warm,
+                          iters=iters, batch=b)
+    with span("spmv_scan_batched.run", kernel=kernel,
+              shape_class=shape_class) as sp:
+        out = runner(a, xx, flags)
+        sp.block(out)
+    out = out.cpu().numpy()
+    return [out[i] for i in range(b)]
+
+
+def spmv_chunk_bytes(n: int, p: int, elem: int = 4,
+                     kernel: str = "auto") -> int:
+    """Device bytes of a chunk of ``run_spmv_scan_checkpointed`` with the
+    torch scan ``kernel``, counted from ``_iterate``: the chunk's input
+    values, the previous iteration's (alive beside them from the second
+    iteration on), ``xx`` and the product (``elem`` bytes each), the int32
+    head flags, the int64 segment starts (``p - 1`` of them) and the
+    scan's own peak (``ops/segmented.scan_peak_bytes``, the new values
+    included)."""
+    return (4 * n * elem + 4 * n + 8 * (p - 1)
+            + scan_peak_bytes(n, elem, kernel))
+
+
+def run_spmv_scan_checkpointed(prob: Problem, path: str, every: int = 0,
+                               kernel: str = "auto", dtype=torch.float32,
+                               max_retries: int = 1,
+                               device=None) -> np.ndarray:
+    """Long-solve form of the engine: the N iterations run on ``device``
+    (default ``cuda``) in checkpointed chunks of ``every``, with a
+    finiteness guard on each chunk.  ``kernel`` is one of the torch scans
+    (``auto``, ``flat``, ``blocked``).
+
+    A NaN blow-up (``CME213_FAULTS=nan:spmv_scan`` or real) rolls back to
+    the last good checkpoint and retries the chunk; a killed process
+    resumes from ``path``.  Chunking is deterministic, so an interrupted
+    and resumed solve equals an uninterrupted one with the same scan bit
+    for bit.  The first chunk is preflighted (``core/admission.admit``)
+    at ``spmv_chunk_bytes``, and a problem over the budget is refused
+    with ``AdmissionError`` before any allocation; a chunk that dies
+    RESOURCE (``CME213_FAULTS=oom:spmv_scan_chunk``) is halved and retried
+    from the last checkpoint.  Each chunk length's program comes
+    from ``_program`` (cached: a resumed or retried chunk of a length seen
+    before is a lookup).  Returns the final values on the host.
+    """
+    from ..core import admission
+    from ..core.checkpoint import run_with_checkpoints
+    from ..core.numerics import ConvergenceTracker, host_array
+    from ..core.resilience import all_finite
+
+    if kernel not in _SCAN_KERNELS:
+        raise ValueError(f"checkpointed runs use the torch scans "
+                         f"{tuple(_SCAN_KERNELS)}, not {kernel!r}")
+    prob.validate()
+    dev = resolve_device(device)
+    admission.admit("spmv_scan", spmv_chunk_bytes(
+        prob.n, prob.p, torch.finfo(dtype).bits // 8, kernel), dev)
+    a0, xx, flags, starts = problem_tensors(prob, dtype, dev)
+
+    def step(state, k):
+        a = torch.as_tensor(state).to(dev, dtype)
+        fn = _program(kernel, prob.n, k, dtype, dev, p=prob.p,
+                      warm_args=lambda: (a, xx, flags, starts))
+        return fn(a, xx, flags, starts)
+
+    # the iterated gather·multiply is not a decaying solve and may plateau,
+    # so only a residual flat across many chunks reads as STALLED
+    out = run_with_checkpoints(step, a0, prob.iters, path,
+                               every=every or prob.iters, guard=all_finite,
+                               op="spmv_scan", max_retries=max_retries,
+                               tracker=ConvergenceTracker(
+                                   "spmv_scan", stall_epochs=8))
+    return host_array(out)
 
 
 def run_spmv_scan_distributed(prob: Problem, mesh, dtype=torch.float32,

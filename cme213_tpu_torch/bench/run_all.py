@@ -93,10 +93,11 @@ NOT_PORTED = ("data_bandwidth_vector_length", "bandwidth_vs_avg_edges",
 
 
 def main(argv=None) -> int:
-    from ..core import faults, metrics, trace
+    from ..core import faults, flight, metrics, trace
     from ..core.platform import resolve_device
     from . import sweeps
 
+    flight.install()  # a crashed sweep leaves its black box behind
     ap = argparse.ArgumentParser(prog="python -m cme213_tpu_torch.bench."
                                       "run_all")
     ap.add_argument("--out", default="bench_results_torch")

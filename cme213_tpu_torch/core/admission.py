@@ -10,24 +10,29 @@ dispatch:
   wins; otherwise the total memory ``torch.cuda.mem_get_info()`` reports
   for a CUDA device (the counterpart of XLA's ``bytes_limit``); on the CPU
   ``None``, so admission there is opt-in through the variable.
-- :func:`admit`: a call's device footprint against the budget.  Torch has
-  no ``memory_analysis()``, so the footprint is the caller's own count
-  (argument + output + workspace bytes); an over-budget call raises
-  :class:`AdmissionError` with an ``admission-rejected`` event, before any
-  allocation.  The heat ladder admits its grid and two ping-pong buffers
+- :func:`preflight`: a call's device footprint against the budget, as a
+  :class:`Decision`.  Torch has no ``memory_analysis()``, so the footprint
+  is the caller's own count (argument + output + workspace bytes); an
+  over-budget call is rejected with an ``admission-rejected`` event before
+  any allocation.  The checkpointed runners preflight their first chunk
+  (``apps/heat2d.run_heat_checkpointed``, ``apps/spmv_scan.
+  run_spmv_scan_checkpointed``).
+- :func:`admit`: :func:`preflight` that raises :class:`AdmissionError` on a
+  rejection.  The heat ladder admits its grid and two ping-pong buffers
   (``ops/stencil_pipeline.run_heat_resilient``).
 
-The JAX package's ``preflight`` (a footprint measured from one run),
-``admit_chunk`` and ``admit_batch`` (halve a size knob until it fits) wait
-for the solvers that shrink a chunk or a batch (ROADMAP.md, queue A,
-items 3 and 7).  ``oom:<op>`` fault clauses raise a synthetic
-RESOURCE_EXHAUSTED, to which the heat ladder responds by halving its tile
-(``core/resilience.classify_failure`` buckets it as RESOURCE).
+The JAX package's ``admit_chunk`` and ``admit_batch`` (halve a size knob
+until its preflight fits) wait for the serve batcher (ROADMAP.md, queue A,
+item 7).  ``oom:<op>`` fault clauses raise a synthetic RESOURCE_EXHAUSTED,
+to which the heat ladder responds by halving its tile and the
+checkpointed solves by halving their chunk (``core/resilience.
+classify_failure`` buckets it as RESOURCE).
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 from . import metrics
 from .errors import FrameworkError
@@ -78,18 +83,41 @@ def memory_budget(device=None) -> int | None:
         return None
 
 
-def admit(op: str, required_bytes: int, device=None) -> None:
-    """Hold ``op``'s device footprint, ``required_bytes`` by the caller's
-    own count, to ``memory_budget(device)``.  Over the budget it records
-    ``admission-rejected``, bumps ``admission.rejected`` and raises
-    :class:`AdmissionError`; with no budget it admits (admission must never
-    turn a healthy call away on missing information)."""
+@dataclass(frozen=True)
+class Decision:
+    admitted: bool
+    required_bytes: int
+    budget_bytes: int | None   # None when admission is off
+    detail: str
+
+
+def preflight(op: str, required_bytes: int, device=None) -> Decision:
+    """Admission decision for ``op``, whose device footprint is
+    ``required_bytes`` by the caller's own count, against
+    ``memory_budget(device)``.  With no budget it admits pass-open:
+    admission must never turn a healthy call away on missing information.
+    A rejection records ``admission-rejected`` and bumps
+    ``admission.rejected``; an admission against a budget bumps
+    ``admission.admitted``."""
     budget = memory_budget(device)
-    if budget is None or required_bytes <= budget:
-        return
-    metrics.counter("admission.rejected").inc()
-    detail = f"footprint {required_bytes} > budget {budget}"
-    record_event("admission-rejected", op=op, requested_bytes=required_bytes,
-                 budget_bytes=budget, detail=detail)
-    raise AdmissionError(f"{op}: {detail} ({BUDGET_ENV} or the device's "
-                         f"memory)")
+    required = int(required_bytes)
+    if budget is None:
+        return Decision(True, required, None, "no budget: admission off")
+    if required > budget:
+        metrics.counter("admission.rejected").inc()
+        detail = f"footprint {required} > budget {budget}"
+        record_event("admission-rejected", op=op, requested_bytes=required,
+                     budget_bytes=budget, detail=detail)
+        return Decision(False, required, budget, detail)
+    metrics.counter("admission.admitted").inc()
+    return Decision(True, required, budget,
+                    f"footprint {required} <= budget {budget}")
+
+
+def admit(op: str, required_bytes: int, device=None) -> None:
+    """:func:`preflight` that raises :class:`AdmissionError` when ``op``'s
+    footprint is over the budget."""
+    decision = preflight(op, required_bytes, device=device)
+    if not decision.admitted:
+        raise AdmissionError(f"{op}: {decision.detail} ({BUDGET_ENV} or "
+                             f"the device's memory)")

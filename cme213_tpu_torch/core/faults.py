@@ -43,7 +43,7 @@ Spec grammar (comma-separated clauses)::
                                   and queued but before they execute, so
                                   the fleet's zero-loss requeue path
                                   (``serve/fleet.py``) is deterministically
-                                  testable; the trace sink is closed
+                                  testable; the flight recorder dumps
                                   first (SIGKILL skips atexit); first
                                   incarnation only, so the relaunched
                                   replica serves clean
@@ -357,13 +357,11 @@ def maybe_fail(op: str) -> None:
                 f"injected failure in {op} (call {c.calls})")
 
 
-def _map_tensors(tree, fn):
-    """Rebuild ``tree`` with ``fn(index, tensor)`` applied to its tensor
-    leaves in flattening order (lists and tuples in order, dicts by
-    sorted key); ``fn`` returns the new leaf, or None to keep it.  Leaves
-    that are not tensors pass through unchanged."""
-    import torch
-
+def _map_leaves(tree, fn):
+    """Rebuild ``tree`` with ``fn(index, leaf)`` applied to its leaves in
+    flattening order (lists and tuples in order, dicts by sorted key);
+    ``fn`` returns the new leaf, or None to keep it, and picks the leaf
+    types it changes itself."""
     count = [0]
 
     def walk(node):
@@ -377,10 +375,8 @@ def _map_tensors(tree, fn):
             return type(node)(items)
         i = count[0]
         count[0] += 1
-        if torch.is_tensor(node):
-            new = fn(i, node)
-            return node if new is None else new
-        return node
+        new = fn(i, node)
+        return node if new is None else new
 
     return walk(tree)
 
@@ -404,8 +400,13 @@ def _with_first(t, change):
 
 
 def maybe_poison(op: str, state):
-    """NaN-poison the first float tensor of ``state`` if a ``nan:<op>``
-    clause fires on this call; otherwise return ``state`` unchanged."""
+    """NaN-poison the first float leaf (a tensor, or a numpy array as a
+    restored checkpoint holds) of ``state`` if a ``nan:<op>`` clause fires
+    on this call; otherwise return ``state`` unchanged.  The poisoned leaf
+    is a copy."""
+    import numpy as np
+    import torch
+
     plan = active()
     if plan is None:
         return state
@@ -415,13 +416,21 @@ def maybe_poison(op: str, state):
     done = []
 
     def poison(i, t):
-        if done or not t.is_floating_point() or not t.numel():
+        if isinstance(t, np.ndarray):
+            if done or not np.issubdtype(t.dtype, np.floating) or not t.size:
+                return None
+            t = np.array(t)
+            t.reshape(-1)[0] = np.nan
+        elif (done or not torch.is_tensor(t) or not t.is_floating_point()
+              or not t.numel()):
             return None
+        else:
+            t = _with_first(t, lambda x: float("nan"))
         done.append(i)
         _record("nan", op, leaf=i)
-        return _with_first(t, lambda x: float("nan"))
+        return t
 
-    return _map_tensors(state, poison)
+    return _map_leaves(state, poison)
 
 
 def maybe_perturb(op: str, value):
@@ -433,6 +442,8 @@ def maybe_perturb(op: str, value):
     integer tensor has its bits flipped.  First incarnation only (like
     ``rankkill``), so a restarted gang re-probes clean.  Returns ``value``
     unchanged when no clause fires; never writes the caller's tensors."""
+    import torch
+
     plan = active()
     if plan is None:
         return value
@@ -445,13 +456,14 @@ def maybe_perturb(op: str, value):
         done = []
 
         def perturb(i, t, pick=pick, change=change):
-            if done or not pick(t) or not t.numel():
+            if (done or not torch.is_tensor(t) or not pick(t)
+                    or not t.numel()):
                 return None
             done.append(i)
             _record("wrong", op, leaf=i)
             return _with_first(t, change)
 
-        out = _map_tensors(value, perturb)
+        out = _map_leaves(value, perturb)
         if done:
             return out
     return value
@@ -467,6 +479,8 @@ def maybe_drift(op: str, value):
     error budget burns deterministically.  First incarnation only, so a
     restarted gang serves clean.  Returns ``value`` unchanged when no
     clause fires; never writes the caller's tensors."""
+    import torch
+
     plan = active()
     if plan is None:
         return value
@@ -477,12 +491,13 @@ def maybe_drift(op: str, value):
     touched = []
 
     def drift(i, t):
-        if not t.is_floating_point() or not t.numel():
+        if (not torch.is_tensor(t) or not t.is_floating_point()
+                or not t.numel()):
             return None
         touched.append(i)
         return (t * (1.0 + scale)).to(t.dtype)
 
-    out = _map_tensors(value, drift)
+    out = _map_leaves(value, drift)
     if touched:
         _record("drift", op, leaves=len(touched), scale=scale)
     return out
@@ -624,9 +639,10 @@ def maybe_kill_rank(step: int | None = None) -> None:
             sys.stderr.write(
                 f"[faults] injected kill: rank {rank} at step {at}\n")
             sys.stderr.flush()
-            # os._exit skips atexit: close the trace sink here
-            from .trace import flush_sink
-            flush_sink()
+            # os._exit skips atexit and sys.excepthook: the flight
+            # recorder dumps here or the event ring dies with the process
+            from . import flight
+            flight.dump("rankkill")
             os._exit(KILL_EXIT)
 
 
@@ -639,7 +655,7 @@ def maybe_kill_replica() -> None:
     execute — the exact window where the fleet's in-flight requeue path
     must prove zero accepted-request loss.  SIGKILL (unlike ``os._exit``)
     is how an OOM-killed or preempted replica actually dies, so the
-    trace sink is closed *before* the signal is raised.
+    flight recorder dumps *before* the signal is raised.
     """
     plan = active()
     if plan is None:
@@ -654,10 +670,10 @@ def maybe_kill_replica() -> None:
                 f"[faults] injected replica kill: rank {rank} at batch "
                 f"{c.calls}\n")
             sys.stderr.flush()
-            # SIGKILL skips atexit and signal handlers: close the trace
-            # sink here
+            # SIGKILL skips atexit and signal handlers: the flight
+            # recorder dumps before the signal is raised
             import signal
 
-            from .trace import flush_sink
-            flush_sink()
+            from . import flight
+            flight.dump("replica-kill")
             os.kill(os.getpid(), signal.SIGKILL)

@@ -95,8 +95,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from .core import diag, trace
+    from .core import diag, flight, trace
 
+    flight.install_from_env()
     if calibrating:
         try:
             rows = diag.calibrate(device=args.device)

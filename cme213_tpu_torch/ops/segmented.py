@@ -59,14 +59,16 @@ def segmented_scan_flat(values: torch.Tensor,
     """Inclusive segmented sum scan — flat Hillis–Steele log-sweep: at
     stride d, ``v[i] += f[i] ? 0 : v[i-d]`` and ``f[i] |= f[i-d]`` for
     ``i ≥ d``, strides 1, 2, … up to n−1.  Adds 0 where the reference adds
-    0, so it equals ``cme213_tpu``'s flat scan bit for bit."""
-    n = values.shape[0]
+    0, so it equals ``cme213_tpu``'s flat scan bit for bit.  The scan runs
+    along the last dimension; leading dimensions are independent lanes,
+    each equal to its own 1-D scan bit for bit (elementwise ops only)."""
+    n = values.shape[-1]
     steps = max(1, (n - 1).bit_length())
     idx = torch.arange(n, device=values.device)
     v, f = values, head_flags.to(torch.int32)
     for i in range(steps):
         d = 1 << i
-        pv, pf = torch.roll(v, d), torch.roll(f, d)
+        pv, pf = torch.roll(v, d, -1), torch.roll(f, d, -1)
         valid = idx >= d
         add = torch.where(valid & (f == 0), pv, torch.zeros_like(v))
         f = torch.where(valid, f | pf, f)
@@ -87,51 +89,97 @@ def segmented_scan_blocked(values: torch.Tensor, head_flags: torch.Tensor,
        head.
 
     Pads to a block multiple (the pad isolated in its own segment and
-    dropped on return).
+    dropped on return).  The scan runs along the last dimension; leading
+    dimensions are independent lanes, each equal to its own 1-D scan bit
+    for bit (``_lane_cumsum``).
     """
-    n = values.shape[0]
+    n = values.shape[-1]
+    lead = values.shape[:-1]
     flags = head_flags.to(torch.int32)
     nblk = max(1, -(-n // block_size))
     padded = nblk * block_size
     if padded != n:
-        v = values.new_zeros(padded)
-        v[:n] = values
-        f = flags.new_zeros(padded)
-        f[:n] = flags
-        f[n] = 1  # quarantine the pad in its own segment
+        v = values.new_zeros(*lead, padded)
+        v[..., :n] = values
+        f = flags.new_zeros(*lead, padded)
+        f[..., :n] = flags
+        f[..., n] = 1  # quarantine the pad in its own segment
     else:
         v, f = values, flags
-    v2 = v.reshape(nblk, block_size)
-    f2 = f.reshape(nblk, block_size)
+    v2 = v.reshape(*lead, nblk, block_size)
+    f2 = f.reshape(*lead, nblk, block_size)
 
-    cs = torch.cumsum(v2, dim=1)
-    lane = torch.arange(block_size, device=v.device).expand(nblk, block_size)
+    cs = _lane_cumsum(v2)
+    lane = torch.arange(block_size, device=v.device).expand(v2.shape)
     # index of the last head at or before each position (-1: none yet)
-    hp = torch.cummax(torch.where(f2 > 0, lane, -1), dim=1).values
+    hp = torch.cummax(torch.where(f2 > 0, lane, -1), dim=-1).values
     base = torch.where(hp >= 1,
-                       torch.gather(cs, 1, (hp - 1).clamp(min=0)),
+                       torch.gather(cs, -1, (hp - 1).clamp(min=0)),
                        torch.zeros_like(cs))
     local = cs - base
 
-    carry_v = local[:, -1]
-    carry_f = (hp[:, -1] >= 0).to(torch.int32)
+    carry_v = local[..., -1]
+    carry_f = (hp[..., -1] >= 0).to(torch.int32)
     inc_v = segmented_scan_flat(carry_v, carry_f)
-    incoming = torch.cat([inc_v.new_zeros(1), inc_v[:-1]])
+    incoming = torch.cat([inc_v.new_zeros(*lead, 1), inc_v[..., :-1]], -1)
 
-    out = local + torch.where(hp < 0, incoming[:, None],
+    out = local + torch.where(hp < 0, incoming[..., None],
                               torch.zeros_like(local))
-    return out.reshape(padded)[:n]
+    return out.reshape(*lead, padded)[..., :n]
+
+
+def _lane_cumsum(v2: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` of (..., nblk, block) blocks along the last
+    dimension, one call per lane of the leading dimensions.  On a CUDA
+    tensor torch picks the cumsum's association from the shape: a single
+    row goes to CUB, several rows to a row kernel whose thread layout
+    depends on the row count (``get_log_num_threads_x_inner_scan``).  So a
+    lane's blocks must be summed at the 1-D scan's own (nblk, block) shape
+    to equal it bit for bit: B calls, not one over B·nblk rows."""
+    if v2.dim() == 2:
+        return torch.cumsum(v2, dim=1)
+    out = torch.empty_like(v2)
+    for src, dst in zip(v2.reshape(-1, *v2.shape[-2:]),
+                        out.view(-1, *v2.shape[-2:])):
+        torch.cumsum(src, dim=1, out=dst)
+    return out
 
 
 def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor, *,
                    block_size: int | None = None) -> torch.Tensor:
     """Inclusive segmented sum scan — the auto dispatch: the flat log-sweep
     below ``scan_threshold()`` elements, the blocked form (at
-    ``block_size``, default ``DEFAULT_SCAN_BLOCK``) at or above it."""
-    if values.shape[0] >= scan_threshold():
+    ``block_size``, default ``DEFAULT_SCAN_BLOCK``) at or above it, along
+    the last dimension (leading dimensions are lanes)."""
+    if values.shape[-1] >= scan_threshold():
         return segmented_scan_blocked(values, head_flags,
                                       block_size or DEFAULT_SCAN_BLOCK)
     return segmented_scan_flat(values, head_flags)
+
+
+def scan_peak_bytes(n: int, elem: int, scan: str = "auto",
+                    block_size: int = DEFAULT_SCAN_BLOCK) -> int:
+    """Peak device bytes one scan of ``n`` ``elem``-byte values holds
+    beyond its two inputs, its output included, counted from the code
+    above (eager torch frees a temporary with its last reference):
+
+    - ``flat``, at the birth of each stride's ``add``: ``v``, ``pv``, the
+      previous stride's ``add``, the zeros and the new ``add`` (values),
+      ``idx`` (int64), ``f`` and ``pf`` (int32), ``valid`` and the mask
+      (bool);
+    - ``blocked``, at the birth of ``out``: ``cs``, ``base``, ``local``,
+      the zeros, the ``where`` and ``out`` (values), ``hp`` (int64) and
+      the mask (bool) over the padded length, and the padded copies of the
+      values and flags when ``n`` is not a block multiple; the carries'
+      scan over one value a block is left out;
+    - ``auto``: the form ``segmented_scan`` dispatches at ``n``."""
+    if scan == "auto":
+        scan = "blocked" if n >= scan_threshold() else "flat"
+    if scan == "flat":
+        return n * (5 * elem + 8 + 2 * 4 + 2)
+    padded = max(1, -(-n // block_size)) * block_size
+    pad = (elem + 4) * padded if padded != n else 0
+    return padded * (6 * elem + 8 + 1) + pad
 
 
 def segmented_scan_from_starts(values: torch.Tensor,

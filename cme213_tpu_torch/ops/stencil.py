@@ -42,29 +42,51 @@ def flops_per_point(order: int) -> int:
     return 2 * taps + 2 * (taps - 1) + 4
 
 
-def _scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+def _scalar(value, dtype: torch.dtype) -> torch.Tensor:
     # a 0-d CPU tensor of the grid's dtype: rounds the factor to that type
     # once, as jnp.asarray(value, dtype) does, and works with tensors on
-    # any device
+    # any device; a tensor (per-lane factors of a batch) is cast alike
+    if torch.is_tensor(value):
+        return value.to(dtype)
     return torch.tensor(value, dtype=dtype)
 
 
 def stencil_interior(u: torch.Tensor, order: int, xcfl,
                      ycfl) -> torch.Tensor:
-    """New interior values (ny, nx) from a full halo grid (gy, gx)."""
+    """New interior values (..., ny, nx) from full halo grids (..., gy,
+    gx).  Leading dimensions are a batch of independent grids; ``xcfl``
+    and ``ycfl`` are numbers or tensors that broadcast against the
+    interior (per-lane factors of shape (B, 1, 1)).  Every lane makes the
+    2-D grid's operations in the same order, so it equals its own 2-D
+    call bit for bit."""
     coeffs = STENCIL_COEFFS[order]
     b = BORDER_FOR_ORDER[order]
-    gy, gx = u.shape
+    gy, gx = u.shape[-2:]
     ny, nx = gy - 2 * b, gx - 2 * b
-    center = u[b:-b, b:-b]
+    center = u[..., b:-b, b:-b]
     accx = torch.zeros_like(center)
     accy = torch.zeros_like(center)
     for k, c in enumerate(coeffs):
         c = _scalar(c, u.dtype)
-        accx = accx + c * u[b:b + ny, k:k + nx]
-        accy = accy + c * u[k:k + ny, b:b + nx]
+        accx = accx + c * u[..., b:b + ny, k:k + nx]
+        accy = accy + c * u[..., k:k + ny, b:b + nx]
     return (center + _scalar(xcfl, u.dtype) * accx
             + _scalar(ycfl, u.dtype) * accy)
+
+
+#: interior-sized tensors alive at once in ``stencil_interior``: ``accx``,
+#: ``accy``, the partial sum ``center + xcfl·accx``, the product
+#: ``ycfl·accy`` and the returned sum (the loop's peak is four)
+INTERIOR_TEMPORARIES = 5
+
+
+def run_heat_bytes(gy: int, gx: int, order: int, elem: int) -> int:
+    """Device bytes of one ``run_heat`` call on a (gy, gx) grid of
+    ``elem``-byte values, counted from the code: the input grid, its clone
+    and ``INTERIOR_TEMPORARIES`` interior-sized temporaries."""
+    b = BORDER_FOR_ORDER[order]
+    interior = (gy - 2 * b) * (gx - 2 * b)
+    return (2 * gy * gx + INTERIOR_TEMPORARIES * interior) * elem
 
 
 def stencil_interior_conv(u: torch.Tensor, order: int, xcfl,
@@ -115,11 +137,13 @@ def heat_step(u: torch.Tensor, order: int, xcfl, ycfl) -> torch.Tensor:
 
 def run_heat(u: torch.Tensor, iters: int, order: int, xcfl,
              ycfl) -> torch.Tensor:
-    """``iters`` timesteps; returns a new grid, ``u`` is left as it was."""
+    """``iters`` timesteps; returns a new grid, ``u`` is left as it was.
+    A (B, gy, gx) stack with (B, 1, 1) factors is B solves at once, each
+    lane bit for bit its own 2-D solve (``stencil_interior``)."""
     b = BORDER_FOR_ORDER[order]
     g = u.clone()
     for _ in range(iters):
-        g[b:-b, b:-b] = stencil_interior(g, order, xcfl, ycfl)
+        g[..., b:-b, b:-b] = stencil_interior(g, order, xcfl, ycfl)
     return g
 
 

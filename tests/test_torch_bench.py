@@ -21,7 +21,7 @@ import torch
 
 import cme213_tpu.bench.sweeps as jsweeps
 from cme213_tpu_torch.bench import run_all, sweeps
-from cme213_tpu_torch.core import FrameworkError, virtual_devices
+from cme213_tpu_torch.core import FrameworkError, flight, virtual_devices
 
 LABELS = {
     "heat_bandwidth": ("size", "order", "kernel", "dtype", "iters"),
@@ -40,6 +40,15 @@ LABELS = {
 
 #: the JAX package's mode names off the TPU -> the port's on the CPU
 MODES = {"interpret": "plain", "compiled": "compiled"}
+
+
+@pytest.fixture(autouse=True)
+def _disarm_flight():
+    """``run_all.main`` arms the flight recorder for the process, as its
+    CLI does; later tests in the same worker must not dump into the
+    working directory."""
+    yield
+    flight._uninstall_for_tests()
 
 
 @pytest.fixture

@@ -879,3 +879,102 @@ def test_tune_trial_synchronises_before_reading_the_clock(cuda):
                            device=str(cuda))
     tune.run_space(space, clock=Clock(), runs=3, persist=False)
     assert idle_at_read == [True] * 6
+
+
+# ---------------------------------- checkpointed and batched runners (A3)
+
+def test_cuda_state_checkpoint_round_trip(cuda, tmp_path):
+    """Leaves are saved from the host; a resumed CUDA solve equals the
+    uninterrupted one bit for bit."""
+    from cme213_tpu_torch.core import checkpoint
+
+    g = torch.randn(33, 17, device=cuda)
+    ck = str(tmp_path / "c.npz")
+    checkpoint.save_state_checkpoint(ck, 4, {"grid": g, "halo": (g[0],)})
+    step, arrays = checkpoint.load_checkpoint(ck)
+    state = checkpoint._unflatten_state(arrays)
+    assert step == 4
+    np.testing.assert_array_equal(state["grid"], g.cpu().numpy())
+    np.testing.assert_array_equal(state["halo"][0], g[0].cpu().numpy())
+
+    p = SimParams(nx=200, ny=120, order=8, iters=40)
+    whole = heat2d.run_heat_checkpointed(p, str(tmp_path / "w.npz"),
+                                         every=10, device=cuda)
+    half = SimParams(nx=200, ny=120, order=8, iters=20)
+    heat2d.run_heat_checkpointed(half, str(tmp_path / "r.npz"), every=10,
+                                 device=cuda)
+    resumed = heat2d.run_heat_checkpointed(p, str(tmp_path / "r.npz"),
+                                           every=10, device=cuda)
+    ref = run_heat(make_initial_grid(p, device=cuda), 40, 8, p.xcfl,
+                   p.ycfl).cpu().numpy()
+    np.testing.assert_array_equal(whole, ref)
+    np.testing.assert_array_equal(resumed, ref)
+
+
+def test_cuda_checkpointed_solve_emits_progress(cuda, tmp_path):
+    from cme213_tpu_torch.core import trace
+
+    trace.clear_events()
+    p = SimParams(nx=64, ny=64, order=4, iters=12)
+    heat2d.run_heat_checkpointed(p, str(tmp_path / "p.npz"), every=4,
+                                 device=cuda)
+    evs = [e for e in trace.events("solver-progress") if e["op"] == "heat2d"]
+    assert [e["step"] for e in evs] == [4, 8, 12]
+    assert all(e["residual"] > 0 for e in evs)
+
+
+def test_real_out_of_memory_reraises_without_halving(cuda, tmp_path):
+    from cme213_tpu_torch.core import checkpoint, trace
+    from cme213_tpu_torch.core.resilience import all_finite
+
+    trace.clear_events()
+    calls = []
+
+    def step(state, k):
+        calls.append(k)
+        torch.empty(1 << 50, dtype=torch.uint8, device=cuda)  # a petabyte
+        return state
+
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        checkpoint.run_with_checkpoints(
+            step, torch.zeros(8, device=cuda), 16, str(tmp_path / "o.npz"),
+            every=8, guard=all_finite, op="solve")
+    assert calls == [8] and not trace.events("chunk-shrunk")
+
+
+@pytest.mark.parametrize("b,n,order,iters", [(8, 24, 2, 4), (3, 130, 8, 12),
+                                             (4, 97, 4, 7)])
+def test_heat_batched_lanes_bitwise_on_card(cuda, b, n, order, iters):
+    p = SimParams(nx=n, ny=n + 3, order=order)
+    rng = np.random.default_rng(b * n)
+    grids = [_grid(p, torch.float32, cuda, seed=i) for i in range(b)]
+    xs = [p.xcfl * float(v) for v in rng.uniform(0.25, 1.0, b)]
+    ys = [p.ycfl * float(v) for v in rng.uniform(0.25, 1.0, b)]
+    outs = heat2d.run_heat_batched(grids, iters, order, xs, ys, device=cuda)
+    for g, x, y, out in zip(grids, xs, ys, outs):
+        np.testing.assert_array_equal(
+            out, run_heat(g, iters, order, x, y).cpu().numpy())
+
+
+@pytest.mark.parametrize("kernel", ["flat", "blocked", "auto"])
+@pytest.mark.parametrize("b,n", [(8, 512), (8, 1024), (3, 5000),
+                                 (2, 70001)])
+def test_spmv_batched_lanes_bitwise_on_card(cuda, kernel, b, n):
+    probs = [spmv.generate_problem(n, max(3, n // 64), 31, iters=4, seed=s)
+             for s in range(b)]
+    outs = spmv.run_spmv_scan_batched(probs, kernel=kernel, device=cuda)
+    for prob, out in zip(probs, outs):
+        a, xx, flags, _ = spmv.problem_tensors(prob, device=cuda)
+        np.testing.assert_array_equal(
+            out, spmv._iterate(a, xx, flags, 4, scan=kernel).cpu().numpy())
+
+
+@pytest.mark.parametrize("kernel", ["flat", "blocked", "auto"])
+def test_spmv_checkpointed_bitwise_on_card(cuda, kernel, tmp_path):
+    prob = spmv.generate_problem(70001, 900, 899, iters=9, seed=2)
+    out = spmv.run_spmv_scan_checkpointed(prob, str(tmp_path / "s.npz"),
+                                          every=4, kernel=kernel,
+                                          device=cuda)
+    a, xx, flags, _ = spmv.problem_tensors(prob, device=cuda)
+    np.testing.assert_array_equal(
+        out, spmv._iterate(a, xx, flags, 9, scan=kernel).cpu().numpy())

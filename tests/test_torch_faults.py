@@ -21,6 +21,7 @@ from cme213_tpu.core import faults as jfaults
 from cme213_tpu.core import metrics as jmetrics
 from cme213_tpu.core import trace as jtrace
 from cme213_tpu_torch.core import faults as tfaults
+from cme213_tpu_torch.core import flight as tflight
 from cme213_tpu_torch.core import metrics as tmetrics
 from cme213_tpu_torch.core import trace as ttrace
 
@@ -72,6 +73,8 @@ def _fresh(monkeypatch):
         faults.reset()
         trace.clear_events()
         metrics.reset()
+    # run_all.main arms the port's flight recorder for the process
+    tflight._uninstall_for_tests()
 
 
 def _fixture_specs():

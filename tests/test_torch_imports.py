@@ -51,7 +51,10 @@ def test_import_leaves_jax_unloaded():
             " cme213_tpu_torch.bench.headline, cme213_tpu_torch.doctor_cli,"
             " cme213_tpu_torch.core.metrics, cme213_tpu_torch.core.trace,"
             " cme213_tpu_torch.core.faults, cme213_tpu_torch.core.diag,"
-            " cme213_tpu_torch.core.resilience;"
+            " cme213_tpu_torch.core.resilience, cme213_tpu_torch.core.flight,"
+            " cme213_tpu_torch.core.numerics,"
+            " cme213_tpu_torch.core.checkpoint,"
+            " cme213_tpu_torch.core.admission;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
