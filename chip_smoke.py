@@ -260,16 +260,55 @@ the run (non-zero exit) when it fails:
    The seconds of phases 23-27 are printed, and their numbers on a
    ``{"runners": ...}`` line.  These runners launch no hand-written
    kernel: their paths are counted and must launch none.
+28. The telemetry tooling on the card, over traces of the main path.
+   ``python -m cme213_tpu_torch heat2d`` at the headline size (4000²
+   order 8 f32, 1000 steps, through the ladder onto B1, cold) and
+   ``spmv_scan a.txt x.txt cpu_check --kernel=pallas-fused`` on pwtk (B7,
+   the problem written to files first), each a child process with its
+   ``CME213_TRACE_FILE`` sink; a child's launches come from the
+   ``kernel.launches.*`` counters of its sink's final metrics snapshot
+   and must be exactly those of its cold path (B1: 1000 + the warm-up +
+   the probe's 5; B7: 25 + 1 + 4).  Then, in this process, a traced
+   checkpointed 4000² solve (no kernel), and the ladder's 4000² solve
+   untraced and traced in turns (untraced, traced, traced, untraced; ms
+   per step by the host clock between device synchronisations: the
+   spans' and sink's cost) and once under ``CME213_DEVICE_PEAKS`` at half
+   the card's memory rate.  Over those sinks, through the workload table
+   (``python -m cme213_tpu_torch``'s entry) in this process: ``trace
+   summary --json --require heat.run,conformance-probe`` exits 0 and its
+   ``heat.run [pipeline]`` row carries ``pct_peak`` = 100 × ``best_gbs``
+   / the card's peak (``roofline.attribute`` names the normalised
+   device), twice that share under the override; ``trace timeline``;
+   ``trace export`` (Chrome JSON with a B/E pair per ``heat.run``);
+   ``trace metrics`` (the launch counters); ``numerics report
+   --forbid-stall --json`` over the checkpointed sink (4 epochs, not
+   stalled); ``trace flight`` over phase 27's abort dump, whose platform
+   line names torch, CUDA and the card; the ms of one flight dump;
+   ``collect --once --json`` and ``top --once --json --hb-dir`` over
+   every sink and a heartbeat file.  ``bench.run_all --quick --only
+   heat_kernels,scan_bandwidth`` under ``CME213_PROFILE_DIR``: its
+   profiler trace must show ``heat_ksteps``, ``heat_band`` and
+   ``transpose_kernel``, with one memory snapshot a sweep.
+   ``bench.regress`` of phase 14's CSVs against themselves passes
+   ``--strict``, a copy with one ``gbs`` cut by 20% exits 1, and
+   ``--bench`` on phase 16's f32 line skips every ``BENCH_r*.json`` of
+   the checkout; ``bench.batch cme213_tpu_torch/jobs/spmv_scaling.job``
+   (a child) exits 0; ``bench.report`` renders the headline lines, the
+   CSVs, the verdict and the batch summary.  The numbers go on a
+   ``{"telemetry": ...}`` line with the card's name and power limit.
 
-The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16 and 17-20
-drive through the entry points a user calls: ``run_single`` at 512² and at
+The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20 and
+28 drive through the entry points a user calls: ``run_single`` at 512² and at
 4000² (kernel B1, through the ladder), one solve of each of
 ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
 SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
 distributed heat solves (B3 through ``pallas``),
 the sharded SpMV-scan, the full-size sweeps (B4, B5, B8, and B1, B2 through
-their rows), the full-size solves of phase 14 and the headline's child
-measurement of phase 16 (B1).  Every launch count
+their rows), the full-size solves of phase 14, the headline's child
+measurement of phase 16 (B1) and phase 28's traced runs (B1 through the
+``heat2d`` CLI and the ladder's turns, B7 through the ``spmv_scan`` CLI,
+and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
+recorded but not predicted).  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
@@ -308,6 +347,7 @@ import csv
 import io
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -657,12 +697,13 @@ def _span_ms(core, mark, name):
             if e["span"] == name]
 
 
-def runner_phases(counted, only, pwtk, pwtk_ref64):
+def runner_phases(counted, only, pwtk, pwtk_ref64, keep):
     """Phases 23-27: the checkpointed and batched runners and the flight
     recorder on the card (see the module's docstring).  ``counted`` and
     ``only`` are ``main``'s launch-count helpers; ``pwtk`` is phase 8's
-    problem and ``pwtk_ref64`` its f64 plain solve.  Returns the numbers
-    for the ``runners`` line."""
+    problem and ``pwtk_ref64`` its f64 plain solve; the abort's flight dump
+    is copied into ``keep``.  Returns the numbers for the ``runners``
+    line."""
     import dataclasses
 
     import numpy as np
@@ -1038,6 +1079,9 @@ def runner_phases(counted, only, pwtk, pwtk_ref64):
                 with open(os.path.join(fdir, name)) as f:
                     doc = json.load(f)
                 docs[doc["reason"]] = doc
+                if doc["reason"] == "numeric-abort":
+                    rows["flight_dump"] = shutil.copy(
+                        os.path.join(fdir, name), keep)
     summary = {r: {"card": d["platform"].get("card"),
                    "open_spans": [s["span"] for s in d["open_spans"]]}
                for r, d in docs.items()}
@@ -1063,6 +1107,378 @@ def runner_phases(counted, only, pwtk, pwtk_ref64):
     rows["flight"] = {"rc": proc.returncode, "dumps": summary}
     rows["seconds"] = time.perf_counter() - t_phases
     print(f"phases 23-27: {rows['seconds']:.1f} s")
+    return rows
+
+
+#: phase 28: the sweeps profiled under CME213_PROFILE_DIR (at --quick) and
+#: the kernels their profiler trace must show
+PROFILED = ("heat_kernels", "scan_bandwidth")
+PROFILED_KERNELS = ("heat_ksteps", "heat_band", "transpose_kernel")
+
+
+def telemetry_phase(counted, only, paths, work, ident, pwtk, headline,
+                    flight_dump, sweep_dir):
+    """Phase 28: the telemetry tooling on the card (see the module's
+    docstring).  ``counted``, ``only`` and ``paths`` are ``main``'s
+    launch-count helpers and table (the child processes' launches come
+    from their sinks' final metrics snapshot); ``work`` holds the files;
+    ``pwtk`` is phase 8's problem, ``headline`` phase 16's lines,
+    ``flight_dump`` phase 27's abort dump and ``sweep_dir`` phase 14's
+    CSVs.  Returns the numbers for the ``telemetry`` line."""
+    import glob
+
+    import torch
+
+    from cme213_tpu_torch import config, core, grid, models, ops, trace_cli
+    from cme213_tpu_torch.apps import heat2d
+    from cme213_tpu_torch.apps import spmv_scan as spmv
+    from cme213_tpu_torch.bench import regress, report, run_all, sweeps
+    from cme213_tpu_torch.core import flight, roofline
+
+    kind = torch.cuda.get_device_name(0)
+    peak = roofline.peak_for(kind)
+    half = f"{peak.name}:{peak.gbs / 2}:{peak.gfs_f32 / 2}"
+    trace_env = core.trace.TRACE_FILE_ENV
+    t_phase = time.perf_counter()
+    rows = {"card": ident}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CME213_FAULTS", trace_env,
+                        roofline.DEVICE_PEAKS_ENV, run_all.PROFILE_DIR_ENV)}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+
+    def call(label, fn, argv, want=0):
+        """``fn(argv)`` (a CLI's ``main``, or the workload table's
+        ``dispatch``, which ``python -m cme213_tpu_torch`` runs) in this
+        process: (stdout, seconds); fails unless it exits ``want``."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(list(argv))
+        secs = time.perf_counter() - t0
+        if rc != want:
+            fail(f"{label}: exit {rc}, expected {want}\n"
+                 f"{buf.getvalue()[-2000:]}")
+        return buf.getvalue(), secs
+
+    def child(label, args, cwd, sink=None, timeout=600):
+        """``python -m args`` from the checkout in a session of its own,
+        with its trace sink at ``sink``: (stdout, seconds)."""
+        os.makedirs(cwd, exist_ok=True)
+        e = dict(env, **({trace_env: sink} if sink else {}))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=cwd,
+                                env=e, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"{label}: no result in {timeout} s")
+        if proc.returncode != 0:
+            fail(f"{label}: rc {proc.returncode}\n{stderr[-3000:]}")
+        return stdout, time.perf_counter() - t0
+
+    def sink_launches(label, path, expect):
+        """A child's kernel launches, from the ``kernel.launches.*``
+        counters of its sink's final metrics snapshot."""
+        snap = trace_cli.load_metrics_snapshot(path)
+        got = only(None, 0)
+        for name, n in snap.get("counters", {}).items():
+            if name.startswith("kernel.launches."):
+                got[name[len("kernel.launches."):]] = n
+        paths[label] = got
+        print(f"launches of {label}: {got}")
+        if got != expect:
+            fail(f"{label}: launches {got}, expected {expect}")
+
+    def traced(sink, run, **extra):
+        """``run()`` with this process's sink at ``sink`` (and ``extra``
+        variables set), closed after."""
+        os.environ.update({trace_env: sink, **extra})
+        try:
+            return run()
+        finally:
+            core.trace.flush_sink()
+            for var in (trace_env, *extra):
+                os.environ.pop(var, None)
+
+    def sink_path(name):
+        return os.path.join(work, f"{name}-main.jsonl")
+
+    # the headline workload as a user runs it: 4000² order 8 through the
+    # ladder onto B1, cold (probe, warm-up, solve), traced by its sink
+    full = config.SimParams(nx=FULL_N, ny=FULL_N, order=FULL_ORDER,
+                            iters=FULL_ITERS)
+    params_in = os.path.join(work, "full.in")
+    with open(params_in, "w") as f:
+        f.write(f"{full.nx} {full.ny}\n{full.lx} {full.ly}\n{full.alpha}\n"
+                f"{full.iters}\n{full.order}\n{full.ic}\n{full.bc_top} "
+                f"{full.bc_left} {full.bc_bottom} {full.bc_right}\n")
+    label = f"heat2d CLI {FULL_N}x{FULL_N} traced"
+    out, rows["heat_child_s"] = child(
+        label, ["cme213_tpu_torch", "heat2d", params_in],
+        os.path.join(work, "heat"), os.path.join(work, "heat-{rank}.jsonl"))
+    print(f"{label} ({rows['heat_child_s']:.1f} s): "
+          f"{out.strip().splitlines()[-1]}")
+    if "\npipeline: " not in "\n" + out:
+        fail(f"{label}: not served by the kernel rung undemoted:\n{out}")
+    sink_launches(label, sink_path("heat"),
+                  only("pipeline", FULL_ITERS + 1 + HEAT_PROBE_LAUNCHES))
+
+    # pwtk through the SpMV-scan CLI with the fused kernel (B7), cold
+    spmv_dir = os.path.join(work, "spmv")
+    os.makedirs(spmv_dir)
+    t0 = time.perf_counter()
+    spmv.save_problem(pwtk, os.path.join(spmv_dir, "a.txt"),
+                      os.path.join(spmv_dir, "x.txt"))
+    rows["pwtk_files_s"] = time.perf_counter() - t0
+    label = f"spmv_scan CLI {SUITE} pallas-fused traced"
+    out, rows["spmv_child_s"] = child(
+        label, ["cme213_tpu_torch", "spmv_scan", "a.txt", "x.txt",
+                "cpu_check", "--kernel=pallas-fused"], spmv_dir,
+        os.path.join(work, "spmv-{rank}.jsonl"), timeout=900)
+    print(f"{label} ({rows['spmv_child_s']:.1f} s, files "
+          f"{rows['pwtk_files_s']:.1f} s): {out.strip()}")
+    if "Worked!" not in out:
+        fail(f"{label}: the f64 check failed:\n{out}")
+    sink_launches(label, sink_path("spmv"),
+                  only("spmv_fused",
+                       pwtk.iters + 1 + 1 + spmv._PROBE_SHAPE["iters"]))
+
+    # the checkpointed 4000² solve, traced (plain torch: no kernel)
+    label = f"run_heat_checkpointed {FULL_N}x{FULL_N} traced"
+    traced(os.path.join(work, "ck-{rank}.jsonl"), lambda: counted(
+        label, only(None, 0), lambda: heat2d.run_heat_checkpointed(
+            full, os.path.join(work, "ck.npz"), every=RUNNER_EVERY,
+            device="cuda")))
+
+    # the spans' cost: the ladder's 4000² solve untraced and traced, in
+    # turns (untraced, traced, traced, untraced), host clock between
+    # device synchronisations, after an untimed solve that builds the
+    # program
+    u0 = grid.make_initial_grid(full, device="cuda")
+    fargs = (full.iters, full.order, full.xcfl, full.ycfl, full.bc)
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.stencil_pipeline.run_heat_resilient(u0, *fargs, k=1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / full.iters
+
+    solve()
+    turns = {"untraced": [], "traced": []}
+    for i, on in enumerate((False, True, True, False)):
+        label = (f"run_heat_resilient {FULL_N}x{FULL_N} "
+                 f"{'traced' if on else 'untraced'}, turn {i + 1}")
+        run = (lambda: traced(os.path.join(work, "turns-{rank}.jsonl"),
+                              solve)) if on else solve
+        turns["traced" if on else "untraced"].append(
+            counted(label, only("pipeline", FULL_ITERS), run))
+    ratio = sum(turns["traced"]) / sum(turns["untraced"])
+    rows.update(ms_per_step=turns, traced_over_untraced=ratio)
+    print(f"spans' cost, ms/step at {FULL_N}^2 order {FULL_ORDER} "
+          f"({ident}): untraced {turns['untraced']}, traced "
+          f"{turns['traced']}, ratio {ratio:.6f}")
+    label = f"run_heat_resilient {FULL_N}x{FULL_N} traced, {half}"
+    traced(os.path.join(work, "half-{rank}.jsonl"), lambda: counted(
+        label, only("pipeline", FULL_ITERS), solve),
+        **{roofline.DEVICE_PEAKS_ENV: half})
+
+    # trace summary: the gate, and each roofline row against the table
+    out, rows["summary_s"] = call(
+        "trace summary", models.dispatch,
+        ["trace", "summary", sink_path("heat"), "--json", "--require",
+         "heat.run,conformance-probe"])
+    row = json.loads(out)["attribution"].get("heat.run [pipeline]")
+    if row is None or abs(row["pct_peak"] - 100 * row["best_gbs"]
+                          / peak.gbs) > 0.011:
+        fail(f"trace summary: heat.run [pipeline] {row} against "
+             f"{peak.gbs} GB/s")
+    att = roofline.attribute(row["best_gbs"], device=kind)
+    if att["device"] != roofline.normalize(kind) or \
+            abs(att["pct_peak"] - row["pct_peak"]) > 0.011:
+        fail(f"roofline.attribute: {att} against the summary's {row}")
+    out, _ = call("trace summary, half peak", models.dispatch,
+                  ["trace", "summary", sink_path("half"), "--json",
+                   "--require", "heat.run"])
+    half_row = json.loads(out)["attribution"]["heat.run [pipeline]"]
+    share = (half_row["pct_peak"] / half_row["best_gbs"]) / \
+        (row["pct_peak"] / row["best_gbs"])
+    if abs(half_row["pct_peak"] - 200 * half_row["best_gbs"]
+           / peak.gbs) > 0.011 or abs(share - 2) > 0.01:
+        fail(f"{roofline.DEVICE_PEAKS_ENV}={half}: {half_row}, "
+             f"share x{share}")
+    rows["roofline"] = {"heat.run": row, "half_peak": half_row,
+                        "device": att["device"], "share_ratio": share}
+    print(f"trace summary ({rows['summary_s']:.3f} s): heat.run "
+          f"[pipeline] {row}; under {half}: {half_row} (x{share:.4f}); "
+          f"device {att['device']}")
+
+    # timeline, Chrome export, metrics
+    out, _ = call("trace timeline", models.dispatch,
+                  ["trace", "timeline", sink_path("heat")])
+    if "heat.run" not in out:
+        fail("trace timeline: no heat.run line")
+    chrome = os.path.join(work, "heat.chrome.json")
+    call("trace export", models.dispatch,
+         ["trace", "export", sink_path("heat"), "--out", chrome])
+    with open(chrome) as f:
+        evs = json.load(f)["traceEvents"]
+    pairs = [sum(1 for e in evs if e.get("name") == "heat.run"
+                 and e["ph"] == ph) for ph in "BE"]
+    if pairs[0] != pairs[1] or pairs[0] < 1:
+        fail(f"trace export: heat.run B/E {pairs}")
+    out, _ = call("trace metrics", models.dispatch,
+                  ["trace", "metrics", sink_path("heat")])
+    if "kernel_launches_pipeline" not in out:
+        fail(f"trace metrics: no kernel launches in\n{out[-2000:]}")
+
+    # numerics over the checkpointed trace, flight over phase 27's dump
+    out, _ = call("numerics report", models.dispatch,
+                  ["numerics", "report", sink_path("ck"), "--forbid-stall",
+                   "--json"])
+    conv = json.loads(out)["convergence"]["heat2d"]
+    if conv["epochs"] != FULL_ITERS // RUNNER_EVERY or conv["stalled"] \
+            or conv["last_step"] != FULL_ITERS:
+        fail(f"numerics report: {conv}")
+    out, _ = call("trace flight", models.dispatch,
+                  ["trace", "flight", flight_dump])
+    platform = out.splitlines()[1]
+    if f"torch {torch.__version__}" not in platform or \
+            f"CUDA {torch.version.cuda}" not in platform or \
+            kind not in platform:
+        fail(f"trace flight: platform line {platform!r}")
+    os.environ[flight.FLIGHT_DIR_ENV] = os.path.join(work, "flight")
+    try:
+        t0 = time.perf_counter()
+        dump = flight.dump("telemetry-cost")
+        rows["flight_dump_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        os.environ.pop(flight.FLIGHT_DIR_ENV)
+    call("trace flight", models.dispatch, ["trace", "flight", dump])
+    print(f"numerics report: heat2d {conv}; trace flight: {platform}; "
+          f"one flight dump {rows['flight_dump_ms']:.3f} ms")
+
+    # the consoles over every sink, with a supervised rank's heartbeat
+    sinks = sorted(glob.glob(os.path.join(work, "*-main.jsonl")))
+    rows["sinks"] = {}
+    for path in sinks:
+        with open(path) as f:
+            n = sum(1 for _ in f)
+        rows["sinks"][os.path.basename(path)] = {
+            "bytes": os.path.getsize(path), "records": n}
+    out, rows["collect_s"] = call(
+        "collect", models.dispatch,
+        ["collect", os.path.join(work, "*-main.jsonl"), "--once", "--json"])
+    state = json.loads(out)
+    if state["events"] != sum(r["records"] for r in rows["sinks"].values()) \
+            or state["malformed"]:
+        fail(f"collect: {state['events']} events, {rows['sinks']}")
+    hb_dir = os.path.join(work, "hb")
+    os.makedirs(hb_dir)
+    with open(os.path.join(hb_dir, "rank0.json"), "w") as f:
+        json.dump({"rank": 0, "step": FULL_ITERS, "pid": os.getpid(),
+                   "incarnation": 0, "t": time.time()}, f)
+    out, _ = call("top", models.dispatch,
+                  ["top", os.path.join(work, "*-main.jsonl"), "--once",
+                   "--json", "--hb-dir", hb_dir])
+    if json.loads(out)["heartbeats"]["0"]["step"] != FULL_ITERS:
+        fail("top --hb-dir: the heartbeat was not folded")
+    print(f"sinks {rows['sinks']}; collect {rows['collect_s']:.3f} s over "
+          f"{state['events']} records")
+
+    # the sweeps under the profiler: its trace shows the kernels, and each
+    # sweep leaves a memory snapshot
+    prof = os.path.join(work, "profile")
+    mark = len(core.trace.events())
+    os.environ[run_all.PROFILE_DIR_ENV] = prof
+    label = f"run_all --only {','.join(PROFILED)} (quick, profiled)"
+    try:
+        t0 = time.perf_counter()
+        rc = counted(label, None, lambda: run_all.main(
+            ["--out", os.path.join(work, "profiled"), "--quick", "--only",
+             ",".join(PROFILED)]))
+        rows["profiled_s"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop(run_all.PROFILE_DIR_ENV)
+    if rc != 0 or any(paths[label][k] <= 0 for k in (
+            "pipeline", "pipeline2d", "stencil_full", "multistep",
+            "transpose")):
+        fail(f"{label}: rc {rc}, launches {paths[label]}")
+    traces = glob.glob(os.path.join(prof, "trace-*.json"))
+    if len(traces) != 1:
+        fail(f"{label}: profiler traces {traces}")
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    seen = {k: sorted(n for n in names if k in n) for k in PROFILED_KERNELS}
+    memory = [e["path"] for e in core.trace.events()[mark:]
+              if e["event"] == "device-memory"]
+    if not all(seen.values()) or sorted(memory) != [
+            os.path.join(prof, f"memory_{s}.json") for s in sorted(PROFILED)]:
+        fail(f"{label}: kernels {seen}, memory snapshots {memory}")
+    rows["profile"] = {"trace_bytes": os.path.getsize(traces[0]),
+                       "kernels": seen, "memory": [
+                           os.path.getsize(m) for m in memory]}
+    print(f"{label} ({rows['profiled_s']:.1f} s): {rows['profile']}")
+
+    # the regression gate, the batch runner and the report
+    results = os.path.join(work, "bench_results_torch")
+    os.makedirs(results)
+    for dtype_name, line in headline.items():
+        with open(os.path.join(results, f"bench_{dtype_name}.json"),
+                  "w") as f:
+            f.write(json.dumps({k: v for k, v in line.items()
+                                if k != "seconds"}) + "\n")
+    for name in os.listdir(sweep_dir):
+        shutil.copy(os.path.join(sweep_dir, name), results)
+    call("regress, self", regress.main,
+         ["--fresh", sweep_dir, "--baseline", sweep_dir, "--strict"])
+    cut = shutil.copytree(sweep_dir, os.path.join(work, "sweeps_cut"))
+    with open(os.path.join(cut, "heat_kernels.csv"), newline="") as f:
+        table = list(csv.DictReader(f))
+    first = next(r for r in table if float(r["gbs"] or 0) > 0)
+    first["gbs"] = round(float(first["gbs"]) * 0.8, 2)
+    sweeps.write_csv(table, os.path.join(cut, "heat_kernels.csv"))
+    out, _ = call("regress, gbs cut 20%", regress.main,
+                  ["--fresh", cut, "--baseline", sweep_dir, "--strict"],
+                  want=1)
+    if "REGRESSION heat_kernels.csv" not in out:
+        fail(f"regress: the cut row was not flagged\n{out}")
+    verdict = os.path.join(results, "regress.json")
+    call("regress --bench", regress.main,
+         ["--fresh", sweep_dir, "--baseline", sweep_dir, "--strict",
+          "--bench", os.path.join(results, "bench_f32.json"), "--history",
+          HERE, "--json", verdict])
+    with open(verdict) as f:
+        trajectory = json.load(f)["trajectory"]
+    captures = sorted(os.path.basename(p) for p in
+                      glob.glob(os.path.join(HERE, "BENCH_r*.json")))
+    if [s["capture"] for s in trajectory["skipped"]] != captures or \
+            trajectory["history"] or trajectory["device_kind"] != kind:
+        fail(f"regress --bench: trajectory {trajectory}")
+    jobfile = os.path.join(HERE, "cme213_tpu_torch", "jobs",
+                           "spmv_scaling.job")
+    out, rows["batch_s"] = child("bench.batch spmv_scaling.job",
+                                 ["cme213_tpu_torch.bench.batch", jobfile],
+                                 work, timeout=900)
+    print(f"bench.batch ({rows['batch_s']:.1f} s): {out.strip()}")
+    data = os.path.join(work, "DATA.md")
+    call("bench.report", report.main, ["--dir", results, "--out", data])
+    with open(data) as f:
+        text = f.read()
+    for part in ("## Headline bench (f32)", "### heat_kernels.csv",
+                 "### spmv_scaling.jobs.csv", "## Regression gate"):
+        if part not in text:
+            fail(f"bench.report: no {part!r} in DATA.md")
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"regress: cut row flagged, {len(captures)} TPU captures skipped; "
+          f"DATA.md {len(text.splitlines())} lines; phase 28: "
+          f"{rows['seconds']:.1f} s")
     return rows
 
 
@@ -1109,6 +1525,9 @@ def main(argv=None) -> int:
     peak = roofline.peak_for(kind)
     if peak is None:
         fail(f"no peak figures for {kind!r} in core/roofline.PEAKS")
+    # files later phases read back (phase 28): removed at exit
+    work_dir = tempfile.TemporaryDirectory(prefix="chip_smoke-")
+    work = work_dir.name
     entries = {"pipeline": ops.run_heat_pipeline,
                "pipeline2d": ops.run_heat_pipeline2d}
 
@@ -1150,7 +1569,8 @@ def main(argv=None) -> int:
 
     def counted(label, expect, run):
         """Drive one path with every count set to 0 just before it; fail
-        unless the counts read just after are ``expect``."""
+        unless the counts read just after are ``expect`` (``None``: only
+        record them)."""
         for counter in counters:
             for key in counter:
                 counter[key] = 0
@@ -1158,7 +1578,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         paths[label] = {k: v for c in counters for k, v in c.items()}
         print(f"launches of {label}: {paths[label]}")
-        if paths[label] != expect:
+        if expect is not None and paths[label] != expect:
             fail(f"{label}: launches {paths[label]}, expected {expect}")
         return out
 
@@ -1926,6 +2346,7 @@ def main(argv=None) -> int:
                 csv_rows[name] = list(csv.DictReader(f))
         with open(os.path.join(out_dir, "failures.json")) as f:
             failures = json.load(f)
+        sweep_copy = shutil.copytree(out_dir, os.path.join(work, "sweeps"))
     if rc != 0 or failures != {"failed": [], "retried": []}:
         fail(f"{sweep_path}: rc {rc}, failures {failures}")
     for name, rows in csv_rows.items():
@@ -2489,7 +2910,12 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------- 23-27. runners
     core.trace.clear_events()
-    runners = runner_phases(counted, only, prob, ref64)
+    runners = runner_phases(counted, only, prob, ref64, work)
+    flight_dump = runners.pop("flight_dump")
+
+    # ---------------------------------------------------- 28. telemetry
+    telemetry = telemetry_phase(counted, only, paths, work, ident, prob,
+                                headline, flight_dump, sweep_copy)
 
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
@@ -2605,6 +3031,7 @@ def main(argv=None) -> int:
         for row in kernels[:-1]:  # every kernel but B8
             row["turns"] = turns
     print(json.dumps({"runners": runners}))
+    print(json.dumps({"telemetry": telemetry}))
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

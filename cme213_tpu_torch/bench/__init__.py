@@ -1,6 +1,6 @@
 """The sweep harness: counterpart of ``cme213_tpu/bench`` (``sweeps.py``,
-``run_all.py``); ``regress``, ``report``, ``batch`` and ``transport_sweep``
-are not ported yet."""
+``run_all.py``, ``regress.py``, ``report.py``, ``batch.py``);
+``transport_sweep`` is not ported yet."""
 
 from .sweeps import (
     dist_heat_compile_coverage,
@@ -16,7 +16,12 @@ from .sweeps import (
     write_csv,
 )
 
+#: where the port's harness writes and its gate and report read (the JAX
+#: package's own evidence lives in ``bench_results/``)
+RESULTS_DIR = "bench_results_torch"
+
 __all__ = [
+    "RESULTS_DIR",
     "dist_heat_compile_coverage",
     "dist_heat_sweep",
     "heat_kernel_sweep",

@@ -26,6 +26,14 @@ Each attempt first consults the fault plan (``faults.maybe_fail(
 "sweep.<name>")``, so ``CME213_FAULTS=fail:sweep.<name>`` exercises the
 retry), and each sweep emits a ``sweep-failed`` event per failed attempt
 and a ``sweep-complete`` event when it produced rows.
+
+``CME213_PROFILE_DIR=<dir>`` profiles the sweeps with ``torch.profiler``
+(``core/trace.device_trace``: CPU and, on the card, CUDA activity) into a
+Chrome trace in ``<dir>``, and after each sweep on the card writes the
+allocator's state (``torch.cuda.memory_snapshot()``) to
+``<dir>/memory_<sweep>.json`` with a ``device-memory`` event.  Profiling
+is best-effort: when it is unavailable a line says so, and it never
+changes what the sweeps compute or where they run.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ import json
 import os
 import sys
 import time
+
+#: directory for the sweeps' profiler trace and memory snapshots
+PROFILE_DIR_ENV = "CME213_PROFILE_DIR"
 
 #: CSV basename -> (sweep function in ``sweeps``, quick sizes, full sizes);
 #: the JAX package's table (``cme213_tpu/bench/run_all.py``), in its order
@@ -95,12 +106,12 @@ NOT_PORTED = ("data_bandwidth_vector_length", "bandwidth_vs_avg_edges",
 def main(argv=None) -> int:
     from ..core import faults, flight, metrics, trace
     from ..core.platform import resolve_device
-    from . import sweeps
+    from . import RESULTS_DIR, sweeps
 
     flight.install()  # a crashed sweep leaves its black box behind
     ap = argparse.ArgumentParser(prog="python -m cme213_tpu_torch.bench."
                                       "run_all")
-    ap.add_argument("--out", default="bench_results_torch")
+    ap.add_argument("--out", default=RESULTS_DIR)
     ap.add_argument("--quick", action="store_true",
                     help="small sizes (CI/CPU-friendly)")
     ap.add_argument("--only", default=None,
@@ -126,39 +137,62 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
 
+    profile_dir = os.environ.get(PROFILE_DIR_ENV)
+    profiler = None
+    if profile_dir:
+        try:
+            profiler = trace.device_trace(profile_dir)
+            profiler.__enter__()
+        except Exception as e:  # noqa: BLE001 — profiling is best-effort
+            profiler = None
+            print(f"{PROFILE_DIR_ENV}: profiler unavailable "
+                  f"({type(e).__name__}: {e})", file=sys.stderr)
+
     failed, retried = [], []
     sweep_metrics: dict[str, dict] = {}
-    for name, (fn_name, quick, full) in JOBS.items():
-        if only is not None and name not in only:
-            continue
-        path = os.path.join(args.out, f"{name}.csv")
-        kwargs = quick if args.quick else full
-        rows = None
-        before = metrics.snapshot()
-        t0 = time.perf_counter()
-        for attempt in (1, 2):  # one retry: a flake cannot zero the run
+    try:
+        for name, (fn_name, quick, full) in JOBS.items():
+            if only is not None and name not in only:
+                continue
+            path = os.path.join(args.out, f"{name}.csv")
+            kwargs = quick if args.quick else full
+            rows = None
+            before = metrics.snapshot()
+            t0 = time.perf_counter()
+            for attempt in (1, 2):  # one retry: a flake cannot zero the run
+                try:
+                    faults.maybe_fail(f"sweep.{name}")
+                    rows = getattr(sweeps, fn_name)(**kwargs, device=device)
+                    break
+                except Exception as e:  # noqa: BLE001 — recorded, retried
+                    rec = {"sweep": name, "attempt": attempt,
+                           "error": type(e).__name__,
+                           "message": str(e)[:500]}
+                    print(f"{name}.csv: FAILED attempt {attempt}/2 "
+                          f"({type(e).__name__}: {e})", file=sys.stderr)
+                    (retried if attempt == 1 else failed).append(rec)
+                    trace.record_event("sweep-failed", sweep=name,
+                                       attempt=attempt,
+                                       error=type(e).__name__)
+            if rows is None:
+                continue
+            ms = round((time.perf_counter() - t0) * 1e3, 1)
+            trace.record_event("sweep-complete", sweep=name, rows=len(rows),
+                               ms=ms)
+            if profiler is not None:
+                _memory_snapshot(profile_dir, name, device)
+            sweep_metrics[name] = {
+                "rows": len(rows), "ms": ms,
+                "metrics": metrics.delta(before, metrics.snapshot())}
+            sweeps.write_csv(rows, path)
+            print(f"{path}: {len(rows)} rows")
+    finally:
+        if profiler is not None:
             try:
-                faults.maybe_fail(f"sweep.{name}")
-                rows = getattr(sweeps, fn_name)(**kwargs, device=device)
-                break
-            except Exception as e:  # noqa: BLE001 — recorded, then retried
-                rec = {"sweep": name, "attempt": attempt,
-                       "error": type(e).__name__, "message": str(e)[:500]}
-                print(f"{name}.csv: FAILED attempt {attempt}/2 "
+                profiler.__exit__(None, None, None)
+            except Exception as e:  # noqa: BLE001
+                print(f"{PROFILE_DIR_ENV}: trace not written "
                       f"({type(e).__name__}: {e})", file=sys.stderr)
-                (retried if attempt == 1 else failed).append(rec)
-                trace.record_event("sweep-failed", sweep=name,
-                                   attempt=attempt, error=type(e).__name__)
-        if rows is None:
-            continue
-        ms = round((time.perf_counter() - t0) * 1e3, 1)
-        trace.record_event("sweep-complete", sweep=name, rows=len(rows),
-                           ms=ms)
-        sweep_metrics[name] = {"rows": len(rows), "ms": ms,
-                               "metrics": metrics.delta(before,
-                                                        metrics.snapshot())}
-        sweeps.write_csv(rows, path)
-        print(f"{path}: {len(rows)} rows")
     with open(os.path.join(args.out, "failures.json"), "w") as f:
         json.dump({"failed": failed, "retried": retried}, f, indent=2)
     with open(os.path.join(args.out, "metrics.json"), "w") as f:
@@ -166,6 +200,25 @@ def main(argv=None) -> int:
     # nonzero only on a sweep failing BOTH attempts; retry-recovered flakes
     # exit 0 and stay auditable in failures.json
     return 1 if failed else 0
+
+
+def _memory_snapshot(profile_dir: str, name: str, device) -> None:
+    """The allocator's state after sweep ``name`` on the card, as JSON,
+    with a ``device-memory`` event; nothing on the CPU."""
+    from ..core import trace
+
+    if device.type != "cuda":
+        return
+    try:
+        import torch
+
+        path = os.path.join(profile_dir, f"memory_{name}.json")
+        with open(path, "w") as f:
+            json.dump(torch.cuda.memory_snapshot(), f, default=str)
+        trace.record_event("device-memory", path=path,
+                           bytes=os.path.getsize(path))
+    except Exception:  # noqa: BLE001 — never fail a sweep over this
+        pass
 
 
 if __name__ == "__main__":

@@ -7,10 +7,14 @@ NVIDIA's data-sheet figures for the H100
 (dense, no sparsity), chosen by ``torch.cuda.get_device_name()``.  They
 assume the card's full power limit; a card set below it runs slower, so
 every measurement states the limit beside it.
+``CME213_DEVICE_PEAKS=name:gbs:gfs[,...]`` overrides or extends the table,
+as in the JAX package (an entry's ``gfs`` sets both the f32 and the f64
+rate).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,6 +64,9 @@ class DevicePeak:
         return self.gfs_f64 if elem_size(dtype) == 8 else self.gfs_f32
 
 
+#: override/extend the peak table: ``name:gbs:gfs[,name:gbs:gfs...]``
+DEVICE_PEAKS_ENV = "CME213_DEVICE_PEAKS"
+
 #: NVIDIA H100 data sheet: SXM5 (700 W) and PCIe (350 W) parts
 PEAKS = {
     "h100-sxm": DevicePeak("h100-sxm", 3350.0, 67_000.0, 34_000.0),
@@ -67,13 +74,41 @@ PEAKS = {
 }
 
 
+def normalize(name: str) -> str:
+    return str(name).strip().lower().replace(" ", "-").replace("_", "-")
+
+
+def peaks() -> dict[str, DevicePeak]:
+    """The peak table: ``PEAKS`` overlaid with ``CME213_DEVICE_PEAKS``
+    entries (malformed entries are ignored: a mistyped variable must not
+    take down a bench run)."""
+    table = dict(PEAKS)
+    for entry in os.environ.get(DEVICE_PEAKS_ENV, "").split(","):
+        parts = entry.strip().split(":")
+        if len(parts) != 3:
+            continue
+        key = normalize(parts[0])
+        try:
+            gbs, gfs = float(parts[1]), float(parts[2])
+        except ValueError:
+            continue
+        table[key] = DevicePeak(key, gbs, gfs, gfs)
+    return table
+
+
 def peak_for(device_name: str | None) -> DevicePeak | None:
-    """Peak entry for a CUDA device name (``torch.cuda.get_device_name``);
-    None for a card the table does not hold."""
-    name = (device_name or "").lower()
-    if "h100" not in name:
+    """Peak entry for a CUDA device name (``torch.cuda.get_device_name``):
+    the exact normalised name first, then the H100 parts by name; None for
+    a card the table does not hold."""
+    if not device_name:
         return None
-    return PEAKS["h100-pcie" if "pcie" in name else "h100-sxm"]
+    table = peaks()
+    key = normalize(device_name)
+    if key in table:
+        return table[key]
+    if "h100" not in key:
+        return None
+    return table["h100-pcie" if "pcie" in key else "h100-sxm"]
 
 
 def detect_device() -> str:
@@ -101,20 +136,22 @@ def attribute(gbs: float, gflops: float = 0.0,
               device: str | None = None) -> dict:
     """Roofline verdict for an achieved (GB/s, GF/s) pair.
 
-    Returns ``{"device", "peak_gbs", "peak_gfs", "pct_peak", "bound"}``;
+    Returns ``{"device", "peak_gbs", "peak_gfs", "pct_peak", "bound"}``
+    with the normalised device name;
     ``pct_peak`` (achieved over peak bandwidth, in percent) is None when
     the card has no peak entry.  ``bound`` is "memory" when the op's share
     of peak bandwidth exceeds its share of peak FP32 rate, else "compute".
     """
     dev = device if device is not None else detect_device()
     pk = peak_for(dev)
-    out = {"device": dev, "peak_gbs": pk.gbs if pk else None,
+    out = {"device": normalize(dev) if dev else "unknown",
+           "peak_gbs": pk.gbs if pk else None,
            "peak_gfs": pk.gfs_f32 if pk else None,
            "pct_peak": None, "bound": ""}
-    if pk is None or gbs <= 0:
+    if pk is None or not gbs or gbs <= 0:
         return out
     mem_frac = gbs / pk.gbs
-    comp_frac = gflops / pk.gfs_f32
+    comp_frac = (gflops / pk.gfs_f32) if (gflops and pk.gfs_f32) else 0.0
     out["pct_peak"] = round(100.0 * mem_frac, 2)
     out["bound"] = "compute" if comp_frac > mem_frac else "memory"
     return out

@@ -42,6 +42,30 @@ def _tune(argv: list[str]) -> int:
     return tune_cli.main(argv)
 
 
+def _trace(argv: list[str]) -> int:
+    from . import trace_cli
+
+    return trace_cli.main(argv)
+
+
+def _collect(argv: list[str]) -> int:
+    from .core import collector
+
+    return collector.main(argv)
+
+
+def _top(argv: list[str]) -> int:
+    from . import top_cli
+
+    return top_cli.main(argv)
+
+
+def _numerics(argv: list[str]) -> int:
+    from . import numerics_cli
+
+    return numerics_cli.main(argv)
+
+
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
@@ -66,6 +90,28 @@ WORKLOADS: dict[str, Workload] = {
                  "statics: run --op heat,spmv_scan,segmented_scan | show | "
                  "clear (CME213_TUNE_CACHE; CME213_TUNE=0 disables)",
                  _tune),
+        # not reference workloads: the telemetry tooling over the
+        # CME213_TRACE_FILE sinks every workload above writes (host
+        # tooling only; it reads files and touches no device)
+        Workload("trace", "telemetry", "summary | timeline | merge | "
+                 "export (Perfetto) | waterfall | regress | metrics "
+                 "(Prometheus text) | flight (crash dump) over "
+                 "CME213_TRACE_FILE JSON-lines traces and bench artifacts",
+                 _trace),
+        Workload("collect", "telemetry", "tail per-rank trace sinks into "
+                 "a live merged fleet view: one-shot state (--once/"
+                 "--json) or a followed merged JSONL stream (--follow)",
+                 _collect),
+        Workload("top", "telemetry", "live fleet console over the "
+                 "collector: per-rank state/step/heartbeat-age rows, "
+                 "fleet gauges, solver convergence, recent events; "
+                 "deterministic --once/--json, --hb-dir folds heartbeat "
+                 "files", _top),
+        Workload("numerics", "telemetry", "report: numeric-health rollup "
+                 "over trace sinks (drift samples, budget burns and rung "
+                 "demotions, sentinel trips, solver convergence/stall); "
+                 "--json for CI, --max-over-budget/--min-samples/"
+                 "--forbid-stall gate with exit 1", _numerics),
     )
 }
 

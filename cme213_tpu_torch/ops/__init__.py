@@ -1,3 +1,6 @@
+import atexit
+
+from ..core import metrics  # its exit snapshot registers first
 from .scan import blocked_inclusive_scan, exclusive_scan, inclusive_scan
 from .segmented import (BLOCKED_SCAN_THRESHOLD, DEFAULT_SCAN_BLOCK,
                         head_flags_from_starts, scan_threshold,
@@ -62,3 +65,21 @@ __all__ = [
     "transpose_xla",
     "validate_segments",
 ]
+
+
+def _record_launches() -> None:
+    """At exit, add the process's kernel launches to the metrics registry
+    as ``kernel.launches.<kernel>`` counters, so the final
+    ``metrics-snapshot`` of a traced run names the kernels it launched.
+    Registered after ``core/metrics`` registered its exit snapshot, so it
+    runs first; a process that launched nothing adds nothing."""
+    from . import segmented_pallas, stencil_pallas, stencil_pipeline, transpose
+
+    for counts in (stencil_pipeline.LAUNCHES, segmented_pallas.LAUNCHES,
+                   stencil_pallas.LAUNCHES, transpose.LAUNCHES):
+        for name, n in counts.items():
+            if n:
+                metrics.counter(f"kernel.launches.{name}").inc(n)
+
+
+atexit.register(_record_launches)

@@ -54,7 +54,12 @@ def test_import_leaves_jax_unloaded():
             " cme213_tpu_torch.core.resilience, cme213_tpu_torch.core.flight,"
             " cme213_tpu_torch.core.numerics,"
             " cme213_tpu_torch.core.checkpoint,"
-            " cme213_tpu_torch.core.admission;"
+            " cme213_tpu_torch.core.admission,"
+            " cme213_tpu_torch.core.roofline, cme213_tpu_torch.core.collector,"
+            " cme213_tpu_torch.trace_cli, cme213_tpu_torch.top_cli,"
+            " cme213_tpu_torch.numerics_cli, cme213_tpu_torch.bench.regress,"
+            " cme213_tpu_torch.bench.report, cme213_tpu_torch.bench.batch,"
+            " cme213_tpu_torch.dist.supervisor;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
