@@ -209,8 +209,9 @@ the run (non-zero exit) when it fails:
    tile knobs must resolve the winner from that cache (``tune-hit``) and
    run at its ``tile_y``.
 22. ``python -m cme213_tpu_torch doctor calibrate --json`` exits 0 with
-   its four rows (the roofline models of spmv_scan and heat against a
-   torch rung's FlopCounterMode count and a kernel rung's launch plan).
+   its five rows (the roofline models of spmv_scan and heat against a
+   torch rung's FlopCounterMode count and a kernel rung's launch plan, and
+   ``torch.sort`` of 4096 keys against ``sort_cost``).
 23. The checkpointed heat solve at the headline grid (4000² order 8 f32,
    1000 steps, a checkpoint every 250, in a temporary directory):
    ``apps.heat2d.run_heat_checkpointed`` equals the uninterrupted
@@ -296,19 +297,48 @@ the run (non-zero exit) when it fails:
    (a child) exits 0; ``bench.report`` renders the headline lines, the
    CSVs, the verdict and the batch summary.  The numbers go on a
    ``{"telemetry": ...}`` line with the card's name and power limit.
+29. The hw1, hw3 and hw4 workloads on the card at the reference's own
+   sizes (plain torch and host code: each path is counted and launches no
+   hand-written kernel, but the suite sweep's B7).  Cipher:
+   ``apps.cipher.run_cipher`` on the shipped corpus ×16 (20,004,128 B),
+   every variant byte-exact, then each variant by CUDA events against
+   ``cipher_cost``.  PageRank: ``apps.pagerank.main`` at its defaults (2^21
+   nodes, average 8 edges, 20 iterations; "Worked!" by ULP-10), then the
+   same graph again held bitwise to ``host_graph_iterate`` and a second
+   solve bitwise to the first; ms by CUDA events, GB/s by
+   ``pagerank_cost``, the bound.  Vigenère: the ``create`` and ``solve``
+   CLIs on the shipped corpus with period 7 must print the key and write
+   the sanitised text back.  Sorts: the ``sorts`` CLI at its defaults
+   (1,000,000 keys: native merge, radix and serial radix, and the device
+   radix) exits 0; the device radix, bitonic and ``torch.sort`` of 2^20
+   uint32 keys are exact, with ms (CUDA events) and each one's peak device
+   bytes over its input.  ``tune run --op sort`` at 2^20 into a temporary
+   cache, and ``sort_auto`` must resolve its winner (``tune-hit``) and sort
+   exactly; phase 22's sort row is printed.  ``bench.run_all --only`` the
+   five sweeps this slice ports, full size but ``spmv_suite`` at scale
+   ``SUITE_SWEEP_SCALE`` (its full table: a call of its own), every row
+   without an error and ``ok``, the suite's ``flat`` and ``pallas-fused``
+   rows within ``rel_l2`` ≤ 1e-2 of the f64 golden (float32 rounding over
+   up to 77 iterations costs up to ~2e-3 there) and its ``blocked`` rows
+   finite (the blocked scan's cancellation, the JAX package's too); its
+   ``pallas-fused`` rows' B7 launches are recorded.  Last, phase 28's pwtk files through
+   ``load_problem`` with the native and the Python tokenizer: the
+   ``spmv_scan.load`` span must name each, the problems bitwise equal, the
+   seconds of each printed.  The numbers go on a ``{"workloads": ...}``
+   line.
 
-The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20 and
-28 drive through the entry points a user calls: ``run_single`` at 512² and at
+The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28
+and 29 drive through the entry points a user calls: ``run_single`` at 512² and at
 4000² (kernel B1, through the ladder), one solve of each of
 ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
 SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
 distributed heat solves (B3 through ``pallas``),
 the sharded SpMV-scan, the full-size sweeps (B4, B5, B8, and B1, B2 through
 their rows), the full-size solves of phase 14, the headline's child
-measurement of phase 16 (B1) and phase 28's traced runs (B1 through the
+measurement of phase 16 (B1), phase 28's traced runs (B1 through the
 ``heat2d`` CLI and the ladder's turns, B7 through the ``spmv_scan`` CLI,
 and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
-recorded but not predicted).  Every launch count
+recorded but not predicted) and phase 29's suite sweep (B7, recorded).  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
@@ -1479,6 +1509,275 @@ def telemetry_phase(counted, only, paths, work, ident, pwtk, headline,
     print(f"regress: cut row flagged, {len(captures)} TPU captures skipped; "
           f"DATA.md {len(text.splitlines())} lines; phase 28: "
           f"{rows['seconds']:.1f} s")
+    return rows
+
+
+#: phase 29: the suite sweep's scale here (its full-scale table runs in a
+#: call of its own: ``bench.run_all --only spmv_suite``)
+SUITE_SWEEP_SCALE = 0.1
+#: phase 29: the device sorts' size and the Vigenère key's period
+SORT_N, VIGENERE_PERIOD = 1 << 20, 7
+
+
+def workloads_phase(counted, only, paths, work, ident, calibration):
+    """Phase 29: the hw1, hw3 and hw4 workloads on the card (see the
+    module's docstring).  ``counted``, ``only`` and ``paths`` are
+    ``main``'s launch-count helpers and table; ``work`` holds phase 28's
+    pwtk files; ``calibration`` is phase 22's ``doctor calibrate`` table.
+    Returns the numbers for the ``workloads`` line."""
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import core, native, tune_cli
+    from cme213_tpu_torch.apps import cipher, pagerank, sorts
+    from cme213_tpu_torch.apps import spmv_scan as spmv
+    from cme213_tpu_torch.apps import vigenere as vg
+    from cme213_tpu_torch.apps.corpus import corpus_path, load_corpus
+    from cme213_tpu_torch.bench import run_all
+    from cme213_tpu_torch.core import roofline, tune
+    from cme213_tpu_torch.ops import bitonic_sort, radix_sort
+    from cme213_tpu_torch.ops import sort as lib_sort  # the function
+    from cme213_tpu_torch.ops.sort import sort_auto
+    from cme213_tpu_torch.verify import golden
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    peak = roofline.peak_for(kind)
+    t_phase = time.perf_counter()
+    rows = {"card": ident}
+    none = only(None, 0)  # plain torch and host code: no hand-written kernel
+
+    def quiet(fn, *args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        return out, buf.getvalue()
+
+    def rate(cost, ms):
+        gbs = cost.gbs(ms)
+        return {"ms": ms, "gbs": gbs, "pct_peak": 100.0 * gbs / peak.gbs}
+
+    # cipher: the shipped corpus ×16 through run_cipher, each variant
+    # byte-exact against the host golden; then each variant by CUDA events
+    timer = core.PhaseTimer()
+    ok, out = quiet(lambda: counted(
+        "run_cipher corpus x16", none,
+        lambda: cipher.run_cipher(timer=timer, device=dev)))
+    if not ok:
+        fail(f"run_cipher: a variant is not byte-exact\n{out}")
+    text = np.tile(load_corpus(), 16)
+    d_text = torch.from_numpy(text).to(dev)
+    cost = roofline.cipher_cost(text.size)
+    rows["cipher"] = {"bytes": int(text.size), "variants": {}}
+    for name, fn in cipher.VARIANTS:
+        ms = core.time_fn(lambda d, fn=fn: fn(d, 17), d_text, warmup=1,
+                          iters=5)
+        rows["cipher"]["variants"][name] = dict(
+            rate(cost, ms), phase_ms=timer.last_ms(name))
+        r = rows["cipher"]["variants"][name]
+        print(f"cipher {name} ({text.size} B): {ms:.6f} ms (CUDA events), "
+              f"{r['gbs']:.1f} GB/s ({r['pct_peak']:.2f}% of "
+              f"{peak.gbs:.0f}); phase (host clock) {r['phase_ms']:.3f} ms; "
+              f"byte-exact")
+
+    # PageRank at the reference's defaults: main (ULP-10 against the host
+    # golden), then the same graph again: bitwise the golden, twice
+    ok, out = quiet(lambda: counted("pagerank.main", none,
+                                    lambda: pagerank.main(device=dev)))
+    if not ok or "Worked!" not in out:
+        fail(f"pagerank.main: {out}")
+    g = pagerank.build_graph(1 << 21, 8, 0)
+    first = pagerank.run_pagerank(g, 20, device=dev).cpu().numpy()
+    t0 = time.perf_counter()
+    ref = golden.host_graph_iterate(g.indices, g.edges, g.rank0, g.inv_deg,
+                                    20)
+    golden_s = time.perf_counter() - t0
+    again = pagerank.run_pagerank(g, 20, device=dev).cpu().numpy()
+    ulp = int(core.ulp_distance(first, ref).max())
+    if ulp != 0 or not np.array_equal(first, again):
+        fail(f"pagerank: {ulp} ULP from the golden, repeatable "
+             f"{np.array_equal(first, again)}")
+    dg = pagerank.upload(g, dev)
+    rank0 = torch.from_numpy(g.rank0).to(dev)
+    ms = core.time_fn(lambda r: pagerank.iterate(dg, r, 20), rank0,
+                      warmup=1, iters=3)
+    cost = roofline.pagerank_cost(g.num_nodes, g.edges.shape[0], 20)
+    b_ms, b_by = roofline.bound_ms(cost, peak, torch.float32)
+    rows["pagerank"] = dict(rate(cost, ms), nodes=g.num_nodes,
+                            edges=int(g.edges.shape[0]), iters=20,
+                            bound_ms=b_ms, bound_by=b_by, golden_ulp=ulp,
+                            repeatable=True, golden_s=golden_s)
+    print(f"pagerank 2^21 nodes, {g.edges.shape[0]} edges, 20 iters: "
+          f"{ms:.6f} ms (CUDA events), {rows['pagerank']['gbs']:.1f} GB/s "
+          f"({rows['pagerank']['pct_peak']:.2f}%), bound {b_ms:.6f} ms by "
+          f"{b_by}; bitwise the golden and repeatable; golden "
+          f"{golden_s:.1f} s on the host")
+
+    # Vigenère: the create and solve CLIs on the shipped corpus
+    vdir = os.path.join(work, "vigenere")
+    os.makedirs(vdir)
+    cwd = os.getcwd()
+    os.chdir(vdir)
+    try:
+        t0 = time.perf_counter()
+        rc, created = quiet(vg.main, ["vigenere", corpus_path(),
+                                      str(VIGENERE_PERIOD)])
+        rc2, solved = quiet(vg.main, ["vigenere", "solve",
+                                      "cipher_text.txt"])
+        secs = time.perf_counter() - t0
+        plain = np.fromfile("plain_text.txt", dtype=np.uint8)
+    finally:
+        os.chdir(cwd)
+    clean = vg.sanitize(load_corpus(), device=dev)
+    key = vg.key_string(vg.generate_key(VIGENERE_PERIOD))
+    if rc or rc2 or f"Key: {key}" not in created or \
+            f"keyLength: {VIGENERE_PERIOD}" not in solved or \
+            f"Key: {key}" not in solved or not np.array_equal(plain, clean):
+        fail(f"vigenere: rc {rc}/{rc2}, key {key}\n{created}\n"
+             f"{solved[-600:]}")
+    rows["vigenere"] = {"chars": int(clean.size), "key": key, "s": secs}
+    print(f"vigenere create + solve CLIs on the corpus ({clean.size} "
+          f"letters, {secs:.2f} s): key {key} and the plain text recovered")
+
+    # sorts: the CLI at its defaults (host merge, radix, serial radix, and
+    # the device radix), then the device sorts at 2^20 uint32 keys
+    t0 = time.perf_counter()
+    rc, out = quiet(lambda: counted("sorts CLI defaults", none,
+                                    lambda: sorts.main(["sorts"])))
+    rows["sorts_cli"] = {"s": time.perf_counter() - t0,
+                         "threads": native.thread_count()}
+    if rc != 0:
+        fail(f"sorts CLI: rc {rc}\n{out}")
+    print(f"sorts CLI ({rows['sorts_cli']['s']:.1f} s, "
+          f"{native.thread_count()} threads):\n  "
+          + "\n  ".join(out.strip().splitlines()))
+    keys_host = np.random.default_rng(0).integers(0, 2 ** 32, SORT_N,
+                                                  dtype=np.uint32)
+    keys = torch.from_numpy(keys_host).to(dev)
+    want = np.sort(keys_host)
+    rows["sorts"] = {}
+    for name, fn in (("radix", radix_sort), ("bitonic", bitonic_sort),
+                     ("torch.sort", lib_sort)):
+        got = counted(f"{name} {SORT_N}", none, lambda fn=fn: fn(keys))
+        if not np.array_equal(got.cpu().numpy(), want):
+            fail(f"{name} sort of {SORT_N} keys is not exact")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(keys)
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated() - base
+        ms = core.time_fn(fn, keys, warmup=1, iters=3)
+        cost = roofline.sort_cost(SORT_N, "radix" if name == "radix"
+                                  else "merge")
+        rows["sorts"][name] = dict(rate(cost, ms), peak_bytes=peak_bytes)
+        print(f"{name} {SORT_N} uint32: {ms:.6f} ms (CUDA events), "
+              f"{rows['sorts'][name]['gbs']:.1f} GB/s by sort_cost, peak "
+              f"{peak_bytes} B over its inputs; exact")
+
+    # the tuner's sort space at 2^20, then sort_auto serving its winner
+    with tempfile.TemporaryDirectory() as tdir:
+        os.environ[tune.CACHE_ENV] = os.path.join(tdir, "tune.json")
+        tune.reset()
+        try:
+            rc, out = quiet(tune_cli.main, [
+                "run", "--op", "sort", "--n", str(SORT_N), "--runs", "5",
+                "--json"])
+            if rc != 0:
+                fail(f"tune run --op sort: rc {rc}\n{out}")
+            (rep,) = json.loads(out)
+            tune.reset()  # the winner comes back from the disk cache
+            mark = len(core.trace.events())
+            got = sort_auto(keys)
+            hits = [e for e in core.trace.events()[mark:]
+                    if e["event"] == "tune-hit" and e["op"] == "sort"]
+        finally:
+            del os.environ[tune.CACHE_ENV]
+            tune.reset()
+    win = rep["winner"]
+    served = json.loads(hits[-1]["statics"]) if hits else None
+    print(f"tune run --op sort {rep['shape_class']}: winner "
+          f"{win['candidate']} ({win['ms']} ms); trials "
+          f"{[(t['candidate'], t['ms'], t['ok']) for t in rep['trials']]}; "
+          f"sort_auto served {served}")
+    if served != win["statics"] or not np.array_equal(got.cpu().numpy(),
+                                                      want) or \
+            not all(t["ok"] for t in rep["trials"]):
+        fail(f"sort_auto did not serve the tuned winner: {rep}, {hits}")
+    rows["tune_sort"] = {"winner": win, "trials": rep["trials"]}
+    sort_row = [r for r in calibration if r["op"] == "sort"]
+    print(f"doctor calibrate (phase 22), sort row: {json.dumps(sort_row)}")
+    rows["calibrate_sort"] = sort_row
+
+    # the five sweeps through run_all, the suite at a cut scale
+    names = ("data_bandwidth_vector_length", "bandwidth_vs_avg_edges",
+             "sort_threads", "sort_sweep", "spmv_suite")
+    sweep_dir = os.path.join(work, "sweeps29")
+    fn_name, quick, full = run_all.JOBS["spmv_suite"]
+    run_all.JOBS["spmv_suite"] = (fn_name, quick,
+                                  dict(full, scale=SUITE_SWEEP_SCALE))
+    print(f"spmv_suite here at scale {SUITE_SWEEP_SCALE} (cut from "
+          f"{full['scale']}; its full table runs in a call of its own)")
+    label = f"run_all hw1/hw3/hw4 sweeps (spmv_suite scale " \
+            f"{SUITE_SWEEP_SCALE})"
+    t0 = time.perf_counter()
+    try:
+        rc, out = quiet(lambda: counted(label, None, lambda: run_all.main(
+            ["--out", sweep_dir, "--only", ",".join(names)])))
+    finally:
+        run_all.JOBS["spmv_suite"] = (fn_name, quick, full)
+    rows["sweeps_s"] = time.perf_counter() - t0
+    if rc != 0 or paths[label]["spmv_fused"] <= 0:
+        fail(f"{label}: rc {rc}, launches {paths[label]}\n{out[-3000:]}")
+    rows["sweeps"] = {}
+    with open(os.path.join(sweep_dir, "metrics.json")) as f:
+        sweep_ms = json.load(f)
+    for name in names:
+        with open(os.path.join(sweep_dir, f"{name}.csv")) as f:
+            table = list(csv.DictReader(f))
+        # the suite's float32 iterations lose up to ~2e-3 against the f64
+        # golden by rounding alone (rma10 at a tenth, 74 iterations: flat
+        # 9.7e-4, JAX's flat the same; B7 2.0e-3, its plain version the
+        # same on the CPU), and the blocked scan's cancellation a few 1e-2
+        # (jonheart at a tenth: JAX's blocked 3.6e-2 on the CPU); a wrong
+        # scan is off by O(1).  So flat and pallas-fused rows are held to
+        # 1e-2 and blocked rows finite; B7 against its plain version is
+        # phase 7's, at 0 ULP
+        bad = [r for r in table if r.get("error") or r.get("ok") == "False"
+               or ("rel_l2" in r and not float(r["rel_l2"]) <= (
+                   float("inf") if r["kernel"] == "blocked" else 1e-2))]
+        if not table or bad:
+            fail(f"{name}.csv: {len(table)} rows, bad {bad[:3]}")
+        rows["sweeps"][name] = table
+        print(f"{name}.csv: {len(table)} rows in "
+              f"{sweep_ms[name]['ms'] / 1e3:.1f} s")
+        for r in table:
+            print(f"  {json.dumps(r)}")
+
+    # the loader: phase 28's pwtk files by each tokenizer
+    a_txt = os.path.join(work, "spmv", "a.txt")
+    x_txt = os.path.join(work, "spmv", "x.txt")
+    loads = {}
+    for name, use_native in (("native", True), ("python", False)):
+        mark = len(core.trace.events())
+        t0 = time.perf_counter()
+        loads[name] = spmv.load_problem(a_txt, x_txt, use_native=use_native)
+        secs = time.perf_counter() - t0
+        spans = [(e["tokenizer"], "error" in e)
+                 for e in core.trace.events()[mark:]
+                 if e["event"] == "span-end"
+                 and e.get("span") == "spmv_scan.load"]
+        if spans != [(name, False)]:
+            fail(f"load_problem with the {name} tokenizer: spans {spans}")
+        rows[f"load_{name}_s"] = secs
+    same = all(np.array_equal(getattr(loads["native"], f),
+                              getattr(loads["python"], f)) for f in "askx")
+    print(f"load_problem pwtk: native {rows['load_native_s']:.2f} s, python "
+          f"{rows['load_python_s']:.2f} s, bitwise equal {same}")
+    if not same or loads["native"].iters != loads["python"].iters:
+        fail("the two tokenizers gave different problems")
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 29: {rows['seconds']:.1f} s")
     return rows
 
 
@@ -2905,7 +3204,10 @@ def main(argv=None) -> int:
     print(f"doctor calibrate --json ({secs:.1f} s):")
     for r in calibration:
         print(f"  {json.dumps(r)}")
-    if len(calibration) != 4 or any("error" in r for r in calibration):
+    if len(calibration) != 5 or any("error" in r for r in calibration) or \
+            {(r["op"], r["rung"]) for r in calibration} != {
+                ("spmv_scan", "flat"), ("spmv_scan", "pallas-fused"),
+                ("heat", "xla"), ("heat", "pipeline"), ("sort", "xla")}:
         fail(f"doctor calibrate: {calibration}")
 
     # ---------------------------------------------------- 23-27. runners
@@ -2916,6 +3218,10 @@ def main(argv=None) -> int:
     # ---------------------------------------------------- 28. telemetry
     telemetry = telemetry_phase(counted, only, paths, work, ident, prob,
                                 headline, flight_dump, sweep_copy)
+
+    # ---------------------------------------------------- 29. hw1/hw3/hw4
+    workloads = workloads_phase(counted, only, paths, work, ident,
+                                calibration)
 
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
@@ -3032,6 +3338,7 @@ def main(argv=None) -> int:
             row["turns"] = turns
     print(json.dumps({"runners": runners}))
     print(json.dumps({"telemetry": telemetry}))
+    print(json.dumps({"workloads": workloads}))
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,7 @@ Usage::
         [--only NAME,...] [--device cuda|cpu]
 
 Counterpart of ``cme213_tpu/bench/run_all.py``: the same job table (CSV
-names, ``--quick`` and full sizes), cut to the sweeps whose modules are
-ported.  ``--out`` defaults to ``bench_results_torch``, not the JAX
+names, ``--quick`` and full sizes), all fifteen sweeps.  ``--out`` defaults to ``bench_results_torch``, not the JAX
 package's ``bench_results``, whose committed CSVs are that package's
 evidence.  ``--device`` defaults to ``cuda`` and fails without a card.
 
@@ -18,8 +17,8 @@ recovered or final, lands in ``<out>/failures.json``::
      "retried": [...]}   # first-attempt failures whose retry succeeded
 
 The exit code is 0 when every sweep produced rows, even after a retry; 1
-when a sweep failed both attempts; 2 when ``--only`` names a sweep that is
-unknown or not ported yet.  ``<out>/metrics.json`` holds each sweep's row
+when a sweep failed both attempts; 2 when ``--only`` names an unknown
+sweep.  ``<out>/metrics.json`` holds each sweep's row
 count, wall-clock ms and the ``core/metrics`` delta over the sweep.
 
 Each attempt first consults the fault plan (``faults.maybe_fail(
@@ -50,6 +49,14 @@ PROFILE_DIR_ENV = "CME213_PROFILE_DIR"
 #: CSV basename -> (sweep function in ``sweeps``, quick sizes, full sizes);
 #: the JAX package's table (``cme213_tpu/bench/run_all.py``), in its order
 JOBS = {
+    "data_bandwidth_vector_length": (
+        "cipher_vector_length_sweep",
+        dict(steps=3, max_bytes=1 << 16),
+        dict(steps=25, max_bytes=1 << 26)),
+    "bandwidth_vs_avg_edges": (
+        "pagerank_avg_edges_sweep",
+        dict(num_nodes=1 << 12, edges_range=range(2, 5), iterations=4),
+        dict(num_nodes=1 << 21, edges_range=range(2, 21), iterations=20)),
     "heat_bandwidth": (
         "heat_sweep",
         dict(sizes=(64,), orders=(2, 4, 8), iters=3),
@@ -87,20 +94,31 @@ JOBS = {
         "dist_heat_compile_coverage",
         dict(size=32, order=2, iters=2, ndevs=(1, 2)),
         dict(size=2000, order=8, iters=4, ndevs=(1, 2, 4, 8))),
+    "sort_threads": (
+        "sort_thread_sweep",
+        dict(num_elements=20_000, threads=(1, 2)),
+        dict(num_elements=16_000_000, threads=(1, 2, 4, 8, 16, 32))),
     "spmv_pallas_coverage": (
         "spmv_pallas_coverage",
         dict(scale=0.002, iters=1),
         dict(scale=1.0, iters=1)),
+    "spmv_suite": (
+        "spmv_suite_sweep",
+        dict(scale=0.002, kernels=("flat",)),
+        dict(scale=1.0, kernels=None)),
     "spmv_scan_sweep": (
         "spmv_scan_sweep",
         dict(ns=(1 << 12,), iters=2, kernels=("flat", "blocked")),
         dict(ns=(1 << 16, 1 << 20, 1 << 22), iters=8, kernels=None)),
+    "sort_sweep": (
+        "sort_sweep",
+        dict(ns=(1 << 12,)),
+        dict(ns=(1 << 16, 1 << 20))),
 }
 
-#: the JAX package's sweeps whose modules are not ported yet (ROADMAP A5,
-#: A7): cipher, PageRank, the native and device sorts, the suite
-NOT_PORTED = ("data_bandwidth_vector_length", "bandwidth_vs_avg_edges",
-              "sort_threads", "spmv_suite", "sort_sweep")
+#: the JAX package's sweeps the port lacks: none (every CSV of its table is
+#: in ``JOBS``)
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def main(argv=None) -> int:
@@ -122,18 +140,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = (set(t.strip() for t in args.only.split(",") if t.strip())
             if args.only else None)
-    if only is not None:
-        waiting = only & set(NOT_PORTED)
-        unknown = only - set(JOBS) - waiting
-        if waiting or unknown:
-            if waiting:
-                print(f"--only: sweep(s) {sorted(waiting)} are not ported "
-                      f"yet", file=sys.stderr)
-            if unknown:
-                print(f"--only: unknown sweep name(s) {sorted(unknown)}",
-                      file=sys.stderr)
-            print(f"choose from {sorted(JOBS)}", file=sys.stderr)
-            return 2
+    if only is not None and only - set(JOBS):
+        print(f"--only: unknown sweep name(s) {sorted(only - set(JOBS))}; "
+              f"choose from {sorted(JOBS)}", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
 

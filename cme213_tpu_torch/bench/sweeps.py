@@ -1,8 +1,13 @@
 """Benchmark sweeps → CSV (the reference's analysis harness).
 
 Counterpart of ``cme213_tpu/bench/sweeps.py``, with the same rows, column
-names, labels and error-row semantics.  Ported here:
+names, labels and error-row semantics:
 
+- ``cipher_vector_length_sweep`` — device bandwidth against array length
+  for the three cipher variants
+  (``hw/hw1/programming/analysis/cipher_vl.cu:154-159``);
+- ``pagerank_avg_edges_sweep`` — bandwidth against the average out-degree
+  (``analysis/pagerank.cu:47-62,172-174``);
 - ``heat_sweep``              — GB/s and GFLOP/s over grid sizes × orders ×
   kernels (the reference's ``data/data.ods`` tables);
 - ``pipeline_tune_sweep``     — k × tile_y surface of the pipelined kernels;
@@ -14,9 +19,12 @@ names, labels and error-row semantics.  Ported here:
 - ``dist_heat_sweep``, ``dist_heat_compile_coverage`` — hw5's scaling
   table and the per-shard kernel's coverage matrix;
 - ``scan_sweep``              — scans and the tiled transpose;
-- ``spmv_scan_sweep``, ``spmv_pallas_coverage`` — the SpMV-scan engine.
-
-The cipher, PageRank, sort and suite sweeps wait for their modules.
+- ``sort_thread_sweep``        — the native sorts against the OpenMP
+  thread count (the PBS harness ``pa4.pbs:20-28``), host work;
+- ``sort_sweep``               — the device sorts against size;
+- ``spmv_scan_sweep``, ``spmv_pallas_coverage``, ``spmv_suite_sweep`` — the
+  SpMV-scan engine, its kernel's coverage and the suite table beside the
+  4-thread OpenMP CPU run.
 
 Every sweep takes ``device`` (default ``cuda``, resolved by
 ``core.platform.resolve_device``; no silent CPU fallback).  Where the JAX
@@ -660,4 +668,226 @@ def spmv_pallas_coverage(names=None, scale: float = 1.0, iters: int = 1,
             "pct_peak": "", "bound": "",  # coverage table, not timing
         })
         print(rows[-1])
+    return rows
+
+
+def cipher_vector_length_sweep(steps: int = 10, max_bytes: int = 1 << 24,
+                               shift: int = 17, device=None) -> list[dict]:
+    """GB/s of each cipher variant against the array length, on text
+    tiled to length (the reference carves its buffers from its novel), by
+    ``roofline.cipher_cost``."""
+    from ..apps.corpus import load_corpus
+    from ..core.roofline import cipher_cost
+    from ..ops import shift_cipher, shift_cipher_packed
+
+    dev = resolve_device(device)
+    base = load_corpus()  # loaded once for every step
+    rows = []
+    for i in range(1, steps + 1):
+        n = max(64, (max_bytes * i // steps) // 64 * 64)
+        data = torch.from_numpy(np.tile(base, -(-n // base.size))[:n]).to(dev)
+        cost = cipher_cost(n)
+        row = {"length": n}
+        for name, fn in [
+                ("char_gbs", lambda d: shift_cipher(d, shift)),
+                ("uint_gbs", lambda d: shift_cipher_packed(d, shift, 4)),
+                ("uint2_gbs", lambda d: shift_cipher_packed(d, shift, 8))]:
+            row[name] = round(cost.gbs(_time_ms(fn, data)), 3)
+        # the fastest variant is the device-capability signal the
+        # reference's bandwidth plot reads off this table
+        row.update(_attrib(max(row["char_gbs"], row["uint_gbs"],
+                               row["uint2_gbs"]), 0.0, dev))
+        rows.append(row)
+    return rows
+
+
+def pagerank_avg_edges_sweep(num_nodes: int = 1 << 18,
+                             edges_range=range(2, 21),
+                             iterations: int = 20,
+                             device=None) -> list[dict]:
+    """ms and GB/s of ``iterations`` PageRank sweeps against the average
+    out-degree, by ``roofline.pagerank_cost``.  The graph is uploaded and
+    laid out before the clock starts, as the reference's analysis program
+    times its kernels (the JAX package's row also holds the upload)."""
+    from ..apps.pagerank import build_graph, iterate, upload
+    from ..core.roofline import pagerank_cost
+
+    dev = resolve_device(device)
+    rows = []
+    for avg in edges_range:
+        g = build_graph(num_nodes, avg, seed=avg)
+        dg = upload(g, dev)
+        rank0 = torch.from_numpy(g.rank0).to(dev)
+        ms = _time_ms(lambda r: iterate(dg, r, iterations), rank0)
+        cost = pagerank_cost(g.num_nodes, g.edges.shape[0], iterations)
+        rows.append({
+            "avg_edges": avg,
+            "ms": round(ms, 3),
+            "bytes": cost.nbytes,
+            "gbs": round(cost.gbs(ms), 3),
+            **_attrib(cost.gbs(ms), cost.gflops(ms), dev),
+        })
+    return rows
+
+
+def sort_thread_sweep(num_elements: int = 1_000_000,
+                      threads=(1, 2, 4, 8, 16, 32),
+                      device=None) -> list[dict]:
+    """Seconds of the native merge sort and keys/s of the native radix sort
+    against the OpenMP thread count.  Host work: ``device`` is taken for
+    the harness's uniform call and not used, and the rows carry no peak
+    share (the host has no entry in the peak table)."""
+    from .. import native
+    from ..core.roofline import sort_cost
+
+    rng = np.random.default_rng(0)
+    mkeys = rng.integers(-(2**31), 2**31, num_elements,
+                         dtype=np.int64).astype(np.int32)
+    rkeys = rng.integers(0, 2**32, num_elements,
+                         dtype=np.uint64).astype(np.uint32)
+    # build/load the library and touch the buffers before the first row
+    native.merge_sort(mkeys[:10_000].copy())
+    native.radix_sort(rkeys[:10_000].copy())
+    host = torch.device("cpu")
+    prev = native.thread_count()
+    rows = []
+    try:
+        for t in threads:
+            native.set_threads(t)
+            a = mkeys.copy()
+            t0 = time.perf_counter()
+            native.merge_sort(a)
+            t_merge = time.perf_counter() - t0
+            b = rkeys.copy()
+            t0 = time.perf_counter()
+            native.radix_sort(b)
+            t_radix = time.perf_counter() - t0
+            merge_gbs = sort_cost(num_elements, "merge").nbytes / 1e9 / t_merge
+            radix_gbs = sort_cost(num_elements, "radix").nbytes / 1e9 / t_radix
+            rows.append({
+                "threads": t,
+                "merge_s": round(t_merge, 4),
+                "radix_elems_per_s": round(num_elements / t_radix, 0),
+                **_attrib(max(merge_gbs, radix_gbs), 0.0, host),
+            })
+    finally:
+        native.set_threads(prev)
+    return rows
+
+
+def sort_sweep(ns=(1 << 16, 1 << 20),
+               kernels=("lax", "radix", "bitonic", "auto"),
+               device=None) -> list[dict]:
+    """The device sorts against size: the library sort (``lax``), the
+    4-phase radix, the bitonic network and the tuned ``auto`` dispatch
+    (``ops.sort.sort_auto``), each held to ``np.sort``.  Bytes by
+    ``roofline.sort_cost`` (radix: 4 passes; the others: log2(n)); the
+    ``tuned`` column names the cached winner ``auto`` dispatched to (empty:
+    none cached, ``auto`` is ``lax``)."""
+    from ..core import programs, tune
+    from ..core.roofline import sort_cost
+    # not ``from ..ops import sort``: the package re-exports the sort
+    # function under that name, shadowing the submodule
+    from ..ops.sort import bitonic_sort, radix_sort, sort, sort_auto
+
+    dev = resolve_device(device)
+    fns = {"lax": sort, "radix": radix_sort, "bitonic": bitonic_sort,
+           "auto": sort_auto}
+    rows = []
+    for n in ns:
+        rng = np.random.default_rng(n % 97)
+        keys_host = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+        keys = torch.from_numpy(keys_host).to(dev)
+        expect = np.sort(keys_host)
+        rec = tune.lookup("sort", f"n{programs.canonical_size(n)}",
+                          "uint32", device=dev)
+        tuned = rec["candidate"] if rec else ""
+        for kernel in kernels:
+            resolved = (tuned or "lax") if kernel == "auto" else kernel
+            cost = sort_cost(n, kind="radix" if resolved == "radix"
+                             else "merge")
+            try:
+                ms = _time_ms(fns[kernel], keys)
+                ok = bool((fns[kernel](keys).cpu().numpy() == expect).all())
+            except Exception as e:  # a kernel failing at a size is data
+                _raise_if_device_error(e)
+                rows.append({"n": n, "kernel": kernel, "tuned": tuned,
+                             "ms": -1.0, "gbs": 0.0, "ok": False,
+                             "error": type(e).__name__,
+                             "pct_peak": "", "bound": ""})
+                continue
+            rows.append({"n": n, "kernel": kernel, "tuned": tuned,
+                         "ms": round(ms, 3),
+                         "gbs": round(cost.gbs(ms), 3), "ok": ok,
+                         "error": "", **_attrib(cost.gbs(ms), 0.0, dev)})
+    return rows
+
+
+def spmv_suite_sweep(names=None, scale: float = 0.05, kernels=None,
+                     cpu_threads: int | None = 4,
+                     device=None) -> list[dict]:
+    """Device kernels against the OpenMP CPU run over the suite.
+
+    ``cpu_threads`` adds the reference's CPU axis (its 4-thread table,
+    ``hw/hw_final/programming/data.ods`` table 2, ``fp.cu:130-152``) as a
+    ``cpu_ms`` column (host clock); ``None`` skips it.  ``kernels=None``
+    picks ``flat``, ``blocked`` and ``pallas-fused`` (B7) on the card and
+    ``flat`` on the CPU, where ``pallas-fused`` would run its plain version.
+    Each row's ``rel_l2`` is against the f64 golden, computed once a
+    problem.  ``run_spmv_scan`` runs with ``fallback=False``: a failing
+    kernel fails its row, never demotes to another."""
+    from .. import native
+    from ..apps import spmv_scan as sp
+    from ..apps.matrix_market import real_instance_specs
+    from ..core import PhaseTimer
+    from ..core.roofline import spmv_scan_cost
+    from ..verify import golden
+    from ..verify.checkers import relative_l2_error
+
+    dev = resolve_device(device)
+    if kernels is None:
+        kernels = (("flat", "blocked", "pallas-fused") if dev.type == "cuda"
+                   else ("flat",))
+    specs = [(n, "synthetic", None)
+             for n in (names or sp.BELL_GARLAND_SUITE)]
+    # on the full default suite, the reconstructed real instances ride the
+    # same sweep, so the table has rows whose source is a published problem
+    if names is None:
+        specs.extend(real_instance_specs())
+    rows = []
+    for name, source, factory in specs:
+        prob = (sp.suite_problem(name, scale=scale) if factory is None
+                else factory())
+        cpu_ms = None
+        if cpu_threads is not None:
+            prev = native.thread_count()
+            try:
+                native.set_threads(cpu_threads)
+                native.spmv_scan_cpu(prob.a, prob.s[:-1], prob.xx, 1)  # warm
+                t0 = time.perf_counter()
+                native.spmv_scan_cpu(prob.a, prob.s[:-1], prob.xx,
+                                     prob.iters)
+                cpu_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                native.set_threads(prev)
+        ref = golden.host_spmv_scan(prob.a, prob.s[:-1], prob.xx,
+                                    prob.iters, dtype=np.float64)
+        cost = spmv_scan_cost(prob.n, prob.iters)
+        for kernel in kernels:
+            timer = PhaseTimer()
+            out = sp.run_spmv_scan(prob, timer=timer, kernel=kernel,
+                                   fallback=False, device=dev)
+            ms = timer.last_ms("spmv_scan")
+            row = {
+                "matrix": name, "source": source, "kernel": kernel,
+                "n": prob.n, "p": prob.p, "iters": prob.iters,
+                "ms": round(ms, 3),
+                "gbs": round(cost.gbs(ms), 3),
+                "rel_l2": f"{relative_l2_error(ref, out):.2e}",
+                **_attrib(cost.gbs(ms), cost.gflops(ms), dev),
+            }
+            if cpu_ms is not None:
+                row["cpu_ms"] = round(cpu_ms, 3)
+                row["cpu_threads"] = cpu_threads
+            rows.append(row)
     return rows

@@ -523,7 +523,9 @@ def calibrate(device=None) -> list:
       ``pallas-fused`` (B7: its launches' staged traffic), n = 2^18, 4
       iterations;
     - ``heat``: ``xla`` (torch ``run_heat``) and ``pipeline`` (B1: its
-      launch plan's windows and micro-tiles), 1024² order 8, 4 steps.
+      launch plan's windows and micro-tiles), 1024² order 8, 4 steps;
+    - ``sort``: ``xla`` (``torch.sort``, the library sort) of 4096 float32
+      keys against ``sort_cost(..., "merge")``, the JAX package's row.
 
     The programs come from the program cache (a miss builds and warms
     them).  On the CPU the kernel rungs run their plain versions, and
@@ -582,4 +584,10 @@ def calibrate(device=None) -> list:
             lambda r=rung: heat(r),
             roofline.heat_cost(side + order, side + order, order=order,
                                iters=iters))
+
+    sn = 4096
+    run("sort", "xla", f"n{sn}",
+        lambda: (lambda x: torch.sort(x).values,
+                 (torch.zeros(sn, dtype=torch.float32, device=dev),)),
+        roofline.sort_cost(sn, kind="merge", key_bytes=4))
     return rows

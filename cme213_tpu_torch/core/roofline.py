@@ -1,8 +1,9 @@
 """Roofline attribution for the port: cost models and the card's peaks.
 
-Counterpart of ``cme213_tpu/core/roofline.py``, cut to what the ported
-workloads need (the heat solve, the SpMV-scan engine, the scans, the
-transpose and the host transfers of the sweeps).  The peak table holds
+Counterpart of ``cme213_tpu/core/roofline.py``: the cost models of every
+workload (the heat solve, the SpMV-scan engine, PageRank, the cipher, the
+scans, the transpose, the host transfers, the sorts) and their
+``COST_MODELS`` registry.  The peak table holds
 NVIDIA's data-sheet figures for the H100
 (dense, no sparsity), chosen by ``torch.cuda.get_device_name()``.  They
 assume the card's full power limit; a card set below it runs slower, so
@@ -177,6 +178,22 @@ def spmv_scan_cost(n: int, iters: int, dtype="float32") -> Cost:
     return Cost(n * (3 * elem + 4) * iters, 2 * n * iters)
 
 
+def pagerank_cost(num_nodes: int, num_edges: int, iters: int) -> Cost:
+    """hw1 accounting (``analysis/pagerank.cu:47-62``): per iteration each
+    edge reads a 4 B neighbour id, a 4 B rank and a 4 B inv_deg; each node
+    reads 2 × 4 B offsets and writes a 4 B rank.  Flops: a multiply and an
+    add per edge plus the per-node damping combine."""
+    return Cost((num_edges * 12 + num_nodes * 12) * iters,
+                (2 * num_edges + 2 * num_nodes) * iters)
+
+
+def cipher_cost(length: int, iters: int = 1) -> Cost:
+    """hw1 shift cipher: read and write one byte a character (the packed
+    variants move the same useful bytes, hence one count for all three);
+    one integer add a character."""
+    return Cost(2 * length * iters, length * iters)
+
+
 def segmented_scan_cost(n: int, dtype="float32") -> Cost:
     """One segmented scan (the unfused kernel, B6): read the values and the
     int32 head flags, write the values — ``(2·elem + 4)·n`` bytes; one add
@@ -203,3 +220,26 @@ def transpose_cost(rows: int, cols: int, dtype="float32") -> Cost:
 def transfer_cost(nbytes: int) -> Cost:
     """Host↔device copy: the bytes themselves, no flops."""
     return Cost(int(nbytes), 0)
+
+
+def sort_cost(n: int, kind: str = "merge", key_bytes: int = 4) -> Cost:
+    """Sort traffic: merge sort reads and writes every key once a merge
+    level (⌈log2 n⌉ passes); LSD radix on 32-bit keys with 8-bit digits
+    makes 4 read+write passes.  No flops are counted."""
+    import math
+
+    passes = max(1, math.ceil(math.log2(max(2, n)))) if kind == "merge" else 4
+    return Cost(2 * key_bytes * n * passes, 0)
+
+
+#: op family -> cost model (the JAX package's registry)
+COST_MODELS = {
+    "heat": heat_cost,
+    "spmv_scan": spmv_scan_cost,
+    "pagerank": pagerank_cost,
+    "cipher": cipher_cost,
+    "scan": scan_cost,
+    "transpose": transpose_cost,
+    "transfer": transfer_cost,
+    "sort": sort_cost,
+}

@@ -29,11 +29,13 @@ built-in default.  Ties go to the first-registered candidate, and the
 clock is injectable so that is testable.
 
 Spaces: ``heat`` (``tile_y``), ``spmv_scan`` (the torch scan and its
-block size) and ``segmented_scan`` (the flat/blocked crossover).  The last
-two are measurements only: no dispatch site reads their winners until a
-card's measurements say what to serve (ROADMAP.md).  The JAX package's
-``sort`` and ``serve.<op>`` spaces wait for the ops they tune (ROADMAP.md,
-queue A, items 5 and 7); :func:`build_space` names the item.
+block size), ``segmented_scan`` (the flat/blocked crossover) and ``sort``
+(the library sort, the radix sort or the bitonic network, which
+``ops.sort.sort_auto`` serves).  ``spmv_scan`` and ``segmented_scan`` are
+measurements only: no dispatch site reads their winners until a card's
+measurements say what to serve (ROADMAP.md).  The JAX package's
+``serve.<op>`` spaces wait for the serving layer (ROADMAP.md, queue A, item
+7); :func:`build_space` names the item.
 """
 
 from __future__ import annotations
@@ -555,16 +557,70 @@ def _heat_space(gy: int = 64, gx: int = 64, order: int = 2, k: int = 1,
                      str(dev))
 
 
+def _sort_space(n: int = 1 << 20, kernels=("lax", "radix", "bitonic"),
+                device=None) -> TuneSpace:
+    """sort: the library sort (``lax``, the JAX package's name) against the
+    radix sort and the bitonic network on ``uint32`` keys at the canonical
+    size of ``n``; ``ops.sort.sort_auto`` serves the winner.  Each
+    candidate but ``lax`` is gated against ``np.sort`` on the keys' first
+    4096, exactly."""
+    import torch
+
+    from ..core import conformance, programs
+    # not ``from ..ops import sort``: the package re-exports the sort
+    # function under that name, shadowing the submodule
+    from ..ops.sort import bitonic_sort, radix_sort
+    from ..ops.sort import sort as lib_sort
+    from .platform import build_identity, resolve_device
+
+    dev = resolve_device(device)
+    nc = programs.canonical_size(n)
+    rng = np.random.default_rng(0)
+    keys_host = rng.integers(0, 2 ** 32, nc, dtype=np.uint32)
+    keys = torch.from_numpy(keys_host).to(dev)
+    pn = min(nc, 4096)
+    probe = keys[:pn]
+    probe_ref = np.sort(keys_host[:pn])
+    fns = {"lax": lib_sort, "radix": radix_sort, "bitonic": bitonic_sort}
+
+    def program(kernel):
+        def warm(fn):
+            fn(torch.zeros(nc, dtype=torch.uint32, device=dev))
+        return programs.get("sort", kernel, f"n{nc}", lambda: fns[kernel],
+                            dtype="uint32", device=dev, warm=warm)
+
+    def gate(kernel):
+        if kernel == "lax":
+            return None  # the reference rung
+        return lambda: conformance.check(
+            "sort", kernel, shape_class=f"n{pn}/{build_identity(dev)}",
+            candidate=lambda: fns[kernel](probe),
+            reference=lambda: probe_ref).ok
+
+    def build(kernel):
+        def make_runner():
+            fn = program(kernel)
+            return lambda: fn(keys)
+        return make_runner
+
+    cands = tuple(Candidate(k, {"kernel": k}, build(k), gate(k),
+                            cost=roofline.sort_cost(
+                                nc, kind="radix" if k == "radix"
+                                else "merge"))
+                  for k in kernels)
+    return TuneSpace("sort", f"n{nc}", "uint32", cands, None, str(dev))
+
+
 #: op name -> the function that makes its space; ``run`` routes here
 SPACES = {
     "spmv_scan": _spmv_space,
     "segmented_scan": _crossover_space,
     "heat": _heat_space,
+    "sort": _sort_space,
 }
 
 #: the JAX package's spaces whose ops the port does not have yet
 NOT_PORTED = {
-    "sort": "ROADMAP.md, queue A, item 5 (the hw1, hw3 and hw4 ops)",
     "serve.": "ROADMAP.md, queue A, item 7 (serving)",
 }
 

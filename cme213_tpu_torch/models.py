@@ -1,6 +1,8 @@
 """Workload registry of the port: ``python -m cme213_tpu_torch <workload>``.
 
-Counterpart of ``cme213_tpu/models.py``; holds the workloads ported so far.
+Counterpart of ``cme213_tpu/models.py``; holds the workloads ported so far
+(every one but ``serve``, ``fleet`` and ``chaos``).  Each runs on ``cuda``
+unless given ``--device=cpu``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,44 @@ class Workload:
     reference_unit: str
     summary: str
     run: Callable[[list[str]], int]
+
+
+def _cipher(argv: list[str]) -> int:
+    from .apps import cipher
+
+    return cipher.main(["cipher", *argv])
+
+
+def _pagerank(argv: list[str]) -> int:
+    from .apps import pagerank
+
+    known = ("num_nodes", "avg_edges", "iterations", "seed", "device")
+    kwargs: dict = {}
+    for a in argv:
+        if not (a.startswith("--") and "=" in a):
+            print(f"pagerank: unknown argument {a!r} "
+                  f"(expected --key=value with key in {known})",
+                  file=sys.stderr)
+            return 2
+        key, value = a[2:].split("=", 1)
+        key = key.replace("-", "_")
+        if key not in known:
+            print(f"pagerank: unknown option --{key}", file=sys.stderr)
+            return 2
+        kwargs[key] = value if key == "device" else int(value)
+    return 0 if pagerank.main(**kwargs) else 1
+
+
+def _vigenere(argv: list[str]) -> int:
+    from .apps import vigenere
+
+    return vigenere.main(["vigenere", *argv])
+
+
+def _sorts(argv: list[str]) -> int:
+    from .apps import sorts
+
+    return sorts.main(["sorts", *argv])
 
 
 def _heat2d(argv: list[str]) -> int:
@@ -69,11 +109,22 @@ def _numerics(argv: list[str]) -> int:
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
+        Workload("cipher", "hw1", "Caesar shift cipher (device bandwidth "
+                 "ladder: 1/4/8-byte lanes), byte-exact against the host "
+                 "golden", _cipher),
+        Workload("pagerank", "hw1", "CSR PageRank iteration vs host golden "
+                 "(--num_nodes= --avg_edges= --iterations= --seed= "
+                 "--device=)", _pagerank),
         Workload("heat2d", "hw2/hw5", "2-D heat diffusion: plain PyTorch "
                  "stencil + the hand-written CUDA kernel, golden ULP-10 "
                  "check; --distributed runs the hw5 domain decomposition "
                  "over every card (--local-kernel=xla|pallas; "
                  "--device=cpu runs the plain versions)", _heat2d),
+        Workload("vigenere", "hw3", "Vigenère create/crack via device "
+                 "analytics pipelines", _vigenere),
+        Workload("sorts", "hw4", "host OpenMP merge/radix sorts (native "
+                 "library built at first use) + the device radix sort",
+                 _sorts),
         Workload("spmv_scan", "hw_final", "iterated multiply + segmented "
                  "scan: plain torch scans + the hand-written CUDA kernel "
                  "(--kernel=pallas|pallas-fused), f64 golden check; "
@@ -87,8 +138,9 @@ WORKLOADS: dict[str, Workload] = {
                  "--device=cpu to probe the CPU; calibrate: roofline "
                  "cost models against what each rung stages)", _doctor),
         Workload("tune", "tuning", "measured autotuning of dispatch "
-                 "statics: run --op heat,spmv_scan,segmented_scan | show | "
-                 "clear (CME213_TUNE_CACHE; CME213_TUNE=0 disables)",
+                 "statics: run --op heat,spmv_scan,segmented_scan,sort "
+                 "| show | clear (CME213_TUNE_CACHE; CME213_TUNE=0 "
+                 "disables)",
                  _tune),
         # not reference workloads: the telemetry tooling over the
         # CME213_TRACE_FILE sinks every workload above writes (host

@@ -1,6 +1,11 @@
 import atexit
 
 from ..core import metrics  # its exit snapshot registers first
+from .elementwise import (parallel_sum, saxpy, shift_cipher,
+                          shift_cipher_packed, vigenere_shift,
+                          vigenere_unshift)
+from .gather import csr_row_ids, pagerank_iterate, pagerank_propagate
+from .histogram import histogram_onehot, histogram_segment, histogram_sort
 from .scan import blocked_inclusive_scan, exclusive_scan, inclusive_scan
 from .segmented import (BLOCKED_SCAN_THRESHOLD, DEFAULT_SCAN_BLOCK,
                         head_flags_from_starts, scan_threshold,
@@ -22,6 +27,8 @@ from .stencil_pipeline import (LAUNCHES, pick_pipeline_tile,
                                stencil_local_multistep_plain,
                                stencil_local_multistep_shards,
                                stencil_local_multistep_shards_plain)
+from .sort import bitonic_sort, radix_sort, sort, sort_pairs
+from .spmv import csr_spmv, csr_to_ell, ell_spmv
 from .transpose import transpose_pallas, transpose_xla
 
 __all__ = [
@@ -31,19 +38,32 @@ __all__ = [
     "LAUNCHES",
     "SEGSCAN_LAUNCHES",
     "STENCIL_COEFFS",
+    "bitonic_sort",
     "blocked_inclusive_scan",
+    "csr_row_ids",
+    "csr_spmv",
+    "csr_to_ell",
+    "ell_spmv",
     "exclusive_scan",
     "flops_per_point",
     "head_flags_from_starts",
     "heat_step",
+    "histogram_onehot",
+    "histogram_segment",
+    "histogram_sort",
     "inclusive_scan",
+    "pagerank_iterate",
+    "pagerank_propagate",
+    "parallel_sum",
     "pick_pipeline_tile",
+    "radix_sort",
     "run_heat",
     "run_heat_conv",
     "run_heat_pipeline",
     "run_heat_pipeline2d",
     "run_heat_pipeline_plain",
     "run_heat_roll",
+    "saxpy",
     "scan_threshold",
     "segment_ids_from_starts",
     "segmented_scan",
@@ -53,6 +73,10 @@ __all__ = [
     "segmented_scan_from_starts",
     "segmented_scan_pallas",
     "segmented_scan_pallas_plain",
+    "shift_cipher",
+    "shift_cipher_packed",
+    "sort",
+    "sort_pairs",
     "spmv_scan_pallas",
     "spmv_scan_pallas_plain",
     "stencil_interior",
@@ -64,6 +88,8 @@ __all__ = [
     "transpose_pallas",
     "transpose_xla",
     "validate_segments",
+    "vigenere_shift",
+    "vigenere_unshift",
 ]
 
 

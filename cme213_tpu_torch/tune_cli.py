@@ -12,8 +12,9 @@ Counterpart of ``cme213_tpu/tune_cli.py``.  Three subcommands over
 
 After ``tune run --op heat``, every ``run_heat_resilient`` in any process
 pointed at the same cache resolves its ``tile_y`` as tuned-or-default
-(``tune-hit`` events), and ``CME213_TUNE=0`` restores the built-in default
-without touching the cache.  The ``spmv_scan`` and ``segmented_scan``
+(``tune-hit`` events), after ``tune run --op sort`` ``ops.sort.sort_auto``
+serves the winning sort, and ``CME213_TUNE=0`` restores the built-in
+defaults without touching the cache.  The ``spmv_scan`` and ``segmented_scan``
 spaces measure and record their winners, which no dispatch reads yet
 (``core/tune.py``).  ``run`` works on the card unless ``--device=cpu`` is
 given.
@@ -39,6 +40,8 @@ def _run_kwargs(op: str, args: argparse.Namespace) -> dict:
     elif op == "heat":
         kw.update(gy=args.gy, gx=args.gx, order=args.order, k=args.k,
                   iters=args.heat_iters, dtype=args.dtype)
+    elif op == "sort":
+        kw.update(n=args.n)
     return kw
 
 
@@ -123,9 +126,9 @@ def main(argv: list[str]) -> int:
         "run", help="gate, time and persist winners for one or more ops")
     runp.add_argument("--op", default="spmv_scan",
                       help="comma-separated ops: spmv_scan, "
-                           "segmented_scan, heat")
+                           "segmented_scan, heat, sort")
     runp.add_argument("--n", type=int, default=1 << 20,
-                      help="spmv_scan problem size")
+                      help="problem size for spmv_scan / sort")
     runp.add_argument("--iters", type=int, default=8,
                       help="spmv_scan solve iterations")
     runp.add_argument("--crossover-n", type=int, default=None,

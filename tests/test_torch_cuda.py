@@ -978,3 +978,106 @@ def test_spmv_checkpointed_bitwise_on_card(cuda, kernel, tmp_path):
     a, xx, flags, _ = spmv.problem_tensors(prob, device=cuda)
     np.testing.assert_array_equal(
         out, spmv._iterate(a, xx, flags, 9, scan=kernel).cpu().numpy())
+
+
+# ------------------------------------------- the hw1, hw3 and hw4 workloads
+
+def _packed_model(data: np.ndarray, shift: int) -> np.ndarray:
+    """The reference's packed add in numpy: little-endian uint32 words
+    plus ``s | s<<8 | s<<16 | s<<24``, wrapping."""
+    s = np.uint32(shift & 0xFFFFFFFF)
+    rep = np.uint32(0)
+    for k in range(4):
+        rep |= np.uint32((int(s) << (8 * k)) & 0xFFFFFFFF)
+    return (data.view("<u4") + rep).view(np.uint8)
+
+
+@pytest.mark.parametrize("shift", [0, 17, 255])
+def test_cipher_variants_exact_on_card(cuda, shift):
+    from cme213_tpu_torch.ops import shift_cipher, shift_cipher_packed
+    from cme213_tpu_torch.verify import golden
+
+    data = np.random.default_rng(shift).integers(0, 256, 1 << 16,
+                                                 dtype=np.uint8)
+    d = torch.from_numpy(data).to(cuda)
+    np.testing.assert_array_equal(shift_cipher(d, shift).cpu().numpy(),
+                                  golden.host_shift_cipher(data, shift))
+    for width in (4, 8):
+        np.testing.assert_array_equal(
+            shift_cipher_packed(d, shift, width).cpu().numpy(),
+            _packed_model(data, shift))
+
+
+def test_pagerank_bitwise_golden_and_repeatable_on_card(cuda):
+    from cme213_tpu_torch.apps.pagerank import build_graph, run_pagerank
+    from cme213_tpu_torch.verify import golden
+
+    g = build_graph(1 << 16, 8, seed=3)
+    ref = golden.host_graph_iterate(g.indices, g.edges, g.rank0, g.inv_deg,
+                                    6)
+    first = run_pagerank(g, 6, device=cuda).cpu().numpy()
+    np.testing.assert_array_equal(first, ref)
+    np.testing.assert_array_equal(
+        run_pagerank(g, 6, device=cuda).cpu().numpy(), first)
+
+
+def test_csr_spmv_repeatable_and_reduceat_on_card(cuda):
+    from cme213_tpu_torch.ops import csr_row_ids, csr_spmv
+
+    rng = np.random.default_rng(4)
+    lens = rng.integers(0, 120, 3000)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = rng.integers(0, 500, indptr[-1])
+    vals = rng.standard_normal(indptr[-1]).astype(np.float32)
+    x = rng.standard_normal(500).astype(np.float32)
+    rows = csr_row_ids(torch.from_numpy(indptr).to(cuda), indptr[-1])
+    args = (rows, torch.from_numpy(cols).to(cuda),
+            torch.from_numpy(vals).to(cuda), torch.from_numpy(x).to(cuda),
+            3000)
+    y = csr_spmv(*args).cpu().numpy()
+    np.testing.assert_array_equal(csr_spmv(*args).cpu().numpy(), y)
+    prod = (vals * x[cols]).astype(np.float32)
+    full = lens > 0
+    np.testing.assert_array_equal(
+        y[full], np.add.reduceat(prod, indptr[:-1][full]))
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 16) + 3])
+def test_device_sorts_exact_on_card(cuda, n):
+    from cme213_tpu_torch.ops import (bitonic_sort, radix_sort, sort,
+                                      sort_pairs)
+
+    keys = np.random.default_rng(n).integers(0, 2 ** 32, n, dtype=np.uint32)
+    d = torch.from_numpy(keys).to(cuda)
+    want = np.sort(keys)
+    for out in (radix_sort(d, num_bits=8, block_size=2048),
+                radix_sort(d, num_bits=4, block_size=512),
+                radix_sort(d), bitonic_sort(d), sort(d)):
+        assert out.dtype == torch.uint32
+        np.testing.assert_array_equal(out.cpu().numpy(), want)
+    k, v = sort_pairs(d, torch.arange(n, device=cuda))
+    np.testing.assert_array_equal(k.cpu().numpy(), want)
+    np.testing.assert_array_equal(keys[v.cpu().numpy()], want)
+
+
+def test_vigenere_round_trip_on_card(cuda):
+    from cme213_tpu_torch.apps import vigenere as vg
+    from cme213_tpu_torch.apps.corpus import load_corpus
+
+    clean, shifts, cipher = vg.create_cipher(load_corpus(1 << 18), 9,
+                                             device=cuda)
+    res = vg.crack(cipher, device=cuda)
+    assert res.key_length == 9
+    np.testing.assert_array_equal(res.shifts % 26, shifts % 26)
+    np.testing.assert_array_equal(res.plain_text, clean)
+
+
+@pytest.mark.parametrize("fn", ["histogram_sort", "histogram_onehot",
+                                "histogram_segment"])
+def test_histograms_on_card(cuda, fn):
+    from cme213_tpu_torch import ops
+
+    x = np.random.default_rng(5).integers(0, 26, 5000).astype(np.int32)
+    out = getattr(ops, fn)(torch.from_numpy(x).to(cuda), 26)
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  np.bincount(x, minlength=26))

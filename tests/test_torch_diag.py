@@ -289,3 +289,20 @@ def test_doctor_cli_without_a_card_exits_1():
         timeout=300)
     assert ok.returncode == 0, ok.stderr
     assert json.loads(ok.stdout)["healthy"] is True
+
+
+def test_calibrate_sort_row_is_the_reference_s(monkeypatch):
+    """``doctor calibrate``'s sort row: ``torch.sort`` of 4096 float32 keys
+    against ``sort_cost(4096, "merge")``, the JAX package's row (its
+    predicted bytes and flops; no measured signal from a library sort)."""
+    from cme213_tpu.core import roofline as jroof
+    from cme213_tpu_torch.core import roofline
+
+    rows = {(r["op"], r["rung"]): r for r in tdiag.calibrate(device="cpu")}
+    row = rows[("sort", "xla")]
+    want = jroof.sort_cost(4096, kind="merge", key_bytes=4)
+    assert row["shape_class"] == "n4096" and row["ok"]
+    assert (row["predicted_bytes"], row["predicted_flops"]) == \
+        (float(want.nbytes), float(want.flops))
+    assert roofline.sort_cost(4096).nbytes == want.nbytes
+    assert row["measured_bytes"] is None and "error" not in row

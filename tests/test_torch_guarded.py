@@ -654,12 +654,12 @@ def test_calibrate_reports_flagship_ops():
     rows = diag.calibrate(device="cpu")
     assert {(r["op"], r["rung"]) for r in rows} == {
         ("spmv_scan", "flat"), ("spmv_scan", "pallas-fused"),
-        ("heat", "xla"), ("heat", "pipeline")}
+        ("heat", "xla"), ("heat", "pipeline"), ("sort", "xla")}
     by = {(r["op"], r["rung"]): r for r in rows}
     assert all("error" not in r for r in rows)
     for kernel in (("spmv_scan", "pallas-fused"), ("heat", "pipeline")):
         assert by[kernel]["measured_bytes"] is not None and by[kernel]["ok"]
-    for plain in (("spmv_scan", "flat"), ("heat", "xla")):
+    for plain in (("spmv_scan", "flat"), ("heat", "xla"), ("sort", "xla")):
         assert by[plain]["measured_bytes"] is None
         assert by[plain]["bytes_ratio"] is None
 
@@ -671,7 +671,7 @@ def test_doctor_calibrate_cli_prints_its_rows(capsys):
 
     assert doctor_cli.main(["calibrate", "--json", "--device=cpu"]) == 0
     rows = json.loads(capsys.readouterr().out)
-    assert len(rows) == 4 and all(r["ok"] for r in rows)
+    assert len(rows) == 5 and all(r["ok"] for r in rows)
     assert doctor_cli.main(["calibrate", "--device=cpu"]) == 0
     out = capsys.readouterr().out
     assert "heat.pipeline" in out and "no signal" in out

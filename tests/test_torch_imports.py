@@ -34,6 +34,20 @@ def test_port_file_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+def test_native_sources_are_the_port_s_own():
+    """The port builds its own copy of the C++ sources and never loads or
+    reads the JAX package's library or sources."""
+    from cme213_tpu_torch.native import build
+
+    for src in build.SOURCES:
+        assert src.parent == ROOT / "cme213_tpu_torch" / "native"
+        assert src.read_bytes() == (ROOT / "cme213_tpu" / "native"
+                                    / src.name).read_bytes()
+    for path in (ROOT / "cme213_tpu_torch").rglob("*"):
+        if path.suffix in (".py", ".cpp", ".cu", ".cuh"):
+            assert "_libsorts" not in path.read_text(), path
+
+
 def test_first_component_rule(tmp_path):
     """The check itself: a JAX-package import is caught, the port's own
     absolute and relative imports are not."""
@@ -59,7 +73,14 @@ def test_import_leaves_jax_unloaded():
             " cme213_tpu_torch.trace_cli, cme213_tpu_torch.top_cli,"
             " cme213_tpu_torch.numerics_cli, cme213_tpu_torch.bench.regress,"
             " cme213_tpu_torch.bench.report, cme213_tpu_torch.bench.batch,"
-            " cme213_tpu_torch.dist.supervisor;"
+            " cme213_tpu_torch.dist.supervisor, cme213_tpu_torch.native,"
+            " cme213_tpu_torch.native.build, cme213_tpu_torch.ops.elementwise,"
+            " cme213_tpu_torch.ops.gather, cme213_tpu_torch.ops.spmv,"
+            " cme213_tpu_torch.ops.histogram, cme213_tpu_torch.ops.sort,"
+            " cme213_tpu_torch.apps.corpus, cme213_tpu_torch.apps.cipher,"
+            " cme213_tpu_torch.apps.pagerank, cme213_tpu_torch.apps.vigenere,"
+            " cme213_tpu_torch.apps.sorts, cme213_tpu_torch.bench.sweeps,"
+            " cme213_tpu_torch.core.tune, cme213_tpu_torch.tune_cli;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
