@@ -326,9 +326,39 @@ the run (non-zero exit) when it fails:
    ``spmv_scan.load`` span must name each, the problems bitwise equal, the
    seconds of each printed.  The numbers go on a ``{"workloads": ...}``
    line.
+30. The hw5 solves as a gang of two processes on the one card (gloo, the
+   slabs staged through the host; 2000², order 8, 1000 steps, as phases 10
+   and 20), each through ``python -m cme213_tpu_torch.dist.launch`` with
+   every process's sink at ``{tag}-{rank}.jsonl``; a worker script runs
+   each rank's command (the heat CLI's ``main`` with the distributed grid
+   caught at full precision, or the supervised SpMV-scan).  (a) ``--np 2
+   --devices-per-proc 2`` of ``heat2d P --distributed
+   --local-kernel=pallas`` with gridMethod 2 (a 2×2 mesh, a row of it a
+   rank): both ranks name gloo, each rank's grid is bit for bit the
+   single-process 2×2 ``pallas`` solve, each launches B3 exactly 1000 + 4
+   (the probe) times (its sink's ``kernel.launches.local``), the dumps
+   exist; the solve's seconds (``dist_heat.solve_s``) against phase 10's
+   single-process seconds, and the share of them its cross-rank exchanges
+   took (``dist_heat.exchange_s``).  (b) the same with ``--supervised``,
+   ``--stall-timeout 60 --max-restarts 1 --ckpt-every 250`` under
+   ``rankkill:1:1``: exit 0, the kill, the verdict and the restart in the
+   output, both ranks' grids bit for bit ``run_heat``'s; ``commit.ms``
+   p50 and max (rank 0's ``epoch-commit`` events), the seconds from the
+   kill to the verdict and to the resumed incarnation's first beat, and
+   each incarnation's start-up (gang-launch to its ranks' first beats).
+   (c) a worker whose rank 1 freezes after its first beat, ``--stall-timeout
+   5``: condemned by the stall clock (the detection seconds from its beat
+   to the verdict), both ranks complete in the second incarnation.  (d)
+   (b)'s last commit resumed in this process on a 1-D mesh of 4 shards for
+   250 more steps: bit for bit a 1250-step ``run_heat``.  (e)
+   ``run_spmv_scan_distributed_supervised`` at pwtk on a 2-rank gang of 2
+   shards a rank, a commit every 5 iterations, uninterrupted and under
+   ``rankkill:0:2``: the two bit for bit, within ``PWTK_TOL["auto"]`` of
+   phase 8's f64 plain run; ms an iteration of the supervised solve.  The
+   numbers go on a ``{"gang": ...}`` line.
 
-The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28
-and 29 drive through the entry points a user calls: ``run_single`` at 512² and at
+The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28,
+29 and 30 drive through the entry points a user calls: ``run_single`` at 512² and at
 4000² (kernel B1, through the ladder), one solve of each of
 ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
 SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
@@ -338,7 +368,8 @@ their rows), the full-size solves of phase 14, the headline's child
 measurement of phase 16 (B1), phase 28's traced runs (B1 through the
 ``heat2d`` CLI and the ladder's turns, B7 through the ``spmv_scan`` CLI,
 and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
-recorded but not predicted) and phase 29's suite sweep (B7, recorded).  Every launch count
+recorded but not predicted), phase 29's suite sweep (B7, recorded) and
+phase 30's gang (B3 in each rank, read from its sink).  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
@@ -1778,6 +1809,327 @@ def workloads_phase(counted, only, paths, work, ident, calibration):
         fail("the two tokenizers gave different problems")
     rows["seconds"] = time.perf_counter() - t_phase
     print(f"phase 29: {rows['seconds']:.1f} s")
+    return rows
+
+
+#: phase 30: the gang's worker, written into a temporary directory and run
+#: by ``python -m cme213_tpu_torch.dist.launch`` as every rank.  ``argv``:
+#: out_dir, tag, then the mode: ``heat2d`` runs the heat CLI's ``main`` on
+#: the rest of the line and saves the grid its distributed entry returns at
+#: full precision (a text dump prints 3 digits); ``spmv NPZ`` runs the
+#: supervised sharded SpMV-scan on the problem in NPZ; ``stall`` beats once
+#: and, rank 1 in its first incarnation, freezes
+GANG_WORKER = r'''
+import os, sys, time
+sys.path.insert(0, {here!r})
+import numpy as np
+
+out_dir, tag, mode = sys.argv[1:4]
+rank = os.environ.get("RANK", "0")
+inc = os.environ.get("CME213_INCARNATION", "0")
+save = f"{{out_dir}}/{{tag}}-rank{{rank}}-inc{{inc}}.npy"
+if mode == "stall":
+    from cme213_tpu_torch.dist.supervisor import heartbeat_from_env
+
+    hb = heartbeat_from_env()
+    hb.beat(1)
+    if inc == "0" and rank == "1":
+        time.sleep(600)   # alive, its step frozen
+    hb.beat(2)
+    print("recovered incarnation", inc, flush=True)
+elif mode == "spmv":
+    from cme213_tpu_torch.apps import spmv_scan as sp
+    from cme213_tpu_torch.dist import make_mesh_1d
+    from cme213_tpu_torch.dist.mesh import default_devices
+    from cme213_tpu_torch.dist.multihost import initialize_multihost
+    from cme213_tpu_torch.dist.supervisor import (heartbeat_from_env,
+                                                  supervised_env_config)
+
+    initialize_multihost()
+    z = np.load(sys.argv[4])
+    prob = sp.Problem(a=z["a"], s=z["s"], k=z["k"], x=z["x"],
+                      iters=int(z["iters"]))
+    cfg = supervised_env_config()
+    mesh = make_mesh_1d(devices=default_devices())
+    t0 = time.perf_counter()
+    out = sp.run_spmv_scan_distributed_supervised(
+        prob, mesh, cfg["ckpt_dir"], every=cfg["ckpt_every"],
+        resume=cfg["resume"], heartbeat=heartbeat_from_env())
+    print(f"supervised solve: {{time.perf_counter() - t0:.6f}} s",
+          flush=True)
+    np.save(save, out)
+else:
+    from cme213_tpu_torch.apps import heat2d
+
+    name = ("run_distributed_supervised" if "--supervised" in sys.argv
+            else "run_distributed")
+    entry = getattr(heat2d, name)
+
+    def caught(*args, **kwargs):
+        grid = entry(*args, **kwargs)
+        np.save(save, grid)
+        return grid
+
+    setattr(heat2d, name, caught)
+    sys.exit(heat2d.main(["heat2d", *sys.argv[4:]]))
+'''
+
+
+def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
+               vdev, pwtk, pwtk_ref64):
+    """Phase 30: the hw5 solves as a gang of two processes on the one card
+    (see the module's docstring).  ``counted``, ``only`` and ``paths`` are
+    ``main``'s launch-count helpers and table; ``dist_p`` and ``dist_ref``
+    phase 10's parameters and one-device ``run_heat`` grid, ``dist_rows``
+    its timed paths, ``vdev`` its four virtual shards; ``pwtk`` and
+    ``pwtk_ref64`` phase 8's problem and f64 plain solve.  Returns the
+    numbers for the ``gang`` line."""
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import config, core, dist, grid, ops
+    from cme213_tpu_torch.verify.checkers import (relative_l2_error,
+                                                  relative_linf_error)
+
+    dev = torch.device("cuda")
+    trace_env = core.trace.TRACE_FILE_ENV
+    t_phase = time.perf_counter()
+    g = tempfile.mkdtemp(prefix="gang-", dir=work)
+    worker = os.path.join(g, "worker.py")
+    with open(worker, "w") as f:
+        f.write(GANG_WORKER.format(here=HERE))
+    params = config.SimParams(nx=DIST_N, ny=DIST_N, order=8,
+                              iters=DIST_ITERS,
+                              grid_method=config.GridMethod.BLOCKS_2D)
+    params_path = os.path.join(g, "params.in")
+    params.to_file(params_path, distributed=True)
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in ("CME213_FAULTS", trace_env)}
+    base_env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    rows = {}
+
+    def gang(tag, launcher_args, cmd, faults=None, timeout=400):
+        """``python -m cme213_tpu_torch.dist.launch launcher_args --
+        python worker.py g tag cmd`` in its own session and directory,
+        every process's sink at ``g/tag-{rank}.jsonl``: (output,
+        seconds)."""
+        cwd = os.path.join(g, tag)
+        os.makedirs(cwd)
+        env = dict(base_env, **{trace_env: os.path.join(g, tag + "-{rank}"
+                                                        ".jsonl")})
+        if faults:
+            env["CME213_FAULTS"] = faults
+        argv = [sys.executable, "-m", "cme213_tpu_torch.dist.launch",
+                *launcher_args, "--timeout", str(timeout - 30), "--",
+                sys.executable, worker, g, tag, *cmd]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=cwd, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"gang {tag}: no result in {timeout} s")
+        secs = time.perf_counter() - t0
+        print(f"gang {tag} ({secs:.2f} s): {' '.join(launcher_args)}\n"
+              + "".join(f"  {line}\n" for line in out.splitlines()
+                        if "socket.cpp" not in line), end="")
+        if proc.returncode != 0:
+            fail(f"gang {tag}: rc {proc.returncode}")
+        return out, secs
+
+    def records(tag, rank):
+        path = os.path.join(g, f"{tag}-{rank}.jsonl")
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    def events(tag, rank, event, **match):
+        return [r for r in records(tag, rank) if r["event"] == event
+                and all(r.get(k) == v for k, v in match.items())]
+
+    def snapshot(tag, rank):
+        snaps = events(tag, rank, "metrics-snapshot")
+        if not snaps:
+            fail(f"gang {tag}: rank {rank} left no metrics snapshot")
+        return snaps[-1]["metrics"]
+
+    def grid_of(tag, rank, inc):
+        return np.load(os.path.join(g, f"{tag}-rank{rank}-inc{inc}.npy"))
+
+    def bitwise(label, got, want):
+        if not (got.shape == want.shape and np.array_equal(
+                got.view(np.uint32), want.view(np.uint32))):
+            fail(f"{label}: not bit for bit")
+
+    def startup(tag, inc):
+        """Seconds from the launcher's gang-launch of incarnation ``inc``
+        to the last of its ranks' first heartbeats."""
+        t_launch = events(tag, "main", "gang-launch", incarnation=inc)[0]["t"]
+        first = [min(r["t"] for r in events(tag, rank, "heartbeat",
+                                            incarnation=inc))
+                 for rank in (0, 1)]
+        return max(first) - t_launch
+
+    gang_dev = ["--np", "2", "--devices-per-proc", "2"]
+    want = dist_ref.cpu().numpy()
+
+    # (a) the plain gang through the heat CLI, B3 in each rank
+    mesh2d = dist.make_mesh_2d(2, 2, devices=vdev)
+    single = counted(f"run_distributed_heat {DIST_N}x{DIST_N} 2x2 pallas "
+                     f"(phase 30's single-process reference)", None,
+                     lambda: dist.run_distributed_heat(dist_p, mesh2d,
+                                                       local_kernel="pallas"))
+    out, secs = gang("a", gang_dev, ["heat2d", params_path, "--distributed",
+                                     "--local-kernel=pallas"])
+    if out.count("torch.distributed backend gloo") != 2:
+        fail("gang a: the ranks did not name the gloo backend")
+    per_rank = {}
+    for rank in (0, 1):
+        bitwise(f"gang a rank {rank} vs the single-process 2x2 pallas "
+                f"solve", grid_of("a", rank, 0), single)
+        snap = snapshot("a", rank)
+        n = snap["counters"].get("kernel.launches.local", 0)
+        if n != DIST_ITERS + DIST_PROBE_LAUNCHES:
+            fail(f"gang a rank {rank}: {n} B3 launches, expected "
+                 f"{DIST_ITERS + DIST_PROBE_LAUNCHES}")
+        solve = snap["gauges"]["dist_heat.solve_s"]
+        exchange = snap["gauges"]["dist_heat.exchange_s"]
+        per_rank[rank] = {"b3_launches": n, "solve_s": solve,
+                          "exchange_s": exchange,
+                          "exchange_share": exchange / solve}
+    label_a = (f"gang 2 ranks x 2 shards, heat2d CLI {DIST_N}x{DIST_N} 2d "
+               f"sync pallas")
+    paths[label_a] = only("local", sum(r["b3_launches"]
+                                       for r in per_rank.values()))
+    print(f"launches of {label_a}: {paths[label_a]}")
+    dumps = sorted(os.listdir(os.path.join(g, "a")))
+    if dumps != ["grid0_final.txt", "grid1_final.txt", "grid2_final.txt",
+                 "grid3_final.txt", "grid_final.txt", "grid_init.txt"]:
+        fail(f"gang a: dumps {dumps}")
+    one = dist_rows[f"run_distributed {DIST_N}x{DIST_N} 2d sync pallas"]
+    single_s = one["ms"] * DIST_ITERS / 1e3
+    rows["a"] = {"backend": "gloo", "launcher_s": secs, "ranks": per_rank,
+                 "single_process_s": single_s,
+                 "gang_over_single": max(r["solve_s"]
+                                         for r in per_rank.values())
+                 / single_s}
+    print(f"phase 30 (a): gang solve {[r['solve_s'] for r in per_rank.values()]}"
+          f" s against phase 10's single-process {single_s:.6f} s; the "
+          f"host-staged exchange takes "
+          f"{[round(r['exchange_share'], 6) for r in per_rank.values()]} "
+          f"of the bracket; backend gloo; bit for bit the 2x2 pallas solve")
+
+    # (b) the supervised gang, rank 1 killed after one commit
+    ckpt = os.path.join(g, "ckpt")
+    out, secs = gang("b", [*gang_dev, "--stall-timeout", "60",
+                           "--max-restarts", "1", "--ckpt-dir", ckpt,
+                           "--ckpt-every", "250"],
+                     ["heat2d", params_path, "--distributed",
+                      "--supervised"], faults="rankkill:1:1")
+    for needle in ("injected kill: rank 1 at step 1", "condemning the gang",
+                   "gang restart (incarnation 1/1)"):
+        if needle not in out:
+            fail(f"gang b: no {needle!r} in its output")
+    for rank in (0, 1):
+        bitwise(f"gang b rank {rank} vs the uninterrupted solve",
+                grid_of("b", rank, 1), want)
+    commit_ms = sorted(e["ms"] for e in events("b", 0, "epoch-commit"))
+    if len(commit_ms) != 4:
+        fail(f"gang b: {len(commit_ms)} epoch commits, expected 4")
+    (kill,) = events("b", 1, "fault-injected", kind="rankkill")
+    (verdict,) = events("b", "main", "rank-failed")
+    resumed = min(r["t"] for rank in (0, 1)
+                  for r in events("b", rank, "heartbeat", incarnation=1))
+    rows["b"] = {"launcher_s": secs,
+                 "commit_ms_p50": commit_ms[(len(commit_ms) - 1) // 2],
+                 "commit_ms_max": commit_ms[-1], "commit_ms": commit_ms,
+                 "kill_to_verdict_s": verdict["t"] - kill["t"],
+                 "kill_to_resumed_beat_s": resumed - kill["t"],
+                 "startup_s": [startup("b", 0), startup("b", 1)]}
+    print(f"phase 30 (b): {json.dumps(rows['b'])}")
+
+    # (c) a frozen rank, condemned by the stall clock
+    out, secs = gang("c", ["--np", "2", "--stall-timeout", "5",
+                           "--max-restarts", "1"], ["stall"], timeout=200)
+    if "stalled at step 1 for" not in out \
+            or out.count("recovered incarnation 1") != 2:
+        fail("gang c: no stall verdict or no recovery")
+    (beat,) = events("c", 1, "heartbeat", incarnation=0)
+    (verdict,) = events("c", "main", "rank-failed")
+    if verdict["reason"] != "stall":
+        fail(f"gang c: verdict {verdict}")
+    rows["c"] = {"launcher_s": secs, "stall_timeout_s": 5,
+                 "detection_s": verdict["t"] - beat["t"]}
+    print(f"phase 30 (c): {json.dumps(rows['c'])}")
+
+    # (d) (b)'s last commit resumed on one process's 1-D mesh of 4 shards
+    more = 250
+    p_more = config.SimParams(nx=DIST_N, ny=DIST_N, order=8,
+                              iters=DIST_ITERS + more,
+                              grid_method=config.GridMethod.BLOCKS_2D)
+    mark = len(core.trace.events())
+    t0 = time.perf_counter()
+    resumed = counted(f"run_distributed_heat_supervised {DIST_N}x{DIST_N} "
+                      f"resumed on 1-D x 4", only(None, 0),
+                      lambda: dist.run_distributed_heat_supervised(
+                          p_more, dist.make_mesh_1d(4, devices=vdev), ckpt,
+                          ckpt_every=more))
+    secs = time.perf_counter() - t0
+    loaded = [e for e in core.trace.events()[mark:]
+              if e["event"] == "commit-loaded"]
+    if not loaded or loaded[0]["step"] != DIST_ITERS:
+        fail(f"phase 30 (d): resumed from {loaded}")
+    ref_more = ops.run_heat(grid.make_initial_grid(p_more, device=dev),
+                            p_more.iters, p_more.order, p_more.xcfl,
+                            p_more.ycfl).cpu().numpy()
+    bitwise("phase 30 (d) vs the uninterrupted 1250-step solve", resumed,
+            ref_more)
+    rows["d"] = {"resumed_from_step": DIST_ITERS, "steps": more,
+                 "seconds": secs}
+    print(f"phase 30 (d): {json.dumps(rows['d'])}")
+
+    # (e) the supervised sharded SpMV-scan at pwtk, uninterrupted and with
+    # rank 0 killed after two commits
+    npz = os.path.join(g, "pwtk.npz")
+    np.savez(npz, a=pwtk.a, s=pwtk.s, k=pwtk.k, x=pwtk.x, iters=pwtk.iters)
+    solves = {}
+    for tag, faults, restarts in (("e0", None, "0"),
+                                  ("e1", "rankkill:0:2", "1")):
+        out, secs = gang(tag, [*gang_dev, "--stall-timeout", "120",
+                               "--max-restarts", restarts, "--ckpt-dir",
+                               os.path.join(g, f"ckpt-{tag}"),
+                               "--ckpt-every", "5"], ["spmv", npz],
+                         faults=faults)
+        inc = 1 if faults else 0
+        res = [grid_of(tag, rank, inc) for rank in (0, 1)]
+        bitwise(f"gang {tag} rank 1 vs rank 0", res[1], res[0])
+        seconds = [float(line.split()[-2]) for line in out.splitlines()
+                   if "supervised solve:" in line]
+        solves[tag] = (res[0], seconds, secs)
+    if "condemning the gang" not in out:
+        fail("gang e1: no gang verdict")
+    bitwise("gang e1 vs the uninterrupted gang", solves["e1"][0],
+            solves["e0"][0])
+    rel_l2 = relative_l2_error(pwtk_ref64, solves["e0"][0])
+    rel_linf = relative_linf_error(pwtk_ref64, solves["e0"][0])
+    tol_l2, tol_linf = PWTK_TOL["auto"]
+    if not (rel_l2 <= tol_l2 and rel_linf <= tol_linf):
+        fail(f"gang e: rel L2 {rel_l2:.3e} / rel Linf {rel_linf:.3e} "
+             f"(limits {tol_l2} / {tol_linf})")
+    e_commits = sorted(e["ms"] for e in events("e0", 0, "epoch-commit"))
+    rows["e"] = {"rel_l2": rel_l2, "rel_linf": rel_linf,
+                 "supervised_ms_per_iter": [s * 1e3 / pwtk.iters
+                                            for s in solves["e0"][1]],
+                 "commit_ms_p50": e_commits[(len(e_commits) - 1) // 2],
+                 "commit_ms_max": e_commits[-1],
+                 "launcher_s": [solves["e0"][2], solves["e1"][2]]}
+    print(f"phase 30 (e): {json.dumps(rows['e'])}")
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 30: {rows['seconds']:.1f} s")
     return rows
 
 
@@ -3223,6 +3575,10 @@ def main(argv=None) -> int:
     workloads = workloads_phase(counted, only, paths, work, ident,
                                 calibration)
 
+    # ---------------------------------------------------- 30. the gang
+    gang = gang_phase(counted, only, paths, work, dist_p, dist_ref,
+                      dist_rows, vdev, prob, ref64)
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single behind the ladder, cold: its gate's probe included; B2
@@ -3277,7 +3633,8 @@ def main(argv=None) -> int:
         "library_ms": local_library_ms,
         "unit": f"ms per step (one launch on the 2x2 mesh's four padded "
                 f"blocks), {DIST_N}x{DIST_N} order 8 f32, k=1",
-        "per_k": local_timing, "paths": dist_rows, "idle_share": idle})
+        "per_k": local_timing, "paths": dist_rows, "idle_share": idle,
+        "gang": gang["a"]["ranks"]})
     scan_rows = {
         "segscan": (b6_ms, b6_plain_ms, b6_bound, b6_by,
                     f"ms per scan, {SUITE} n={n} f32"),
@@ -3339,6 +3696,7 @@ def main(argv=None) -> int:
     print(json.dumps({"runners": runners}))
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"workloads": workloads}))
+    print(json.dumps({"gang": gang, "card": ident}))
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

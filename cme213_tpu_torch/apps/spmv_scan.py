@@ -700,31 +700,38 @@ def run_spmv_scan_distributed(prob: Problem, mesh, dtype=torch.float32,
     zero-valued, own-segment tail elements (they never touch a real
     segment).  One untimed iteration runs first; the timed phase is
     "spmv_scan_distributed"."""
-    from ..dist.scan import make_iterated_sharded_scan_gated
+    from ..dist.scan import make_iterated_sharded_scan_gated, unshard_1d
 
     prob.validate()
     a, xx, flags, n = _shard_problem(prob, mesh, dtype)
     iterate, _ = make_iterated_sharded_scan_gated(mesh)
     timer = timer or PhaseTimer()
-    for s in iterate(a, xx, flags, 1):
+    for s in _own(iterate(a, xx, flags, 1)):
         check_op("spmv_scan.distributed", s)
     with timer.phase("spmv_scan_distributed") as ph:
         out = iterate(a, xx, flags, prob.iters)
-        ph.block(*out)
-    return torch.cat([s.cpu() for s in out]).numpy()[:n]
+        ph.block(*_own(out))
+    return unshard_1d(out, mesh).cpu().numpy()[:n]
 
 
-def _shard_problem(prob: Problem, mesh, dtype):
+def _own(shards: list) -> list:
+    """The shards this process holds (another rank's are ``None``)."""
+    return [s for s in shards if s is not None]
+
+
+def _shard_problem(prob: Problem, mesh, dtype, values: np.ndarray | None = None):
     """Pad and cut the problem state over the mesh's first axis: returns
     ``(a, xx, flags, n)``, the first three lists of shards on the mesh's
-    devices."""
+    devices (``None`` for a shard another rank of the gang holds).
+    ``values`` replaces the value vector (a resume re-cuts a committed
+    mid-solve state)."""
     from ..dist.scan import shard_1d
 
     nshards = mesh.devices.shape[0]
     n = prob.n
     padded = -(-n // nshards) * nshards
     a = np.zeros(padded, dtype=np.float32)
-    a[:n] = prob.a
+    a[:n] = prob.a if values is None else values
     xx = np.zeros(padded, dtype=np.float32)
     xx[:n] = prob.xx
     flags = np.zeros(padded, dtype=np.int32)
@@ -734,6 +741,107 @@ def _shard_problem(prob: Problem, mesh, dtype):
     return (shard_1d(torch.from_numpy(a).to(dtype), mesh),
             shard_1d(torch.from_numpy(xx).to(dtype), mesh),
             shard_1d(torch.from_numpy(flags), mesh), n)
+
+
+def _problem_crc(prob: Problem) -> int:
+    """CRC32 over the problem's defining arrays — pins a commit to ITS
+    problem instance so a resume can't silently mix solves."""
+    import zlib
+
+    crc = 0
+    for arr in (prob.a, prob.s, prob.k, prob.x):
+        crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def run_spmv_scan_distributed_supervised(prob: Problem, mesh, ckpt_dir: str,
+                                         every: int = 0, dtype=torch.float32,
+                                         resume: bool = True,
+                                         heartbeat=None) -> np.ndarray:
+    """Supervised form of the mesh-parallel pipeline: the sharded value
+    vector is epoch-committed (``dist/ckpt.py``) every ``every``
+    iterations with a heartbeat per epoch, and ``resume`` reloads the
+    newest valid commit — **elastically**: the commit stores the true
+    (n,)-length state plus its shard map, so a solve committed on 2 shards
+    (or 2 ranks) resumes on 4, re-padded and re-cut for the new axis.
+    ``faults.maybe_kill_rank`` guards each epoch boundary, as in the
+    supervised heat solve.
+
+    Same-mesh resume is bitwise; across shard counts the carry-combine
+    order changes, so results match the single-device reference to the
+    usual scan tolerance instead.
+
+    An epoch that dies RESOURCE-classified (``CME213_FAULTS=
+    oom:spmv_scan_chunk``) halves ``every``, re-cuts the last committed
+    state and retries; the allocator's own ``torch.cuda.OutOfMemoryError``
+    re-raises.  Returns the result on the host, on every rank of a gang.
+    """
+    from ..core import metrics
+    from ..core.faults import maybe_kill_rank, maybe_oom
+    from ..core.resilience import FailureKind, classify_failure
+    from ..core.trace import record_event
+    from ..dist.ckpt import check_meta, commit_epoch, load_latest_commit
+    from ..dist.multihost import process_info
+    from ..dist.scan import make_iterated_sharded_scan_gated, unshard_1d
+
+    prob.validate()
+    meta = {"kind": "spmv_scan", "n": prob.n, "iters": prob.iters,
+            "problem_crc": _problem_crc(prob),
+            "dtype": dtype_name(dtype)}
+    every = every or prob.iters
+    process_id, process_count = process_info()
+
+    def load_state(force: bool = False):
+        # the halving retry always reloads (its own commits from this run
+        # are durable even when the solve started with resume=False)
+        loaded = load_latest_commit(ckpt_dir) if (resume or force) else None
+        if loaded is None:
+            return 0, 0, None
+        manifest, committed = loaded
+        check_meta(manifest, **meta)
+        return manifest["step"], manifest["epoch"], np.asarray(committed)
+
+    def shard_map(shards):
+        # each shard's global index range in the padded vector
+        size = len(_own(shards)[0])
+        return [(((i * size, (i + 1) * size),), s)
+                for i, s in enumerate(shards)]
+
+    start, epoch, values = load_state()
+    a, xx, flags, n = _shard_problem(prob, mesh, dtype, values=values)
+    iterate, _ = make_iterated_sharded_scan_gated(mesh)
+    if heartbeat is not None:
+        heartbeat.beat(start)
+    it = start
+    while it < prob.iters:
+        maybe_kill_rank(step=epoch)
+        k = min(every, prob.iters - it)
+        try:
+            maybe_oom("spmv_scan_chunk")
+            a_new = iterate(a, xx, flags, k)
+            check_op("spmv_scan.distributed", *_own(a_new))
+        except Exception as e:  # noqa: BLE001 — classify, then decide
+            if (isinstance(e, torch.cuda.OutOfMemoryError)
+                    or classify_failure(e) is not FailureKind.RESOURCE
+                    or k <= 1):
+                raise
+            every = max(1, k // 2)
+            metrics.counter("admission.chunk_shrunk").inc()
+            record_event("chunk-shrunk", op="spmv_scan", from_size=k,
+                         to_size=every, reason=type(e).__name__)
+            it, epoch, values = load_state(force=True)
+            a, xx, flags, n = _shard_problem(prob, mesh, dtype,
+                                             values=values)
+            continue
+        a = a_new
+        it += k
+        epoch += 1
+        commit_epoch(ckpt_dir, epoch, it, shard_map(a), true_shape=(n,),
+                     meta=meta, process_id=process_id,
+                     process_count=process_count)
+        if heartbeat is not None:
+            heartbeat.beat(it)
+    return unshard_1d(a, mesh).cpu().numpy()[:n]
 
 
 # ------------------------------------------------------------------ checking

@@ -205,6 +205,19 @@ def check(op: str, rung: str, shape_class: str, candidate, reference,
     return verdict
 
 
+def cached(op: str, rung: str, shape_class: str) -> bool:
+    """Whether ``check`` would replay a verdict for this probe (the disk
+    cache included) instead of running it."""
+    if not _DISK_LOADED:
+        _load_disk_cache()
+    return (op, rung, shape_class) in _VERDICTS
+
+
+def forget(op: str, rung: str, shape_class: str) -> None:
+    """Drop one cached verdict, so the next ``check`` runs its probe."""
+    _VERDICTS.pop((op, rung, shape_class), None)
+
+
 def verdicts() -> dict:
     """Snapshot of cached verdicts (introspection, tests)."""
     return {_cache_key(*k): v for k, v in _VERDICTS.items()}

@@ -6,8 +6,12 @@ A sequence cut into one shard per device of a mesh axis is scanned per
 shard (the plain ``ops.segmented.segmented_scan``, as the JAX package
 leaves it to XLA), the shard carries are combined with the segmented-scan
 operator across shards, and each shard adds its incoming carry to the
-elements before its first segment head.  One process holds the shards as a
-list of tensors in mesh order, each on its device.
+elements before its first segment head.  A process holds its shards as a
+list of tensors in mesh order, each on its device; in a gang a shard
+another rank holds is ``None`` there, each rank scans its own shards, and
+the (value, flag) carry of every shard reaches every rank through the
+gang's gloo group (``halo.gather_shards``), so every rank combines all
+carries in the same order and a gang gives the single-process mesh's bits.
 
 Two carry-combine backends, with the JAX package's association:
 
@@ -23,16 +27,38 @@ from __future__ import annotations
 import torch
 
 from ..ops.segmented import segmented_scan
+from .halo import gather_shards
 from .mesh import Mesh
+from .multihost import process_info
 
 
-def _axis_devices(mesh: Mesh, axis_name: str | None) -> list[torch.device]:
-    """The devices along ``axis_name`` (default the first axis), the other
-    axes at index 0: the shards of a sequence cut over that axis."""
+def _axis_index(mesh: Mesh, axis_name: str | None) -> tuple:
+    """The index of the shards along ``axis_name`` (default the first
+    axis), the other axes at 0: the shards of a sequence cut over that
+    axis."""
     axis = mesh.axis_names.index(axis_name or mesh.axis_names[0])
     index = [0] * mesh.devices.ndim
     index[axis] = slice(None)
-    return list(mesh.devices[tuple(index)])
+    return tuple(index)
+
+
+def _axis_devices(mesh: Mesh, axis_name: str | None) -> list[torch.device]:
+    return list(mesh.devices[_axis_index(mesh, axis_name)])
+
+
+def _axis_owners(mesh: Mesh, axis_name: str | None) -> list[int]:
+    return [int(o) for o in mesh.owners[_axis_index(mesh, axis_name)]]
+
+
+def _first_own(shards: list) -> torch.Tensor:
+    return next(s for s in shards if s is not None)
+
+
+def _all_shards(shards: list, owners) -> list[torch.Tensor]:
+    """Every shard of the sequence on every rank (``halo.gather_shards``);
+    the shards of this process as they are."""
+    own = _first_own(shards)
+    return gather_shards(shards, owners, own.shape, own.dtype, own.device)
 
 
 def _carry_gather(carry_v: list[torch.Tensor], carry_f: list[torch.Tensor]
@@ -78,12 +104,24 @@ def _carry_ring(carry_v: list[torch.Tensor], carry_f: list[torch.Tensor]
         inc_v[i - 1].to(inc_v[i].device) for i in range(1, n)]
 
 
-def _local_with_carry(values: list[torch.Tensor], flags: list[torch.Tensor],
-                      carry_mode: str = "ring") -> list[torch.Tensor]:
-    local = [segmented_scan(v, f) for v, f in zip(values, flags)]
+def _local_with_carry(values: list[torch.Tensor | None],
+                      flags: list[torch.Tensor | None],
+                      carry_mode: str = "ring", owners=None
+                      ) -> list[torch.Tensor | None]:
+    local = [None if v is None else segmented_scan(v, f)
+             for v, f in zip(values, flags)]
     # shard carry: (last partial sum, does the shard hold a head?)
-    carry_v = [s[-1] for s in local]
-    carry_f = [f.max().to(torch.int32) for f in flags]
+    carry_v = [None if s is None else s[-1] for s in local]
+    carry_f = [None if f is None else f.max().to(torch.int32) for f in flags]
+    if owners is not None and process_info()[1] > 1:
+        # every shard's carry on every rank, packed as (value, flag) in
+        # float64, which holds both exactly
+        dtype = _first_own(carry_v).dtype
+        packed = _all_shards(
+            [None if v is None else torch.stack([v.double(), f.double()])
+             for v, f in zip(carry_v, carry_f)], owners)
+        carry_v = [p[0].to(dtype) for p in packed]
+        carry_f = [p[1].to(torch.int32) for p in packed]
     combine = _carry_ring if carry_mode == "ring" else _carry_gather
     incoming = combine(carry_v, carry_f)
     # the incoming open segment covers the positions before the first head
@@ -91,21 +129,36 @@ def _local_with_carry(values: list[torch.Tensor], flags: list[torch.Tensor],
     # and torch's cummax of one long row runs in a single CUDA block)
     out = []
     for s, f, c in zip(local, flags, incoming):
+        if s is None:
+            out.append(None)
+            continue
         no_head_yet = torch.cumsum(f, dim=0) == 0
         out.append(s + torch.where(no_head_yet, c, torch.zeros_like(c)))
     return out
 
 
 def shard_1d(x: torch.Tensor, mesh: Mesh,
-             axis_name: str | None = None) -> list[torch.Tensor]:
-    """Cut ``x`` into equal shards along dim 0, one copied to each device
-    of the mesh axis.  Raises ``ValueError`` when the length does not
-    divide."""
+             axis_name: str | None = None) -> list[torch.Tensor | None]:
+    """Cut ``x`` into equal shards along dim 0, each this process owns
+    copied to its device of the mesh axis (``None`` for another rank's).
+    Raises ``ValueError`` when the length does not divide."""
     devices = _axis_devices(mesh, axis_name)
+    owners = _axis_owners(mesh, axis_name)
     if x.shape[0] % len(devices):
         raise ValueError("sequence length must divide over the mesh axis")
-    return [c.to(d, copy=True)
-            for c, d in zip(torch.chunk(x, len(devices)), devices)]
+    return [c.to(d, copy=True) if o == mesh.rank else None
+            for c, d, o in zip(torch.chunk(x, len(devices)), devices,
+                               owners)]
+
+
+def unshard_1d(shards: list[torch.Tensor | None], mesh: Mesh,
+               axis_name: str | None = None) -> torch.Tensor:
+    """The inverse of ``shard_1d``: the whole sequence on the first own
+    shard's device, on every rank of a gang (the shards of other ranks
+    come from their owners)."""
+    out = _all_shards(shards, _axis_owners(mesh, axis_name))
+    dev = _first_own(shards).device
+    return torch.cat([s.to(dev) for s in out])
 
 
 def make_iterated_sharded_scan(mesh: Mesh, axis_name: str | None = None,
@@ -114,16 +167,19 @@ def make_iterated_sharded_scan(mesh: Mesh, axis_name: str | None = None,
     · xx)`` loop of ``apps/spmv_scan`` over shards.
 
     Returns ``iterate(a, xx, flags, iters)``; each argument is a list of
-    shards (``shard_1d``) over ``axis_name``, and so is the result.  The
-    shards of ``a`` are not modified.
+    shards (``shard_1d``) over ``axis_name``, and so is the result (the
+    shards this process holds; ``None`` for another rank's).  The shards
+    of ``a`` are not modified.
     """
     if carry_mode not in ("ring", "gather"):
         raise ValueError(f"unknown carry_mode {carry_mode!r}")
+    owners = _axis_owners(mesh, axis_name)
 
     def iterate(a, xx, flags, iters: int):
         for _ in range(iters):
-            a = _local_with_carry([v * w for v, w in zip(a, xx)], flags,
-                                  carry_mode)
+            a = _local_with_carry([None if v is None else v * w
+                                   for v, w in zip(a, xx)], flags,
+                                  carry_mode, owners)
         return a
 
     return iterate
@@ -144,12 +200,13 @@ def make_iterated_sharded_scan_gated(mesh: Mesh,
     carry_mode)``."""
     import numpy as np
 
-    from ..core import conformance
     from ..core.platform import build_identity
     from ..core.resilience import with_fallback
     from ..ops.segmented import segmented_scan_flat
+    from .multihost import agreed_check
 
     devices = _axis_devices(mesh, axis_name)
+    local = mesh.local_devices()[0]
     n = 64 * len(devices)
 
     def probe_inputs():
@@ -166,13 +223,13 @@ def make_iterated_sharded_scan_gated(mesh: Mesh,
 
         def reference():
             values, flags = probe_inputs()
-            return segmented_scan_flat(values.to(devices[0]),
-                                       flags.to(devices[0]))
+            return segmented_scan_flat(values.to(local), flags.to(local))
 
-        return conformance.check(
-            "dist_scan", mode,
-            shape_class=f"p{len(devices)}/{build_identity(devices[0])}",
-            candidate=probe, reference=reference, rel_l2=1e-5).ok
+        # in a gang every rank runs the probe (its carries cross ranks)
+        # and all take one verdict
+        return agreed_check(
+            "dist_scan", mode, f"p{len(devices)}/{build_identity(local)}",
+            candidate=probe, reference=reference, rel_l2=1e-5)
 
     res = with_fallback(
         "dist_scan",
@@ -188,12 +245,14 @@ def distributed_segmented_scan(values: torch.Tensor, head_flags: torch.Tensor,
     """Segmented inclusive scan of a sequence sharded over one mesh axis.
 
     ``len(values)`` must divide evenly over the axis.  Returns the whole
-    scanned sequence on the first shard's device.  ``carry_mode``:
-    ``"ring"`` (log-P shift sweep) or ``"gather"`` (one device combines).
+    scanned sequence on the first own shard's device (on every rank of a
+    gang).  ``carry_mode``: ``"ring"`` (log-P shift sweep) or
+    ``"gather"`` (one device combines).
     """
     v = shard_1d(values, mesh, axis_name)
     f = shard_1d(head_flags.to(torch.int32), mesh, axis_name)
     if carry_mode not in ("ring", "gather"):
         raise ValueError(f"unknown carry_mode {carry_mode!r}")
-    out = _local_with_carry(v, f, carry_mode)
-    return torch.cat([s.to(out[0].device) for s in out])
+    return unshard_1d(_local_with_carry(v, f, carry_mode,
+                                        _axis_owners(mesh, axis_name)),
+                      mesh, axis_name)

@@ -1081,3 +1081,83 @@ def test_histograms_on_card(cuda, fn):
     out = getattr(ops, fn)(torch.from_numpy(x).to(cuda), 26)
     np.testing.assert_array_equal(out.cpu().numpy(),
                                   np.bincount(x, minlength=26))
+
+
+_GANG_WORKER = """
+import numpy as np
+from cme213_tpu_torch.config import GridMethod, SimParams
+from cme213_tpu_torch.dist import mesh_for_method, run_distributed_heat
+from cme213_tpu_torch.dist.mesh import default_devices
+from cme213_tpu_torch.dist.multihost import initialize_multihost, process_info
+from cme213_tpu_torch.ops import LAUNCHES
+
+initialize_multihost()
+rank, world = process_info()
+p = SimParams(**HEAT, grid_method=GridMethod.BLOCKS_2D)
+mesh = mesh_for_method(p.grid_method, devices=default_devices())
+assert all(d.type == "cuda" for d in mesh.local_devices())
+g = run_distributed_heat(p, mesh, local_kernel="pallas")
+print(f"rank {rank} local launches {LAUNCHES['local']}")
+np.save(f"{sys.argv[1]}/gang-rank{rank}.npy", g)
+# the overlap step (the exchange on a side stream) and k = 2 across ranks
+for name, kw in (("overlap", dict(overlap=True)),
+                 ("k2", dict(overlap=False, steps_per_exchange=2))):
+    g = run_distributed_heat(p, mesh, conformance=False, **kw)
+    np.save(f"{sys.argv[1]}/{name}-rank{rank}.npy", g)
+"""
+
+
+def test_gang_on_one_card_launches_b3_in_each_rank(cuda, tmp_path, capsys):
+    """A 2-rank gang on one card (2 shards a rank, halos over gloo through
+    the host): each rank launches B3 once a step for its two shards (plus
+    the gate's probe), and both return ``run_heat``'s grid bit for bit, as
+    the overlap step (its exchange on a side stream) and k = 2 do."""
+    from torch_gang import run_gang
+
+    heat = dict(nx=64, ny=64, order=8, iters=6)
+    rc = run_gang(tmp_path, _GANG_WORKER, HEAT=heat)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    p = SimParams(**heat)
+    want = run_heat(make_initial_grid(p, device=cuda), p.iters, p.order,
+                    p.xcfl, p.ycfl).cpu().numpy()
+    for rank in (0, 1):
+        for name in ("gang", "overlap", "k2"):
+            np.testing.assert_array_equal(
+                np.load(tmp_path / f"{name}-rank{rank}.npy"), want)
+        assert f"rank {rank} local launches {p.iters + 4}" in out, out
+
+
+def test_supervised_gang_on_one_card_recovers_bitwise(cuda, tmp_path,
+                                                      monkeypatch, capsys):
+    """``--supervised`` on the card as a 2-rank gang under
+    ``rankkill:1:1``: the gang is condemned, relaunched and resumes; the
+    final grid is ``run_heat``'s bit for bit."""
+    import sys
+
+    from cme213_tpu_torch.config import GridMethod
+    from cme213_tpu_torch.dist.launch import launch_supervised
+    from cme213_tpu_torch.grid import save_grid_to_file
+
+    from torch_gang import ROOT
+
+    p = SimParams(nx=64, ny=48, order=4, iters=12,
+                  grid_method=GridMethod.BLOCKS_2D)
+    path = str(tmp_path / "p.in")
+    p.to_file(path, distributed=True)
+    monkeypatch.setenv("CME213_FAULTS", "rankkill:1:1")
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    monkeypatch.chdir(tmp_path)
+    rc = launch_supervised(
+        2, [sys.executable, "-m", "cme213_tpu_torch", "heat2d", path,
+            "--distributed", "--supervised"], devices_per_proc=2,
+        stall_timeout=120, max_restarts=1, ckpt_dir=str(tmp_path / "ck"),
+        ckpt_every=4, timeout=600)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "condemning the gang" in out and "gang restart" in out
+    want = run_heat(make_initial_grid(p, device=cuda), p.iters, p.order,
+                    p.xcfl, p.ycfl)
+    save_grid_to_file(want, str(tmp_path / "want.txt"))
+    assert (tmp_path / "grid_final.txt").read_text() == \
+        (tmp_path / "want.txt").read_text()

@@ -303,11 +303,26 @@ def test_cli_module_entry(tmp_path):
     assert "pipeline:" in proc.stdout
 
 
-def test_cli_supervised_not_ported(tmp_path):
-    path = _write_params(tmp_path / "p.in", nx=16, ny=12, iters=4, order=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        heat2d.main(["heat2d", path, "--distributed", "--supervised",
-                     "--device=cpu"])
+def test_cli_supervised_not_ported(tmp_path, monkeypatch, capsys):
+    """``--supervised`` (once refused here) runs the supervised solve: its
+    epochs commit into ``--ckpt-dir`` and its ``grid_final.txt`` is the
+    unsupervised distributed solve's."""
+    import json
+
+    path = str(tmp_path / "p.in")
+    SimParams(nx=16, ny=12, iters=4, order=2).to_file(path, distributed=True)
+    monkeypatch.chdir(tmp_path)
+    ckpt = tmp_path / "ckpt"
+    assert heat2d.main(["heat2d", path, "--distributed", "--supervised",
+                        f"--ckpt-dir={ckpt}", "--ckpt-every=2",
+                        "--device=cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "supervised solve complete: 4 iters" in out
+    assert json.loads((ckpt / "COMMIT").read_text())["step"] == 4
+    supervised = (tmp_path / "grid_final.txt").read_text()
+    assert heat2d.main(["heat2d", path, "--distributed",
+                        "--device=cpu"]) == 0
+    assert (tmp_path / "grid_final.txt").read_text() == supervised
 
 
 def test_no_device_without_cuda_raises(monkeypatch):

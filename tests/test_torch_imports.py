@@ -80,7 +80,11 @@ def test_import_leaves_jax_unloaded():
             " cme213_tpu_torch.apps.corpus, cme213_tpu_torch.apps.cipher,"
             " cme213_tpu_torch.apps.pagerank, cme213_tpu_torch.apps.vigenere,"
             " cme213_tpu_torch.apps.sorts, cme213_tpu_torch.bench.sweeps,"
-            " cme213_tpu_torch.core.tune, cme213_tpu_torch.tune_cli;"
+            " cme213_tpu_torch.core.tune, cme213_tpu_torch.tune_cli,"
+            " cme213_tpu_torch.dist.multihost, cme213_tpu_torch.dist.launch,"
+            " cme213_tpu_torch.dist.ckpt, cme213_tpu_torch.dist.halo,"
+            " cme213_tpu_torch.dist.heat, cme213_tpu_torch.dist.scan,"
+            " cme213_tpu_torch.dist.mesh;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -88,3 +92,35 @@ def test_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "cme213_tpu_torch.core", "cme213_tpu_torch.core.faults",
+    "cme213_tpu_torch.core.trace", "cme213_tpu_torch.dist",
+    "cme213_tpu_torch.dist.supervisor", "cme213_tpu_torch.dist.launch",
+    "cme213_tpu_torch.dist.multihost"])
+def test_light_modules_leave_torch_unloaded(module):
+    """The package ``__init__``s resolve their names on first access, so a
+    supervised rank's heartbeat path (and the launcher) import no torch."""
+    code = (f"import sys, {module}; "
+            "sys.exit(1 if 'torch' in sys.modules else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_lazy_package_names_resolve():
+    """Every public name of the lazy ``core`` and ``dist`` packages
+    resolves to its submodule's object."""
+    import cme213_tpu_torch.core as core
+    import cme213_tpu_torch.dist as dist
+
+    for pkg in (core, dist):
+        for name in pkg.__all__:
+            assert getattr(pkg, name) is not None, (pkg.__name__, name)
+        assert set(pkg.__all__) <= set(dir(pkg))
+    from cme213_tpu_torch.dist import heat, run_distributed_heat_supervised
+
+    assert run_distributed_heat_supervised is \
+        heat.run_distributed_heat_supervised
