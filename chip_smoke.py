@@ -356,10 +356,39 @@ the run (non-zero exit) when it fails:
    ``rankkill:0:2``: the two bit for bit, within ``PWTK_TOL["auto"]`` of
    phase 8's f64 plain run; ms an iteration of the supervised solve.  The
    numbers go on a ``{"gang": ...}`` line.
+31. The serving front end on the card (``cme213_tpu_torch/serve``; every
+   rung plain torch, as the JAX package serves XLA programs only, so
+   every path is counted and must launch no hand-written kernel).  (a)
+   ``python -m cme213_tpu_torch serve loadgen --mix spmv,heat,cipher,sort
+   --requests 64 --json`` in a child on ``cuda`` in ``--mode closed`` and
+   ``--mode open``, then ``serve warmup --json`` (each child's launches
+   from its sink): the report and its JSON line (req/s, p50 and p99 per op
+   and phase, batch sizes, sheds); the same two runs in this process
+   (``loadgen.run_load`` on a ``Server(device="cuda")``), every OK result
+   bit for bit its own serial solve on the card.  (b) Full size under
+   ``CME213_MEMORY_BUDGET=10G``: 4 heat requests at 2000² order 8 × 200
+   steps, 4 SpMV requests at pwtk (10 iterations, padded to 2^24) served
+   on ``blocked`` and (degraded mode) ``flat``, 8 cipher requests of the
+   corpus ×16 (20,004,128 B) on ``packed``, 8 sorts of 2^20 keys on
+   ``radix`` (the batch must shrink: ``chunk-shrunk``) and ``bitonic``:
+   the admitted widths, ms a request, req/s, the batched-vs-serial ratio
+   (the same requests through ``max_batch=1``), the peak bytes beside the
+   adapter's preflight count, the idle share of one batch (``idle_share``),
+   every lane bit for bit its serial solve.  (c) A ``TransportServer``
+   over a card ``Server``: 2000 ``stub`` requests from a v2 client on the
+   shared-memory lane, 16 in flight (req/s, the codec's share of the p99
+   RTT), and 17 cipher requests over the wire (one of 20 MB, over the
+   socket) bit for bit the in-process results.  (d) A PageRank job (4096
+   nodes, 48 iterations, epochs of 8) submitted over the wire and run on
+   ``cuda`` by a ``JobExecutor``: preempted by interactive traffic after
+   two epochs, its replica closed, resumed by a new executor (``restart``),
+   each epoch run once, the result bit for bit ``host_graph_iterate``.
+   The numbers go on a ``{"serving": ...}`` line; the script's wall time
+   is printed.
 
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28,
-29 and 30 drive through the entry points a user calls: ``run_single`` at 512² and at
-4000² (kernel B1, through the ladder), one solve of each of
+29, 30 and 31 drive through the entry points a user calls: ``run_single``
+at 512² and at 4000² (kernel B1, through the ladder), one solve of each of
 ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
 SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
 distributed heat solves (B3 through ``pallas``),
@@ -369,7 +398,8 @@ measurement of phase 16 (B1), phase 28's traced runs (B1 through the
 ``heat2d`` CLI and the ladder's turns, B7 through the ``spmv_scan`` CLI,
 and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
 recorded but not predicted), phase 29's suite sweep (B7, recorded) and
-phase 30's gang (B3 in each rank, read from its sink).  Every launch count
+phase 30's gang (B3 in each rank, read from its sink); phase 31's serving
+paths launch none.  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
@@ -2133,7 +2163,416 @@ def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
     return rows
 
 
+#: phase 31's loadgen mix and request count (the CLI children and the
+#: in-process runs held lane by lane), and its full-size request counts
+SERVE_MIX, SERVE_REQUESTS = "spmv,heat,cipher,sort", 64
+SERVE_HEAT_N, SERVE_HEAT_ITERS, SERVE_HEAT_REQS = 2000, 200, 4
+SERVE_SPMV_ITERS, SERVE_SPMV_REQS = 10, 4
+SERVE_CIPHER_REQS, SERVE_SORT_N, SERVE_SORT_REQS = 8, 1 << 20, 8
+#: the memory budget of phase 31(b): four radix lanes of 2^20 keys fit
+#: (``ops.sort.radix_peak_bytes``: 2.46 GB a lane), five do not, so the
+#: batch of eight shrinks to four
+SERVE_BUDGET = "10G"
+#: phase 31(d)'s durable job: the reference's PageRank job defaults
+SERVE_JOB = {"nodes": 4096, "avg_edges": 8, "iters": 48, "epoch": 8,
+             "seed": 0}
+
+
+def serving_phase(counted, only, paths, work, ident, pwtk):
+    """Phase 31: the serving front end on the card (see the module's
+    docstring).  ``counted``, ``only`` and ``paths`` are ``main``'s
+    launch-count helpers and table, ``work`` its scratch directory and
+    ``pwtk`` phase 8's problem.  Every path is counted and must launch no
+    hand-written kernel: the JAX package serves XLA programs only.
+    Returns the numbers for the ``serving`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import config, core, ops, trace_cli
+    from cme213_tpu_torch.apps import pagerank
+    from cme213_tpu_torch.apps import spmv_scan as spmv
+    from cme213_tpu_torch.apps.corpus import load_corpus
+    from cme213_tpu_torch.grid import make_initial_grid
+    from cme213_tpu_torch.serve import (OK, RequestSpec, Server, jobs,
+                                        loadgen, wire)
+    from cme213_tpu_torch.serve.transport import (TransportClient,
+                                                  TransportServer)
+    from cme213_tpu_torch.serve.workloads import (ADAPTERS, CipherRequest,
+                                                  SortAdapter, _sort_one)
+    from cme213_tpu_torch.verify import golden
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    none = only(None, 0)  # plain torch and host code: no hand-written kernel
+    rows = {"card": ident}
+    s_dir = tempfile.mkdtemp(prefix="serve-", dir=work)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CME213_FAULTS", core.trace.TRACE_FILE_ENV,
+                        core.admission.BUDGET_ENV)}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+
+    def bitwise(label, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                got.tobytes() != want.tobytes():
+            fail(f"{label}: not bit for bit its serial solve")
+
+    def serial(op, payload, rung):
+        """One request's serial solve on the card, outside the server."""
+        if op == "cipher":
+            t = torch.from_numpy(payload.text).to(dev)
+            fn = (ops.shift_cipher_packed if rung == "packed"
+                  else ops.shift_cipher)
+            return fn(t, payload.shift).cpu().numpy()
+        if op == "sort":
+            return _sort_one(payload, rung, dev)
+        if op == "heat":
+            return ops.run_heat(make_initial_grid(payload, device=dev),
+                                payload.iters, payload.order,
+                                payload.xcfl, payload.ycfl).cpu().numpy()
+        a, xx, flags, _ = spmv.problem_tensors(payload, device=dev)
+        return spmv._iterate(a, xx, flags, payload.iters,
+                             scan=rung).cpu().numpy()
+
+    def child(label, args, timeout=300):
+        """``python -m cme213_tpu_torch serve args`` on the card with its
+        own sink: (stdout, seconds); its launches from the sink."""
+        sink = os.path.join(s_dir, f"{label}.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cme213_tpu_torch", "serve", *args],
+            cwd=s_dir, env=dict(env, **{core.trace.TRACE_FILE_ENV: sink}),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"serve {label}: no result in {timeout} s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"serve {label}: rc {proc.returncode}\n{err[-3000:]}")
+        snap = trace_cli.load_metrics_snapshot(sink)
+        got = only(None, 0)
+        for name, n in snap.get("counters", {}).items():
+            if name.startswith("kernel.launches."):
+                got[name[len("kernel.launches."):]] = n
+        paths[f"serve {label} (child)"] = got
+        print(f"launches of serve {label} (child): {got}")
+        if got != none:
+            fail(f"serve {label}: launched hand-written kernels {got}")
+        return out, secs
+
+    # ------------------------------------------- (a) the CLI, in children
+    cli = {}
+    base = ["loadgen", "--mix", SERVE_MIX, "--requests", str(SERVE_REQUESTS),
+            "--json"]
+    for mode in ("closed", "open"):
+        out, secs = child(f"loadgen-{mode}", [*base, "--mode", mode])
+        rep = json.loads(out)
+        print(f"serve loadgen --mode {mode} on cuda ({secs:.1f} s, the "
+              f"child's start and CUDA set-up included):")
+        print("".join(f"  {line}\n" for line in
+                      loadgen.format_report(rep).splitlines()), end="")
+        print(json.dumps({f"loadgen_{mode}": rep}))
+        if rep["failed"] or rep["served"] + rep["shed"] != SERVE_REQUESTS \
+                or (mode == "closed" and rep["shed"]):
+            fail(f"loadgen {mode}: {rep['served']} served, {rep['shed']} "
+                 f"shed, {rep['failed']} failed")
+        cli[mode] = {"seconds": secs, "throughput_rps": rep["throughput_rps"],
+                     "latency_ms": rep["latency_ms"], "phases": rep["phases"],
+                     "batch_mean_size": rep["batch_mean_size"],
+                     "batches": rep["batches"],
+                     "shed_by_reason": rep["shed_by_reason"]}
+    out, secs = child("warmup", ["warmup", "--mix", SERVE_MIX, "--json"])
+    warm = json.loads(out)
+    print(f"serve warmup on cuda ({secs:.1f} s): {len(warm['warmed'])} "
+          f"buckets, {warm['programs']} programs, build-and-warm "
+          f"{warm['compile']['compile_ms']} ms; CME213_COMPILE_CACHE "
+          f"{warm['compile_cache_env']}")
+    if not warm["warmed"] or warm["persistent_cache"] is not None:
+        fail(f"serve warmup: {warm}")
+    cli["warmup"] = {"seconds": secs, "buckets": len(warm["warmed"]),
+                     "programs": warm["programs"],
+                     "compile_ms": warm["compile"]["compile_ms"]}
+    # the same runs in this process, every OK result held to its own
+    # serial solve on the card
+    held = 0
+    for mode in ("closed", "open"):
+        specs = loadgen.build_mix(SERVE_MIX, SERVE_REQUESTS, seed=0)
+        server = Server(capacity=64, max_batch=8, device=dev)
+        run = counted(f"serve run_load {mode} {SERVE_MIX}", none,
+                      lambda: loadgen.run_load(server, specs, mode=mode))
+        by_rid = {r.rid: r for r in run["results"]}
+        for rid, spec in enumerate(specs):
+            res = by_rid[rid]
+            if res.status == OK:
+                bitwise(f"run_load {mode} rid {rid} ({spec.op})", res.value,
+                        serial(spec.op, spec.payload, res.rung))
+                held += 1
+    print(f"run_load closed and open on cuda: {held} served results, each "
+          f"bit for bit its serial solve on the card")
+    rows["cli"] = dict(cli, lanes_held=held)
+
+    # ------------------------------------------- (b) full size, batched
+    rng = np.random.default_rng(31)
+    heat = [config.SimParams(nx=SERVE_HEAT_N, ny=SERVE_HEAT_N, order=8,
+                             iters=SERVE_HEAT_ITERS,
+                             alpha=float(rng.uniform(0.5, 2.0)))
+            for _ in range(SERVE_HEAT_REQS)]
+    spmv_reqs = [dataclasses.replace(
+        pwtk, x=(pwtk.x if i == 0 else rng.permutation(pwtk.x)),
+        iters=SERVE_SPMV_ITERS) for i in range(SERVE_SPMV_REQS)]
+    text = np.tile(load_corpus(), 16)
+    cipher_reqs = [CipherRequest(text, int(s)) for s in
+                   rng.integers(1, 26, SERVE_CIPHER_REQS)]
+    keys = [rng.integers(0, 2**32, SERVE_SORT_N, dtype=np.uint32)
+            for _ in range(SERVE_SORT_REQS)]
+    # (op, rung, adapter, payloads, server knobs): spmv's flat rung is
+    # what degraded mode serves (a queue of 1 already degrades)
+    def one_rung_sorts(rung):
+        # the sort adapter's ladder starts at lax: serve one rung alone,
+        # so the batch is preflighted at that rung's bytes
+        class OneRung(SortAdapter):
+            def rungs(self, degraded=False):
+                return (rung,)
+        return OneRung()
+
+    cases = [("heat", "xla", ADAPTERS["heat"], heat, {}),
+             ("spmv_scan", "blocked", ADAPTERS["spmv_scan"], spmv_reqs, {}),
+             ("spmv_scan", "flat", ADAPTERS["spmv_scan"], spmv_reqs,
+              {"degrade_depth": 1}),
+             ("cipher", "packed", ADAPTERS["cipher"], cipher_reqs, {}),
+             ("sort", "radix", one_rung_sorts("radix"), keys, {}),
+             ("sort", "bitonic", one_rung_sorts("bitonic"), keys, {})]
+    full = {}
+    os.environ[core.admission.BUDGET_ENV] = SERVE_BUDGET
+    try:
+        for op, rung, adapter, payloads, knobs in cases:
+            label = f"{op} {rung}"
+
+            def serve_all(max_batch, adapter=adapter, payloads=payloads,
+                          op=op, knobs=knobs):
+                server = Server(capacity=64, max_batch=max_batch,
+                                device=dev, adapters={op: adapter}, **knobs)
+                for pl in payloads:
+                    server.submit(op, pl)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = server.drain()
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+
+            core.trace.clear_events()
+            serve_all(SERVE_SORT_REQS)  # warm: programs, probes, verdicts
+            mark = len(core.trace.events())
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            results, b_s = counted(f"serve {label} full size", none,
+                                   lambda: serve_all(8))
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            widths = sorted({r.batch_size for r in results})
+            shrunk = [e for e in core.trace.events()[mark:]
+                      if e["event"] == "chunk-shrunk"]
+            _, s_s = serve_all(1)
+            for i, (r, pl) in enumerate(zip(results, payloads)):
+                if r.status != OK or r.rung != rung:
+                    fail(f"serve {label} lane {i}: {r.status} on {r.rung} "
+                         f"({r.reason})")
+                bitwise(f"serve {label} lane {i}", r.value,
+                        serial(op, pl, rung))
+            width = widths[-1]
+            step = payloads[:width]
+            builder = adapter.preflight_builder(step, rung, device=dev)
+            counted_bytes = (builder(width).required_bytes
+                             if builder is not None else None)
+            idle = idle_share(torch, lambda: adapter.run_batch(
+                step, rung, device=dev), 1)
+            n_req = len(payloads)
+            full[label] = {
+                "requests": n_req, "admitted_widths": widths,
+                "chunk_shrunk": [(e["from_size"], e["to_size"])
+                                 for e in shrunk],
+                "ms_per_request": b_s * 1e3 / n_req,
+                "req_s": n_req / b_s,
+                "serial_ms_per_request": s_s * 1e3 / n_req,
+                "batched_vs_serial": s_s / b_s,
+                "peak_bytes_over_baseline": peak,
+                "preflight_bytes_at_width": counted_bytes,
+                "idle_share": idle["idle_share"],
+                "idle_share_unprofiled": idle.get("idle_share_unprofiled"),
+                "batch_ms": idle.get("unprofiled_ms_per_step")}
+            print(f"serve {label} at full size: {n_req} requests, admitted "
+                  f"widths {widths} (chunk-shrunk "
+                  f"{full[label]['chunk_shrunk']}), "
+                  f"{full[label]['ms_per_request']:.3f} ms a request, "
+                  f"{full[label]['req_s']:.2f} req/s, batched/serial "
+                  f"{full[label]['batched_vs_serial']:.3f}x, peak "
+                  f"{peak / 1e9:.3f} GB over the baseline (preflight count "
+                  f"at width {width}: {counted_bytes}), idle share of a "
+                  f"{width}-wide batch {idle['idle_share']}; every lane bit "
+                  f"for bit its serial solve; card {ident}")
+            del results
+    finally:
+        os.environ.pop(core.admission.BUDGET_ENV, None)
+    if full["sort radix"]["admitted_widths"][-1] >= SERVE_SORT_REQS \
+            or not full["sort radix"]["chunk_shrunk"]:
+        fail(f"the radix batch did not shrink under {SERVE_BUDGET}: "
+             f"{full['sort radix']}")
+    rows["full_size"] = dict(full, budget=SERVE_BUDGET)
+
+    # ------------------------------------------- (c) the socket front end
+    server = Server(capacity=256, max_batch=8, device=dev)
+    ts = TransportServer(server, drive="thread",
+                         poll_interval_s=0.001).start()
+    try:
+        stub = loadgen.build_mix("stub", 2000, seed=1)
+        before = core.metrics.snapshot()
+
+        def stub_loop():
+            with TransportClient(ts.addr, shm=True, timeout_s=60.0) as c:
+                if not c.shm_active:
+                    fail("transport: the shm lane did not negotiate")
+                t0 = time.perf_counter()
+                out, window = [], []
+                for spec in stub:
+                    window.append(c.submit(spec.op, spec.payload))
+                    if len(window) >= 16:
+                        out.append(c.result(window.pop(0)))
+                out += [c.result(r) for r in window]
+                return {"results": out,
+                        "elapsed_s": time.perf_counter() - t0}
+
+        run = counted("serve transport stub closed loop (v2, shm)", none,
+                      stub_loop)
+        tsec = loadgen.transport_section(run, before,
+                                         core.metrics.snapshot())
+        ok_n = sum(r.status == OK for r in run["results"])
+        for r, spec in zip(run["results"], stub):
+            bitwise("transport stub echo", r.value, spec.payload)
+        stub_rps = ok_n / run["elapsed_s"]
+        print(f"transport stub closed loop on the card's server (v2 + shm "
+              f"lane, 16 in flight): {ok_n} served, {stub_rps:.1f} req/s, "
+              f"codec share of p99 rtt {tsec.get('codec_share')}, client "
+              f"rtt p50/p99 {tsec['client']['rtt_ms']}; card {ident}")
+        ciphers = loadgen.build_mix("cipher", 16, seed=2) + [
+            RequestSpec("cipher", cipher_reqs[0])]
+        local = Server(max_batch=8, device=dev)
+        for spec in ciphers:
+            local.submit(spec.op, spec.payload)
+        ref = {r.rid: r.value for r in local.drain()}
+
+        def cipher_wire():
+            with TransportClient(ts.addr, shm=True, timeout_s=60.0) as c:
+                rids = [c.submit(s.op, s.payload) for s in ciphers]
+                return [c.result(r) for r in rids]
+
+        got = counted("serve transport cipher over the wire", none,
+                      cipher_wire)
+        for i, r in enumerate(got):
+            if r.status != OK:
+                fail(f"transport cipher {i}: {r.status} {r.reason}")
+            bitwise(f"transport cipher {i}", r.value, ref[i])
+        print(f"transport cipher over the wire: {len(got)} requests "
+              f"(4096 B on the shm lane, one of {text.nbytes} B over the "
+              f"socket), each bit for bit the in-process result")
+        rows["transport"] = {"stub_req_s": stub_rps, "stub_served": ok_n,
+                             "codec_share": tsec.get("codec_share"),
+                             "client": tsec["client"],
+                             "cipher_wire_bitwise": len(got)}
+    finally:
+        ts.close()
+
+    # ------------------------------------------- (d) a durable job
+    j_dir = os.path.join(s_dir, "jobs")
+    params = SERVE_JOB
+    graph = pagerank.build_graph(params["nodes"], params["avg_edges"],
+                                 params["seed"])
+    want = golden.host_graph_iterate(graph.indices, graph.edges,
+                                     graph.rank0, graph.inv_deg,
+                                     params["iters"])
+
+    def job_lane(rank="0"):
+        srv = Server(capacity=8, max_batch=4, device=dev)
+        store = jobs.JobStore(j_dir)
+        ex = jobs.JobExecutor(store, server=srv, rank=rank)
+        return srv, TransportServer(srv, drive="caller").attach_jobs(
+            ex).start(), ex
+
+    def first_lane():
+        srv, ts1, ex = job_lane()
+        try:
+            with TransportClient(ts1.addr, timeout_s=60.0) as c:
+                sub = c.control("job-submit", job="pr1", op="pagerank",
+                                params=params)
+                if not (sub["ok"] and sub["created"]):
+                    fail(f"job-submit: {sub}")
+                while c.control("job-status",
+                                job="pr1")["job"]["epoch"] < 2:
+                    ts1.pump()
+                # interactive traffic arrives: the job yields at the
+                # epoch boundary, and the replica then goes away
+                spec = loadgen.build_mix("cipher", 1, seed=3)[0]
+                srv.submit(spec.op, spec.payload)
+                ex.tick()
+                srv.step()
+                st = c.control("job-status", job="pr1")["job"]
+            return st
+        finally:
+            ts1.close()
+
+    st = counted("serve job pagerank epochs 1-2", none, first_lane)
+    if st["state"] != "PREEMPTED" or st["epoch"] != 2:
+        fail(f"job after two epochs: {st}")
+
+    def second_lane():
+        srv, ts2, ex = job_lane()
+        try:
+            with TransportClient(ts2.addr, timeout_s=60.0) as c:
+                t0 = time.perf_counter()
+                while c.control("job-status", job="pr1")["job"][
+                        "state"] not in jobs.TERMINAL:
+                    ts2.pump()
+                secs = time.perf_counter() - t0
+                done = c.control("job-status", job="pr1")["job"]
+                res = c.control("job-result", job="pr1")
+            return done, res, secs
+        finally:
+            ts2.close()
+
+    done, res, secs = counted("serve job pagerank resumed", none,
+                              second_lane)
+    value = wire.nd_b64_decode(res["value"]) if res.get("ok") else None
+    resumed = core.trace.events("job-resumed")
+    epochs = [e["epoch"] for e in core.trace.events("job-epoch")
+              if e["job"] == "pr1"]
+    print(f"durable job pagerank {params['nodes']} nodes, {params['iters']} "
+          f"iterations, epoch {params['epoch']}: preempted at epoch 2, "
+          f"resumed by a new executor ({[e['source'] for e in resumed]}), "
+          f"{done['state']} at epoch {done['epoch']}/{done['total_epochs']} "
+          f"in {secs:.2f} s; epochs run {epochs}")
+    if done["state"] != "DONE" or value is None:
+        fail(f"job: {done} {res.get('error')}")
+    bitwise("job pagerank result vs host_graph_iterate", value, want)
+    if sorted(set(epochs)) != epochs or epochs != list(
+            range(1, done["total_epochs"] + 1)):
+        fail(f"job epochs ran twice or were skipped: {epochs}")
+    rows["job"] = {"state": done["state"], "epochs": epochs,
+                   "resumes": done["resumes"],
+                   "preemptions": done["preemptions"],
+                   "resume_to_done_s": secs, "bitwise_golden": True}
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 31 (serving): {rows['seconds']:.1f} s; every serving "
+          f"path launched no hand-written kernel")
+    return rows
+
+
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -3579,6 +4018,9 @@ def main(argv=None) -> int:
     gang = gang_phase(counted, only, paths, work, dist_p, dist_ref,
                       dist_rows, vdev, prob, ref64)
 
+    # ---------------------------------------------------- 31. serving
+    serving = serving_phase(counted, only, paths, work, ident, prob)
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single behind the ladder, cold: its gate's probe included; B2
@@ -3697,6 +4139,8 @@ def main(argv=None) -> int:
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"workloads": workloads}))
     print(json.dumps({"gang": gang, "card": ident}))
+    print(json.dumps({"serving": serving}))
+    print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s")
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The sweep harness: counterpart of ``cme213_tpu/bench`` (``sweeps.py``,
-``run_all.py``, ``regress.py``, ``report.py``, ``batch.py``);
-``transport_sweep`` is not ported yet (it waits for ``serve``)."""
+``run_all.py``, ``regress.py``, ``report.py``, ``batch.py``,
+``transport_sweep.py``)."""
 
 from .sweeps import (
     cipher_vector_length_sweep,

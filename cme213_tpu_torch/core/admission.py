@@ -21,9 +21,15 @@ dispatch:
   rejection.  The heat ladder admits its grid and two ping-pong buffers
   (``ops/stencil_pipeline.run_heat_resilient``).
 
-The JAX package's ``admit_chunk`` and ``admit_batch`` (halve a size knob
-until its preflight fits) wait for the serve batcher (ROADMAP.md, queue A,
-item 7).  ``oom:<op>`` fault clauses raise a synthetic RESOURCE_EXHAUSTED,
+- :func:`admit_chunk`: the degradation loop, halving a size knob until
+  its preflight fits, a ``chunk-shrunk`` event (and the
+  ``admission.chunk_shrunk`` counter) a halving; only a floor size still
+  over the budget raises :class:`AdmissionError`.
+- :func:`admit_batch`: :func:`admit_chunk` over the serve batcher's batch
+  width (``serve/server.py``), whose adapters count a batch's bytes at
+  each candidate width (``serve/workloads.py``).
+
+``oom:<op>`` fault clauses raise a synthetic RESOURCE_EXHAUSTED,
 to which the heat ladder responds by halving its tile and the
 checkpointed solves by halving their chunk (``core/resilience.
 classify_failure`` buckets it as RESOURCE).
@@ -121,3 +127,47 @@ def admit(op: str, required_bytes: int, device=None) -> None:
     if not decision.admitted:
         raise AdmissionError(f"{op}: {decision.detail} ({BUDGET_ENV} or "
                              f"the device's memory)")
+
+
+def admit_chunk(op: str, initial: int, preflight_at, floor: int = 1,
+                halve=None) -> int:
+    """Largest admitted size knob, halving down from ``initial``.
+
+    ``preflight_at(size) -> Decision`` runs the admission check at a
+    candidate size (count the call's bytes at that chunk length, tile
+    height or batch width and :func:`preflight` them).  Each rejection
+    records a ``chunk-shrunk`` event and halves (``halve(size)`` when
+    given, else integer halving).  A ``floor``-size call still over the
+    budget raises :class:`AdmissionError`: the budget says it can never
+    fit, and a structured refusal beats an out-of-memory error mid-solve.
+    """
+    size = initial
+    while True:
+        decision = preflight_at(size)
+        if decision.admitted:
+            return size
+        if size <= floor:
+            raise AdmissionError(
+                f"{op}: floor size {size} still over budget "
+                f"({decision.detail})")
+        smaller = max(floor, halve(size) if halve is not None else size // 2)
+        if smaller >= size:
+            raise AdmissionError(
+                f"{op}: cannot shrink below {size} ({decision.detail})")
+        metrics.counter("admission.chunk_shrunk").inc()
+        record_event("chunk-shrunk", op=op, from_size=size, to_size=smaller,
+                     reason="admission-preflight")
+        size = smaller
+
+
+def admit_batch(op: str, requested: int, preflight_at,
+                floor: int = 1) -> int:
+    """Batch-width admission for the serving layer: the largest batch
+    (at most ``requested``) whose stacked solve preflights within the
+    budget, the :func:`admit_chunk` loop with the size knob meaning
+    "requests a batch".  Requests beyond the admitted width stay queued
+    for the next batch: each lane is an independent solve, so a batch can
+    always shrink to 1 without changing a result, and only a
+    single-request batch over the budget raises :class:`AdmissionError`.
+    The server caches the verdicts per (op, shape class, rung, width)."""
+    return admit_chunk(op, requested, preflight_at, floor=floor)

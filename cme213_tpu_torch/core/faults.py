@@ -470,7 +470,9 @@ def maybe_perturb(op: str, value):
 
 
 def maybe_drift(op: str, value):
-    """Scale every float tensor of ``value`` by ``1 + scale`` if a
+    """Scale every float tensor or numpy array of ``value`` (the serve
+    batcher's results are numpy, copied off the device) by ``1 + scale``
+    if a
     ``drift:<op>`` clause covers this call — the *small* silent error a
     one-shot conformance probe misses but continuous shadow sampling
     catches.  Unlike ``wrong:`` (one element, large), drift perturbs whole
@@ -479,6 +481,7 @@ def maybe_drift(op: str, value):
     error budget burns deterministically.  First incarnation only, so a
     restarted gang serves clean.  Returns ``value`` unchanged when no
     clause fires; never writes the caller's tensors."""
+    import numpy as np
     import torch
 
     plan = active()
@@ -491,6 +494,11 @@ def maybe_drift(op: str, value):
     touched = []
 
     def drift(i, t):
+        if isinstance(t, np.ndarray):
+            if not np.issubdtype(t.dtype, np.floating) or not t.size:
+                return None
+            touched.append(i)
+            return (np.array(t) * (1.0 + scale)).astype(t.dtype)
         if (not torch.is_tensor(t) or not t.is_floating_point()
                 or not t.numel()):
             return None

@@ -33,9 +33,9 @@ block size), ``segmented_scan`` (the flat/blocked crossover) and ``sort``
 (the library sort, the radix sort or the bitonic network, which
 ``ops.sort.sort_auto`` serves).  ``spmv_scan`` and ``segmented_scan`` are
 measurements only: no dispatch site reads their winners until a card's
-measurements say what to serve (ROADMAP.md).  The JAX package's
-``serve.<op>`` spaces wait for the serving layer (ROADMAP.md, queue A, item
-7); :func:`build_space` names the item.
+measurements say what to serve (ROADMAP.md).  ``serve.<mix-op>`` (for
+example ``serve.spmv``) searches the serve batcher's batch width per
+bucket, which ``serve.server.tuned_batch_cap`` reads.
 """
 
 from __future__ import annotations
@@ -611,7 +611,59 @@ def _sort_space(n: int = 1 << 20, kernels=("lax", "radix", "bitonic"),
     return TuneSpace("sort", f"n{nc}", "uint32", cands, None, str(dev))
 
 
-#: op name -> the function that makes its space; ``run`` routes here
+#: serve batch widths searched per bucket
+SERVE_WIDTHS = (1, 2, 4, 8)
+
+
+def _serve_space(mix_op: str = "spmv", widths=SERVE_WIDTHS,
+                 max_batch: int = 8, seed: int = 0,
+                 device=None) -> TuneSpace:
+    """serve: batch width per bucket on ``device``.  Each width w runs a
+    w-wide batch through the op's adapter (scored a request), gated on
+    lane 0 being bitwise the width-1 solve (the batching contract)."""
+    from ..core import conformance
+    from ..serve import loadgen
+    from ..serve.workloads import ADAPTERS, serving_device
+    from .platform import build_identity
+
+    dev = serving_device(device)
+    spec = loadgen.build_mix(mix_op, requests=1, seed=seed)[0]
+    adapter = ADAPTERS[spec.op]
+    payload = spec.payload
+    shape_class = adapter.shape_class(payload)
+    rung = adapter.rungs()[0]
+    op = f"serve.{adapter.op}"
+
+    def gate(w):
+        if w == 1:
+            return None  # the reference width
+        return lambda: conformance.check(
+            op, f"b{w}", shape_class=f"{shape_class}/{build_identity(dev)}",
+            candidate=lambda: np.asarray(
+                adapter.run_batch([payload] * w, rung, device=dev)[0]),
+            reference=lambda: np.asarray(
+                adapter.run_batch([payload], rung, device=dev)[0])).ok
+
+    def build(w):
+        def builder():
+            batch = [payload] * w
+            # the adapters return host arrays, copied off the device, so
+            # a run is complete when it returns
+            runner = lambda: adapter.run_batch(batch, rung, device=dev)[0]
+            runner()  # warm: the batch program builds outside timing
+            return runner
+        return builder
+
+    cands = [Candidate(f"b{w}", {"max_batch": int(w)}, build(w), gate(w),
+                       scale=float(w))
+             for w in widths if 1 <= w <= max_batch]
+    return TuneSpace(op, shape_class, "float32", tuple(cands), None,
+                     str(dev))
+
+
+#: op name -> the function that makes its space; ``run`` routes here.
+#: ``serve.<mix-op>`` names route through the serve space (for example
+#: ``serve.spmv``).
 SPACES = {
     "spmv_scan": _spmv_space,
     "segmented_scan": _crossover_space,
@@ -619,22 +671,15 @@ SPACES = {
     "sort": _sort_space,
 }
 
-#: the JAX package's spaces whose ops the port does not have yet
-NOT_PORTED = {
-    "serve.": "ROADMAP.md, queue A, item 7 (serving)",
-}
-
-
 def build_space(op: str, **kw) -> TuneSpace:
-    """The registered candidate space for ``op``."""
-    if op in SPACES:
-        return SPACES[op](**kw)
-    for prefix, item in NOT_PORTED.items():
-        if op == prefix or (prefix.endswith(".") and op.startswith(prefix)):
-            raise TuneError(f"no candidate space for {op!r} yet: it waits "
-                            f"for its op ({item})")
-    raise TuneError(f"no candidate space registered for {op!r} "
-                    f"(have {sorted(SPACES)})")
+    """The registered candidate space for ``op`` (``serve.<mix-op>``
+    routes to the serve-width space)."""
+    if op.startswith("serve."):
+        return _serve_space(op.split(".", 1)[1], **kw)
+    if op not in SPACES:
+        raise TuneError(f"no candidate space registered for {op!r} "
+                        f"(have {sorted(SPACES)} + serve.<op>)")
+    return SPACES[op](**kw)
 
 
 def run(op: str, *, clock: Clock | None = None, runs: int = TRIAL_RUNS,

@@ -1,7 +1,7 @@
 """Workload registry of the port: ``python -m cme213_tpu_torch <workload>``.
 
 Counterpart of ``cme213_tpu/models.py``; holds the workloads ported so far
-(every one but ``serve``, ``fleet`` and ``chaos``).  Each runs on ``cuda``
+(every one but ``fleet`` and ``chaos``).  Each runs on ``cuda``
 unless given ``--device=cpu``.
 """
 
@@ -76,6 +76,12 @@ def _doctor(argv: list[str]) -> int:
     return doctor_cli.main(argv)
 
 
+def _serve(argv: list[str]) -> int:
+    from . import serve
+
+    return serve.main(argv)
+
+
 def _tune(argv: list[str]) -> int:
     from . import tune_cli
 
@@ -137,8 +143,16 @@ WORKLOADS: dict[str, Workload] = {
                  "unhealthy, --json for the structured report, "
                  "--device=cpu to probe the CPU; calibrate: roofline "
                  "cost models against what each rung stages)", _doctor),
+        # not a reference workload: the multi-tenant front end serving
+        # the workloads above as a request population (bounded queue,
+        # shape-class batching, deadlines, breaker, degradation)
+        Workload("serve", "serving", "loadgen: drive the bounded-queue "
+                 "batching front end with synthetic load, print an SLO "
+                 "report; warmup: build and warm the canonical serving "
+                 "buckets (--device=cpu on the CPU)", _serve),
         Workload("tune", "tuning", "measured autotuning of dispatch "
-                 "statics: run --op heat,spmv_scan,segmented_scan,sort "
+                 "statics: run --op heat,spmv_scan,segmented_scan,sort,"
+                 "serve.<mix-op> "
                  "| show | clear (CME213_TUNE_CACHE; CME213_TUNE=0 "
                  "disables)",
                  _tune),

@@ -16,7 +16,9 @@ pointed at the same cache resolves its ``tile_y`` as tuned-or-default
 serves the winning sort, and ``CME213_TUNE=0`` restores the built-in
 defaults without touching the cache.  The ``spmv_scan`` and ``segmented_scan``
 spaces measure and record their winners, which no dispatch reads yet
-(``core/tune.py``).  ``run`` works on the card unless ``--device=cpu`` is
+(``core/tune.py``); after ``tune run --op serve.spmv`` the serve batcher
+caps that bucket's batch width at the winner (``serve.server.
+tuned_batch_cap``).  ``run`` works on the card unless ``--device=cpu`` is
 given.
 """
 
@@ -31,7 +33,9 @@ def _run_kwargs(op: str, args: argparse.Namespace) -> dict:
     """Per-op keyword arguments for ``tune.run`` from the shared flags:
     each space function receives only the knobs it declares."""
     kw: dict = {"device": args.device}
-    if op == "spmv_scan":
+    if op.startswith("serve."):
+        kw.update(max_batch=args.max_batch, seed=args.seed)
+    elif op == "spmv_scan":
         kw.update(n=args.n, iters=args.iters, dtype=args.dtype)
     elif op == "segmented_scan":
         kw.update(dtype=args.dtype)
@@ -126,7 +130,8 @@ def main(argv: list[str]) -> int:
         "run", help="gate, time and persist winners for one or more ops")
     runp.add_argument("--op", default="spmv_scan",
                       help="comma-separated ops: spmv_scan, "
-                           "segmented_scan, heat, sort")
+                           "segmented_scan, heat, sort, serve.<mix-op> "
+                           "(e.g. serve.spmv)")
     runp.add_argument("--n", type=int, default=1 << 20,
                       help="problem size for spmv_scan / sort")
     runp.add_argument("--iters", type=int, default=8,
@@ -144,6 +149,9 @@ def main(argv: list[str]) -> int:
                       help="heat steps fused a launch")
     runp.add_argument("--heat-iters", type=int, default=4,
                       help="heat steps a timed run")
+    runp.add_argument("--max-batch", type=int, default=8,
+                      help="serve.<op> width ceiling")
+    runp.add_argument("--seed", type=int, default=0)
     runp.add_argument("--dtype", default="float32")
     runp.add_argument("--device", default=None,
                       help="cuda (default) or cpu")

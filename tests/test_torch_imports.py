@@ -84,7 +84,13 @@ def test_import_leaves_jax_unloaded():
             " cme213_tpu_torch.dist.multihost, cme213_tpu_torch.dist.launch,"
             " cme213_tpu_torch.dist.ckpt, cme213_tpu_torch.dist.halo,"
             " cme213_tpu_torch.dist.heat, cme213_tpu_torch.dist.scan,"
-            " cme213_tpu_torch.dist.mesh;"
+            " cme213_tpu_torch.dist.mesh, cme213_tpu_torch.serve,"
+            " cme213_tpu_torch.serve.request, cme213_tpu_torch.serve.slo,"
+            " cme213_tpu_torch.serve.workloads, cme213_tpu_torch.serve.server,"
+            " cme213_tpu_torch.serve.wire, cme213_tpu_torch.serve.shm,"
+            " cme213_tpu_torch.serve.transport, cme213_tpu_torch.serve.jobs,"
+            " cme213_tpu_torch.serve.loadgen, cme213_tpu_torch.serve.warmup,"
+            " cme213_tpu_torch.bench.transport_sweep;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -98,12 +104,17 @@ def test_import_leaves_jax_unloaded():
     "cme213_tpu_torch.core", "cme213_tpu_torch.core.faults",
     "cme213_tpu_torch.core.trace", "cme213_tpu_torch.dist",
     "cme213_tpu_torch.dist.supervisor", "cme213_tpu_torch.dist.launch",
-    "cme213_tpu_torch.dist.multihost"])
+    "cme213_tpu_torch.dist.multihost", "cme213_tpu_torch.serve",
+    "cme213_tpu_torch.serve.request", "cme213_tpu_torch.serve.wire",
+    "cme213_tpu_torch.serve.shm"])
 def test_light_modules_leave_torch_unloaded(module):
     """The package ``__init__``s resolve their names on first access, so a
-    supervised rank's heartbeat path (and the launcher) import no torch."""
+    supervised rank's heartbeat path (and the launcher) import no torch,
+    and neither does ``import cme213_tpu_torch.serve`` nor its codecs."""
     code = (f"import sys, {module}; "
-            "sys.exit(1 if 'torch' in sys.modules else 0)")
+            "sys.exit(1 if 'torch' in sys.modules or ("
+            f"{module!r}.endswith('.serve') and 'socket' in sys.modules)"
+            " else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -111,12 +122,13 @@ def test_light_modules_leave_torch_unloaded(module):
 
 
 def test_lazy_package_names_resolve():
-    """Every public name of the lazy ``core`` and ``dist`` packages
+    """Every public name of the lazy ``core``, ``dist`` and ``serve`` packages
     resolves to its submodule's object."""
     import cme213_tpu_torch.core as core
     import cme213_tpu_torch.dist as dist
+    import cme213_tpu_torch.serve as serve
 
-    for pkg in (core, dist):
+    for pkg in (core, dist, serve):
         for name in pkg.__all__:
             assert getattr(pkg, name) is not None, (pkg.__name__, name)
         assert set(pkg.__all__) <= set(dir(pkg))

@@ -274,11 +274,14 @@ def test_winner_event_and_persist(tmp_path, monkeypatch):
         assert trace.validate_record(rec) == [], rec
 
 
-@pytest.mark.parametrize("op,item", [("serve.heat", "item 7"),
-                                     ("serve.spmv", "item 7")])
+@pytest.mark.parametrize("op,item", [("serve.heat", "serve.heat"),
+                                     ("serve.spmv", "serve.spmv_scan")])
 def test_spaces_of_unported_ops_name_their_roadmap_item(op, item):
-    with pytest.raises(tune.TuneError, match=item):
-        tune.build_space(op)
+    """The serve spaces, which waited for the serving layer, now build;
+    an op with no space still names what there is."""
+    space = tune.build_space(op, device="cpu", max_batch=2)
+    assert space.op == item and space.device == "cpu"
+    assert [c.label for c in space.candidates] == ["b1", "b2"]
     with pytest.raises(tune.TuneError, match="no candidate space"):
         tune.build_space("nope")
 
@@ -381,8 +384,11 @@ def test_cli_run_show_clear(tmp_path, monkeypatch, capsys):
         ["cpu|heat|14x14/order2/k1|float32"]
     assert tune_cli.main(["clear"]) == 0
     assert "cleared 1" in capsys.readouterr().out
-    assert tune_cli.main(["run", "--op", "serve.spmv", "--device=cpu"]) == 1
-    assert "item 7" in capsys.readouterr().err
+    assert tune_cli.main(["run", "--op", "serve.stub", "--runs", "1",
+                          "--max-batch", "2", "--device=cpu",
+                          "--dry-run"]) == 0
+    assert "serve.stub [n1024/float32] on cpu: winner" in \
+        capsys.readouterr().out
 
 
 def test_cli_module_entry_dry_run(tmp_path):
