@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives the
 port (``cme213_tpu_torch``) and imports nothing of JAX or of the JAX
-package.  ``--parent DIR`` adds phase 15, old-vs-new timing turns against
+package.  ``--only fleet`` runs phase 32 alone.
+``--parent DIR`` adds phase 15, old-vs-new timing turns against
 the package of another tree (e.g. the parent commit, unpacked with ``git
 archive``) found at ``DIR/cme213_tpu_torch``.  Phases, each of which fails
 the run (non-zero exit) when it fails:
@@ -293,8 +294,8 @@ the run (non-zero exit) when it fails:
    ``bench.regress`` of phase 14's CSVs against themselves passes
    ``--strict``, a copy with one ``gbs`` cut by 20% exits 1, and
    ``--bench`` on phase 16's f32 line skips every ``BENCH_r*.json`` of
-   the checkout; ``bench.batch cme213_tpu_torch/jobs/spmv_scaling.job``
-   (a child) exits 0; ``bench.report`` renders the headline lines, the
+   the checkout; ``bench.batch`` of ``cme213_tpu_torch/jobs/spmv_scaling.job``
+   at one of its sweep points (``OMP_NUM_THREADS=1``; a child) exits 0; ``bench.report`` renders the headline lines, the
    CSVs, the verdict and the batch summary.  The numbers go on a
    ``{"telemetry": ...}`` line with the card's name and power limit.
 29. The hw1, hw3 and hw4 workloads on the card at the reference's own
@@ -386,8 +387,36 @@ the run (non-zero exit) when it fails:
    The numbers go on a ``{"serving": ...}`` line; the script's wall time
    is printed.
 
+32. The replicated fleet on the card (``serve/fleet.py`` behind ``python
+   -m cme213_tpu_torch fleet up`` in a child; replicas serve phase 31's
+   plain torch rungs, each inheriting ``CME213_MEMORY_BUDGET`` = the
+   card's memory / 2).  (a) Two replicas over phase 31's mix: ``serve
+   loadgen --transport`` children closed and open (req/s, p50/p99), then
+   the same 64 requests from client threads closed and open (round trips
+   per op), every result bit for bit its serial solve on the card; the
+   card's used memory sampled throughout.  (b) The same under
+   ``CME213_FAULTS=replica-kill:1:2``: submitted − shed == served, the
+   requeues, the requests the flight dump confirmed in flight, the kill
+   (the dump's time) to the relaunched replica's ``replica-up`` (ready
+   for the front end's ping), the p99 against (a)'s.  (c) ``--autoscale
+   --slo-p99-ms 0.001`` under cipher load: up to 3 replicas and back to
+   2 once the load stops, the seconds to each.  (d) A PageRank job
+   through ``fleet up --jobs-dir`` and ``fleet jobs``, its replica killed
+   after epoch 2 by an interactive request (``replica-kill:0:1``): the
+   relaunched incarnation resumes it, every epoch runs once, the result
+   bit for bit ``host_graph_iterate``.  (e) ``chaos run --backend fleet
+   --replicas 2 --campaigns 4 --seed 1 --mix cipher,sort,heat --device
+   cuda`` exits 0 (campaigns a minute, the cocktails); a ``--disable
+   drift-compensation`` drill violates, shrinks and banks into a
+   temporary directory; ``chaos replay`` of the repository's four
+   fixtures and the drill's matches every ``expect``.  (f) No replica
+   process and no ``psm_`` segment left; no hand-written kernel launched
+   by any replica, campaign or drill (their sinks' exit snapshots).  The
+   numbers go on a ``{"fleet": ...}`` line.  ``--only fleet`` runs this
+   phase alone (nothing is built).
+
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28,
-29, 30 and 31 drive through the entry points a user calls: ``run_single``
+29, 30, 31 and 32 drive through the entry points a user calls: ``run_single``
 at 512² and at 4000² (kernel B1, through the ladder), one solve of each of
 ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
 SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
@@ -399,7 +428,7 @@ measurement of phase 16 (B1), phase 28's traced runs (B1 through the
 and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
 recorded but not predicted), phase 29's suite sweep (B7, recorded) and
 phase 30's gang (B3 in each rank, read from its sink); phase 31's serving
-paths launch none.  Every launch count
+paths and phase 32's fleet launch none.  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
 just before each of these paths and read just after; each path must launch
@@ -435,6 +464,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import glob
 import io
 import json
 import os
@@ -1552,8 +1582,18 @@ def telemetry_phase(counted, only, paths, work, ident, pwtk, headline,
     if [s["capture"] for s in trajectory["skipped"]] != captures or \
             trajectory["history"] or trajectory["device_kind"] != kind:
         fail(f"regress --bench: trajectory {trajectory}")
-    jobfile = os.path.join(HERE, "cme213_tpu_torch", "jobs",
-                           "spmv_scaling.job")
+    # the job file at one sweep point of its three (OMP_NUM_THREADS=1):
+    # the batch machinery is the same at every point, and the script's
+    # time limit holds every phase
+    with open(os.path.join(HERE, "cme213_tpu_torch", "jobs",
+                           "spmv_scaling.job")) as f:
+        job = f.read()
+    sweep = "#CME sweep OMP_NUM_THREADS=1,2,4\n"
+    if sweep not in job:
+        fail(f"spmv_scaling.job: no {sweep.strip()!r} line")
+    jobfile = os.path.join(work, "spmv_scaling.job")
+    with open(jobfile, "w") as f:
+        f.write(job.replace(sweep, "#CME sweep OMP_NUM_THREADS=1\n"))
     out, rows["batch_s"] = child("bench.batch spmv_scaling.job",
                                  ["cme213_tpu_torch.bench.batch", jobfile],
                                  work, timeout=900)
@@ -2178,6 +2218,32 @@ SERVE_JOB = {"nodes": 4096, "avg_edges": 8, "iters": 48, "epoch": 8,
              "seed": 0}
 
 
+def serial_solve(op, payload, rung, dev):
+    """One served request's serial solve on ``dev``, outside any server:
+    what phases 31 and 32 hold every served result to, bit for bit."""
+    from cme213_tpu_torch import ops
+    from cme213_tpu_torch.apps import spmv_scan as spmv
+    from cme213_tpu_torch.grid import make_initial_grid
+    from cme213_tpu_torch.serve.workloads import _sort_one
+
+    import torch
+
+    if op == "cipher":
+        t = torch.from_numpy(payload.text).to(dev)
+        fn = (ops.shift_cipher_packed if rung == "packed"
+              else ops.shift_cipher)
+        return fn(t, payload.shift).cpu().numpy()
+    if op == "sort":
+        return _sort_one(payload, rung, dev)
+    if op == "heat":
+        return ops.run_heat(make_initial_grid(payload, device=dev),
+                            payload.iters, payload.order,
+                            payload.xcfl, payload.ycfl).cpu().numpy()
+    a, xx, flags, _ = spmv.problem_tensors(payload, device=dev)
+    return spmv._iterate(a, xx, flags, payload.iters,
+                         scan=rung).cpu().numpy()
+
+
 def serving_phase(counted, only, paths, work, ident, pwtk):
     """Phase 31: the serving front end on the card (see the module's
     docstring).  ``counted``, ``only`` and ``paths`` are ``main``'s
@@ -2190,17 +2256,15 @@ def serving_phase(counted, only, paths, work, ident, pwtk):
     import numpy as np
     import torch
 
-    from cme213_tpu_torch import config, core, ops, trace_cli
+    from cme213_tpu_torch import config, core, trace_cli
     from cme213_tpu_torch.apps import pagerank
-    from cme213_tpu_torch.apps import spmv_scan as spmv
     from cme213_tpu_torch.apps.corpus import load_corpus
-    from cme213_tpu_torch.grid import make_initial_grid
     from cme213_tpu_torch.serve import (OK, RequestSpec, Server, jobs,
                                         loadgen, wire)
     from cme213_tpu_torch.serve.transport import (TransportClient,
                                                   TransportServer)
     from cme213_tpu_torch.serve.workloads import (ADAPTERS, CipherRequest,
-                                                  SortAdapter, _sort_one)
+                                                  SortAdapter)
     from cme213_tpu_torch.verify import golden
 
     dev = torch.device("cuda")
@@ -2221,21 +2285,7 @@ def serving_phase(counted, only, paths, work, ident, pwtk):
             fail(f"{label}: not bit for bit its serial solve")
 
     def serial(op, payload, rung):
-        """One request's serial solve on the card, outside the server."""
-        if op == "cipher":
-            t = torch.from_numpy(payload.text).to(dev)
-            fn = (ops.shift_cipher_packed if rung == "packed"
-                  else ops.shift_cipher)
-            return fn(t, payload.shift).cpu().numpy()
-        if op == "sort":
-            return _sort_one(payload, rung, dev)
-        if op == "heat":
-            return ops.run_heat(make_initial_grid(payload, device=dev),
-                                payload.iters, payload.order,
-                                payload.xcfl, payload.ycfl).cpu().numpy()
-        a, xx, flags, _ = spmv.problem_tensors(payload, device=dev)
-        return spmv._iterate(a, xx, flags, payload.iters,
-                             scan=rung).cpu().numpy()
+        return serial_solve(op, payload, rung, dev)
 
     def child(label, args, timeout=300):
         """``python -m cme213_tpu_torch serve args`` on the card with its
@@ -2571,14 +2621,598 @@ def serving_phase(counted, only, paths, work, ident, pwtk):
     return rows
 
 
+#: phase 32: replicas of the fleet on the one card, phase 31's loadgen mix
+#: (closed and open), the chaos game day's flags, the drill's (a seed
+#: whose cocktail drifts the spmv rung that serves), and the durable job:
+#: long enough (100 epochs of 2 iterations) that the kill lands mid-job
+FLEET_REPLICAS, FLEET_MAX_REPLICAS = 2, 3
+FLEET_CHAOS = ["--backend", "fleet", "--replicas", "2", "--campaigns", "4",
+               "--seed", "1", "--mix", "cipher,sort,heat"]
+FLEET_DRILL = ["--backend", "inproc", "--campaigns", "1", "--seed", "0",
+               "--mix", "spmv", "--disable", "drift-compensation"]
+FLEET_JOB = {"nodes": 65536, "avg_edges": 8, "iters": 200, "epoch": 2,
+             "seed": 5, "stall_epochs": 1000}
+
+
+def _fleet_workers() -> list[int]:
+    """Live replica processes (``... cme213_tpu_torch fleet worker``)."""
+    pids = []
+    for name in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")
+        except OSError:
+            continue
+        if b"cme213_tpu_torch fleet worker" in cmd:
+            pids.append(int(name))
+    return sorted(pids)
+
+
+def _sink_events(path, event):
+    """``event`` records of one trace sink; a line torn by a SIGKILL is
+    skipped."""
+    out = []
+    if not os.path.exists(path):
+        return out
+    with open(path, errors="replace") as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if rec.get("event") == event:
+                out.append(rec)
+    return out
+
+
+def _sink_launches(paths) -> dict[str, int]:
+    """Hand-written kernel launches from the exit ``metrics-snapshot`` of
+    every process that wrote to the sinks ``paths`` (a replica killed by
+    SIGKILL writes none)."""
+    got: dict[str, int] = {}
+    for path in paths:
+        for rec in _sink_events(path, "metrics-snapshot"):
+            for name, n in rec.get("metrics", {}).get("counters",
+                                                       {}).items():
+                if name.startswith("kernel.launches."):
+                    key = name[len("kernel.launches."):]
+                    got[key] = got.get(key, 0) + n
+    return got
+
+
+def fleet_phase(counted, only, paths, work, ident):
+    """Phase 32: the replicated fleet on the card (see the module's
+    docstring).  ``counted``, ``only`` and ``paths`` are ``main``'s
+    launch-count helpers and table, ``work`` its scratch directory.  The
+    replicas serve plain torch rungs, as phase 31's server does, so every
+    replica, campaign and drill must launch no hand-written kernel.
+    Returns the numbers for the ``fleet`` line."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import fleet_cli
+    from cme213_tpu_torch.apps import pagerank
+    from cme213_tpu_torch.core import admission, chaos, trace
+    from cme213_tpu_torch.serve import FAILED, OK, SHED, SolveResult
+    from cme213_tpu_torch.serve import loadgen
+    from cme213_tpu_torch.serve.transport import TransportClient
+    from cme213_tpu_torch.verify import golden
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    none = only(None, 0)  # plain torch and host code: no hand-written kernel
+    f_dir = tempfile.mkdtemp(prefix="fleet-", dir=work)
+    shm_before = chaos._shm_segments()
+    if _fleet_workers():
+        fail(f"replica processes alive before phase 32: {_fleet_workers()}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    budget = total // FLEET_REPLICAS
+    rows = {"card": ident, "replicas": FLEET_REPLICAS,
+            "memory_budget_bytes": budget, "card_memory_bytes": total}
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in ("CME213_FAULTS", trace.TRACE_FILE_ENV,
+                             admission.BUDGET_ENV, "CME213_FLIGHT_DIR",
+                             "CME213_JOBS_DIR", "RANK")}
+    base_env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    base_env["TMPDIR"] = f_dir      # chaos campaigns' scratch: removed
+    base_env[admission.BUDGET_ENV] = str(budget)
+    sinks: list[str] = []
+
+    def bitwise(label, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                got.tobytes() != want.tobytes():
+            fail(f"{label}: not bit for bit its serial solve on the card")
+
+    def fleet_up(label, args, faults=None):
+        """``python -m cme213_tpu_torch fleet up`` in a session of its own
+        with per-rank sinks and a flight directory; (proc, addr, env,
+        seconds to the address)."""
+        env = dict(base_env)
+        env[trace.TRACE_FILE_ENV] = os.path.join(f_dir,
+                                                 f"{label}-{{rank}}.jsonl")
+        env["CME213_FLIGHT_DIR"] = os.path.join(f_dir, f"{label}-flight")
+        if faults:
+            env["CME213_FAULTS"] = faults
+        sinks.append(env[trace.TRACE_FILE_ENV])
+        addr_file = os.path.join(f_dir, f"{label}.addr")
+        log = open(os.path.join(f_dir, f"{label}.log"), "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cme213_tpu_torch", "fleet", "up",
+             "--addr-file", addr_file, "--json", "--max-seconds", "900",
+             *args], cwd=f_dir, env=env, stdout=subprocess.PIPE,
+            stderr=log, text=True, start_new_session=True)
+        log.close()
+        while not os.path.exists(addr_file):
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                os.killpg(proc.pid, signal.SIGKILL)
+                fail(f"fleet up {label}: no address (rc {proc.poll()}); "
+                     f"{open(log.name).read()[-3000:]}")
+            time.sleep(0.05)
+        time.sleep(0.05)  # the address is written once listening
+        with open(addr_file) as f:
+            addr = f.read().strip()
+        return proc, addr, env, time.perf_counter() - t0
+
+    def fleet_down(label, proc):
+        """SIGTERM: the front end prints its stats, stops its replicas."""
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=90)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"fleet up {label}: did not stop in 90 s")
+        if proc.returncode != 0:
+            fail(f"fleet up {label}: rc {proc.returncode}")
+        return json.loads(out)
+
+    def stats(addr):
+        with TransportClient(addr, timeout_s=30.0) as c:
+            return c.control("stats")["stats"]
+
+    def drive(addr, specs, mode="closed", concurrency=8):
+        """Client threads against the front end, as ``serve loadgen
+        --transport`` drives it, keeping each request beside its result
+        and its round trip: closed ``concurrency`` connections, open one
+        connection a request, all at once."""
+        pairs = [None] * len(specs)
+        work_q = list(enumerate(specs))
+        mu = threading.Lock()
+
+        def one(client, i, spec):
+            t0 = time.perf_counter()
+            try:
+                res = client.solve(spec.op, spec.payload,
+                                   deadline_ms=spec.deadline_ms,
+                                   tenant=spec.tenant)
+            except (OSError, ConnectionError, ValueError,
+                    TimeoutError) as e:
+                res = SolveResult(-1, spec.op, FAILED,
+                                  reason=f"transport: {e}",
+                                  tenant=spec.tenant)
+            pairs[i] = (spec, res, (time.perf_counter() - t0) * 1e3)
+
+        def worker():
+            with TransportClient(addr, timeout_s=120.0) as client:
+                while True:
+                    with mu:
+                        if not work_q:
+                            return
+                        i, spec = work_q.pop(0)
+                    one(client, i, spec)
+
+        def fire(i, spec):
+            with TransportClient(addr, timeout_s=120.0) as client:
+                one(client, i, spec)
+
+        threads = ([threading.Thread(target=worker)
+                    for _ in range(concurrency)] if mode == "closed" else
+                   [threading.Thread(target=fire, args=(i, s))
+                    for i, s in enumerate(specs)])
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        secs = time.perf_counter() - t0
+        if any(p is None for p in pairs):
+            fail(f"fleet drive {mode}: requests without a response")
+        return pairs, secs
+
+    def summarise(pairs, secs):
+        res = [r for _, r, _ in pairs]
+        served = sum(r.status == OK for r in res)
+        shed = sum(r.status == SHED for r in res)
+        failed = [r for r in res if r.status not in (OK, SHED)]
+        if failed or len(res) - shed != served:
+            fail(f"fleet: {len(res)} submitted, {shed} shed, {served} "
+                 f"served, {len(failed)} failed "
+                 f"({failed[0].reason if failed else ''})")
+        by_op = {}
+        for spec, r, ms in pairs:
+            by_op.setdefault(spec.op, []).append(ms)
+        rtt = {op: {"n": len(v), "p50": float(np.percentile(v, 50)),
+                    "p99": float(np.percentile(v, 99))}
+               for op, v in sorted(by_op.items())}
+        every = [ms for _, _, ms in pairs]
+        return {"submitted": len(res), "served": served, "shed": shed,
+                "req_s": served / secs, "seconds": secs,
+                "rtt_ms": {"p50": float(np.percentile(every, 50)),
+                           "p99": float(np.percentile(every, 99))},
+                "rtt_ms_by_op": rtt,
+                "replicas_seen": sorted({getattr(r, "replica", None)
+                                         for r in res} - {None})}
+
+    def hold_bitwise(label, pairs):
+        n = 0
+        for i, (spec, r, _) in enumerate(pairs):
+            if r.status == OK:
+                bitwise(f"{label} request {i} ({spec.op}, {r.rung})",
+                        r.value, serial_solve(spec.op, spec.payload,
+                                              r.rung, dev))
+                n += 1
+        return n
+
+    class MemPoll(threading.Thread):
+        """The card's used memory, every process's (``mem_get_info``),
+        sampled every 0.25 s.  A replica's own share is not separable:
+        ``nvidia-smi`` in the card's container names one pid for all."""
+
+        def __init__(self):
+            super().__init__(daemon=True)
+            self.halt = threading.Event()
+            self.card_peak = 0
+
+        def run(self):
+            while not self.halt.wait(0.25):
+                free, tot = torch.cuda.mem_get_info(dev)
+                self.card_peak = max(self.card_peak, tot - free)
+
+    # ---------------------------------- (a) two replicas, no fault
+    specs = loadgen.build_mix(SERVE_MIX, SERVE_REQUESTS, seed=0)
+    torch.cuda.synchronize()
+    free0, _ = torch.cuda.mem_get_info(dev)
+    proc, addr, env, up_s = fleet_up(
+        "a", ["--replicas", str(FLEET_REPLICAS), "--mix", SERVE_MIX])
+    print(f"fleet up --replicas {FLEET_REPLICAS} on cuda: listening on "
+          f"{addr} after {up_s:.2f} s (each replica with "
+          f"CME213_MEMORY_BUDGET={budget} B of the card's {total})")
+    poll = MemPoll()
+    poll.start()
+    cli = {}
+    for mode in ("closed", "open"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "cme213_tpu_torch", "serve", "loadgen",
+             "--transport", addr, "--mix", SERVE_MIX, "--requests",
+             str(SERVE_REQUESTS), "--mode", mode, "--json"],
+            cwd=f_dir, env=base_env, capture_output=True, text=True,
+            timeout=300)
+        if out.returncode != 0:
+            fail(f"serve loadgen --transport {mode}: rc {out.returncode}"
+                 f"\n{out.stderr[-3000:]}")
+        rep = json.loads(out.stdout)
+        secs = time.perf_counter() - t0
+        if rep["failed"] or rep["served"] + rep["shed"] != SERVE_REQUESTS:
+            fail(f"loadgen --transport {mode}: {rep['served']} served, "
+                 f"{rep['shed']} shed, {rep['failed']} failed")
+        cli[mode] = {"throughput_rps": rep["throughput_rps"],
+                     "latency_ms": rep["latency_ms"],
+                     "served": rep["served"], "shed": rep["shed"],
+                     "fleet": rep.get("fleet"), "child_s": secs}
+        print(f"serve loadgen --transport (fleet, {mode}, {secs:.1f} s "
+              f"with the child's start): {rep['throughput_rps']} req/s, "
+              f"latency p50/p99 {rep['latency_ms']['p50']}/"
+              f"{rep['latency_ms']['p99']} ms, {rep['served']} served, "
+              f"{rep['shed']} shed")
+    runs = {}
+    for mode in ("closed", "open"):
+        pairs, secs = counted(f"fleet a drive {mode}", none,
+                              lambda: drive(addr, specs, mode))
+        runs[mode] = (pairs, summarise(pairs, secs))
+    poll.halt.set()
+    poll.join()
+    st_a = fleet_down("a", proc)
+    mem = {"card_peak_bytes": poll.card_peak,
+           "card_used_before_bytes": int(total - free0),
+           "replicas_together_bytes": int(poll.card_peak - (total - free0))}
+    held = sum(hold_bitwise(f"fleet a {mode}", runs[mode][0])
+               for mode in runs)
+    rows["a"] = {"up_s": up_s, "cli": cli,
+                 **{mode: runs[mode][1] for mode in runs},
+                 "bitwise_held": held, "memory": mem,
+                 "routing": {k: st_a.get(k) for k in (
+                     "requeues", "replicas", "replicas_up")}}
+    for mode in runs:
+        r = runs[mode][1]
+        print(f"fleet (a) {mode}: {r['served']}/{r['submitted']} served "
+              f"by replicas {r['replicas_seen']}, {r['req_s']:.1f} req/s, "
+              f"rtt p50/p99 {r['rtt_ms']['p50']:.3f}/"
+              f"{r['rtt_ms']['p99']:.3f} ms; by op "
+              + ", ".join(f"{op} {v['p50']:.3f}/{v['p99']:.3f}"
+                          for op, v in r["rtt_ms_by_op"].items()))
+    print(f"fleet (a): {held} served results, each bit for bit its "
+          f"serial solve on the card; the card's used memory peaked at "
+          f"{poll.card_peak} B, the replicas together "
+          f"{mem['replicas_together_bytes']} B over this process's "
+          f"(a budget of {budget} B each)")
+
+    # ---------------------------------- (b) the same under replica-kill
+    proc, addr, env, up_s = fleet_up(
+        "b", ["--replicas", str(FLEET_REPLICAS), "--mix", SERVE_MIX],
+        faults="replica-kill:1:2")
+    pairs, secs = counted("fleet b drive closed (replica-kill:1:2)", none,
+                          lambda: drive(addr, specs, "closed"))
+    run_b = summarise(pairs, secs)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        st = stats(addr)
+        r1 = st["replicas"].get("r1", {})
+        if r1.get("incarnation") == 1 and r1.get("up"):
+            break
+        time.sleep(0.1)
+    else:
+        fail(f"fleet b: replica 1 not relaunched: {st}")
+    st_b = fleet_down("b", proc)
+    held_b = hold_bitwise("fleet b", pairs)
+    dumps = sorted(glob.glob(os.path.join(env["CME213_FLIGHT_DIR"],
+                                          "flight-*.json")))
+    kills = [json.load(open(p)) for p in dumps]
+    kills = [d for d in kills if d.get("reason") == "replica-kill"]
+    ups = [e for e in _sink_events(os.path.join(f_dir, "b-1.jsonl"),
+                                   "replica-up")
+           if e.get("incarnation") == 1]
+    if not kills or not ups:
+        fail(f"fleet b: kill dumps {len(kills)}, relaunch events {ups}")
+    relaunch_s = ups[0]["t"] - kills[0]["t"]
+    rows["b"] = dict(run_b, bitwise_held=held_b,
+                     requeues=st_b["requeues"],
+                     flight_confirmed=st_b["flight_confirmed"],
+                     kill_to_relaunched_ready_s=relaunch_s,
+                     p99_rtt_ms_with_kill=run_b["rtt_ms"]["p99"],
+                     p99_rtt_ms_without=rows["a"]["closed"]["rtt_ms"]["p99"])
+    if st_b["requeues"] < 1 or run_b["submitted"] - run_b["shed"] != \
+            run_b["served"]:
+        fail(f"fleet b: {rows['b']}")
+    print(f"fleet (b) replica-kill:1:2: {run_b['submitted']} submitted - "
+          f"{run_b['shed']} shed == {run_b['served']} served (zero loss), "
+          f"{held_b} bit for bit; {st_b['requeues']} requeued, "
+          f"{st_b['flight_confirmed']} confirmed in flight by the dump; "
+          f"kill -> relaunched replica ready for its ping "
+          f"{relaunch_s:.3f} s; p99 rtt {run_b['rtt_ms']['p99']:.3f} ms "
+          f"with the kill against {rows['b']['p99_rtt_ms_without']:.3f}")
+
+    # ---------------------------------- (c) autoscaling on a burning SLO
+    proc, addr, env, up_s = fleet_up(
+        "c", ["--replicas", str(FLEET_REPLICAS), "--mix", "cipher",
+              "--warm-requests", "2", "--autoscale", "--min-replicas",
+              str(FLEET_REPLICAS), "--max-replicas",
+              str(FLEET_MAX_REPLICAS), "--slo-p99-ms", "0.001"])
+    load_stop = threading.Event()
+    burst = loadgen.build_mix("cipher", 8, seed=4)
+
+    def burn():
+        with TransportClient(addr, timeout_s=60.0) as c:
+            while not load_stop.is_set():
+                for spec in burst:
+                    c.solve(spec.op, spec.payload, tenant=spec.tenant)
+
+    loaders = [threading.Thread(target=burn) for _ in range(4)]
+    t0 = time.perf_counter()
+    for t in loaders:
+        t.start()
+    peak_n = FLEET_REPLICAS
+    while time.perf_counter() - t0 < 90:
+        st = stats(addr)
+        live = [s for s in st["replica_states"].values()
+                if s in ("up", "starting")]
+        peak_n = max(peak_n, len(live))
+        if st["scale_ups"] >= 1:
+            break
+        time.sleep(0.1)
+    up_after = time.perf_counter() - t0
+    load_stop.set()
+    for t in loaders:
+        t.join(60)
+    t1 = time.perf_counter()
+    while time.perf_counter() - t1 < 90:
+        st = stats(addr)
+        live = [s for s in st["replica_states"].values()
+                if s in ("up", "starting")]
+        peak_n = max(peak_n, len(live))
+        if st["scale_downs"] >= 1:
+            break
+        time.sleep(0.1)
+    down_after = time.perf_counter() - t1
+    st_c = fleet_down("c", proc)
+    scale = [(e["event"], e["t"], e.get("replicas")) for e in
+             _sink_events(os.path.join(f_dir, "c-main.jsonl"), "scale-up")
+             + _sink_events(os.path.join(f_dir, "c-main.jsonl"),
+                            "scale-down")]
+    rows["c"] = {"scale_ups": st_c["scale_ups"],
+                 "scale_downs": st_c["scale_downs"],
+                 "load_to_scale_up_s": up_after,
+                 "load_stop_to_scale_down_s": down_after,
+                 "peak_replicas": peak_n, "events": sorted(
+                     scale, key=lambda e: e[1])}
+    if st_c["scale_ups"] < 1 or st_c["scale_downs"] < 1 or \
+            peak_n != FLEET_MAX_REPLICAS:
+        fail(f"fleet c: {rows['c']}")
+    print(f"fleet (c) --autoscale --slo-p99-ms 0.001: scaled up to "
+          f"{peak_n} replicas {up_after:.2f} s after the load began, down "
+          f"to {FLEET_REPLICAS} {down_after:.2f} s after it stopped "
+          f"(+{st_c['scale_ups']}/-{st_c['scale_downs']})")
+
+    # ---------------------------------- (d) a durable job, owner killed
+    j_dir = os.path.join(f_dir, "jobs")
+    graph = pagerank.build_graph(FLEET_JOB["nodes"], FLEET_JOB["avg_edges"],
+                                 FLEET_JOB["seed"])
+    want = golden.host_graph_iterate(graph.indices, graph.edges,
+                                     graph.rank0, graph.inv_deg,
+                                     FLEET_JOB["iters"])
+    proc, addr, env, up_s = fleet_up(
+        "d", ["--replicas", "1", "--mix", "cipher", "--warm-requests", "2",
+              "--jobs-dir", j_dir], faults="replica-kill:0:1")
+    jargs = ["--addr", addr, "--job", "pr-fleet"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fleet_cli.main(["jobs", "submit", *jargs, "--json", *(
+            f"--param={k}={v}" for k, v in FLEET_JOB.items())])
+    if rc != 0:
+        fail(f"fleet jobs submit: rc {rc} {buf.getvalue()}")
+    while True:
+        with TransportClient(addr, timeout_s=30.0) as c:
+            job = c.control("job-status", job="pr-fleet")["job"]
+        if job["state"] in ("DONE", "FAILED", "STALLED"):
+            fail(f"fleet d: the job ended before the kill: {job}")
+        if (job["epoch"] or 0) >= 2:
+            break
+        if time.perf_counter() - t0 > 120:
+            fail(f"fleet d: the job did not start: {job}")
+        time.sleep(0.02)
+    killed_at = job["epoch"]
+    # interactive traffic: the replica's first batch fires the kill; the
+    # front end requeues it to the relaunched incarnation
+    pairs, _ = drive(addr, loadgen.build_mix("cipher", 4, seed=5),
+                     "closed", concurrency=1)
+    for _, r, _ in pairs:
+        if r.status != OK:
+            fail(f"fleet d: interactive request {r.status} {r.reason}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fleet_cli.main(["jobs", "wait", *jargs, "--wait-s", "180",
+                             "--json"])
+    done_s = time.perf_counter() - t0
+    done = json.loads(buf.getvalue())["job"]
+    out_npy = os.path.join(f_dir, "pr-fleet.npy")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_r = fleet_cli.main(["jobs", "result", *jargs, "--out", out_npy])
+    st_d = fleet_down("d", proc)
+    if rc != 0 or rc_r != 0 or done["state"] != "DONE":
+        fail(f"fleet d: {done}")
+    bitwise("fleet d job vs host_graph_iterate", np.load(out_npy), want)
+    epochs = [e["epoch"] for e in _sink_events(
+        os.path.join(f_dir, "d-0.jsonl"), "job-epoch")]
+    resumed = _sink_events(os.path.join(f_dir, "d-0.jsonl"), "job-resumed")
+    if epochs != list(range(1, done["total_epochs"] + 1)) or not resumed:
+        fail(f"fleet d: epochs {epochs}, resumed {resumed}")
+    rows["d"] = {"killed_at_epoch": killed_at, "state": done["state"],
+                 "resumes": done["resumes"],
+                 "resumed_by": [(e.get("source"), e.get("epoch"))
+                                for e in resumed],
+                 "epochs_once_each": True, "submit_to_done_s": done_s,
+                 "incarnation": st_d["replicas"]["r0"]["incarnation"],
+                 "bitwise_golden": True}
+    print(f"fleet (d) PageRank job {FLEET_JOB['nodes']} nodes x "
+          f"{FLEET_JOB['iters']} iterations, epochs of "
+          f"{FLEET_JOB['epoch']}: owner killed after epoch {killed_at}, "
+          f"resumed by incarnation {rows['d']['incarnation']} "
+          f"({rows['d']['resumed_by']}), DONE {done_s:.2f} s after "
+          f"submit, each of {done['total_epochs']} epochs run once, "
+          f"bitwise the golden")
+
+    # ---------------------------------- (e) chaos on the fleet
+    def chaos_cli(label, args, expect_rc=0, timeout=600):
+        env = dict(base_env)
+        env[trace.TRACE_FILE_ENV] = os.path.join(f_dir, f"{label}.jsonl")
+        sinks.append(env[trace.TRACE_FILE_ENV])
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "cme213_tpu_torch", "chaos", *args],
+            cwd=f_dir, env=env, capture_output=True, text=True,
+            timeout=timeout)
+        secs = time.perf_counter() - t0
+        try:
+            doc = json.loads(out.stdout)
+        except ValueError:
+            doc = None
+        if out.returncode != expect_rc or doc is None:
+            fail(f"chaos {label}: rc {out.returncode} (want {expect_rc})\n"
+                 f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        return doc, secs
+
+    bank = os.path.join(f_dir, "bank")
+    game, secs = chaos_cli("run", ["run", *FLEET_CHAOS, "--device", "cuda",
+                                   "--bank-dir", bank, "--json"])
+    per_min = len(game["campaigns"]) / secs * 60
+    cocktails = [c["cocktail"] for c in game["campaigns"]]
+    print(f"chaos run {' '.join(FLEET_CHAOS)} --device cuda: exit 0 in "
+          f"{secs:.1f} s, {per_min:.2f} campaigns a minute; cocktails:")
+    for c in game["campaigns"]:
+        print(f"  {c['campaign']}: {c['cocktail']} ({c['elapsed_s']} s, "
+              f"served {c['report'].get('served')})")
+    drill, d_secs = chaos_cli("drill", ["run", *FLEET_DRILL, "--device",
+                                        "cuda", "--bank-dir", bank,
+                                        "--json"], expect_rc=1)
+    if not drill["fixtures"] or drill["ok"]:
+        fail(f"chaos drill did not violate and bank: {drill}")
+    minimal = json.load(open(drill["fixtures"][0]))["minimal_cocktail"]
+    # the repository's four banked fixtures (read only) and the drill's
+    repo_fixtures = sorted(glob.glob(os.path.join(chaos.fixtures_dir(),
+                                                  "*.json")))
+    replay, r_secs = chaos_cli("replay", [
+        "replay", *repo_fixtures, *drill["fixtures"], "--device", "cuda",
+        "--json"])
+    rows["e"] = {"campaigns": len(game["campaigns"]), "seconds": secs,
+                 "campaigns_per_minute": per_min, "cocktails": cocktails,
+                 "replayed": [(d["fixture"], d["observed"])
+                              for d in replay["fixtures"]],
+                 "replay_s": r_secs, "drill": {
+                     "cocktail": drill["campaigns"][0]["cocktail"],
+                     "violated": sorted({v["invariant"] for v in
+                                         drill["campaigns"][0][
+                                             "violations"]}),
+                     "minimal": minimal, "seconds": d_secs,
+                     "replay_match": replay["ok"]}}
+    print(f"chaos drill {' '.join(FLEET_DRILL)}: violated "
+          f"{rows['e']['drill']['violated']}, shrunk to {minimal!r} and "
+          f"banked in {d_secs:.1f} s")
+    print(f"chaos replay of the {len(repo_fixtures)} banked fixtures and "
+          f"the drill's on cuda: every one matched its expect "
+          f"({r_secs:.1f} s)")
+
+    # ---------------------------------- (f) leaks and launches
+    deadline = time.monotonic() + 15
+    while _fleet_workers() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = _fleet_workers()
+    leaked = sorted(chaos._shm_segments() - shm_before)
+    files = sorted({p for t in sinks for p in glob.glob(
+        t.replace("{rank}", "*"))} | set(glob.glob(os.path.join(
+            f_dir, "chaos-*", "trace-r*.jsonl"))))
+    launches = _sink_launches(files)
+    paths["fleet (every replica, campaign and drill)"] = dict(
+        none, **launches)
+    rows["f"] = {"replica_processes_left": left, "shm_leaked": leaked,
+                 "sinks_read": len(files), "kernel_launches": launches}
+    print(f"fleet (f): replica processes left {left}, psm_ segments "
+          f"leaked {leaked}, hand-written kernel launches {launches or 0} "
+          f"over {len(files)} sinks")
+    if left or leaked or any(launches.values()):
+        fail(f"fleet f: {rows['f']}")
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 32 (fleet): {rows['seconds']:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     parent = None
+    only_fleet = False
     if argv[:1] == ["--parent"] and len(argv) == 2:
         parent = os.path.abspath(argv[1])
+    elif argv in (["--only", "fleet"], ["--only", "32"]):
+        only_fleet = True
     elif argv:
-        fail(f"usage: chip_smoke.py [--parent DIR], got {argv}")
+        fail(f"usage: chip_smoke.py [--parent DIR | --only fleet], "
+             f"got {argv}")
     try:
         import numpy as np
         import torch
@@ -2636,23 +3270,6 @@ def main(argv=None) -> int:
         u[b:-b, b:-b] += torch.from_numpy(rng.uniform(0, 1, (p.ny, p.nx)))
         return u.to(device=dev, dtype=dtype)
 
-    # ---------------------------------------------------- 1. identity, build
-    ident = core.card_identity()
-    print(f"card: {ident}")
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    t0 = time.perf_counter()
-    built = _kernels.build()
-    print(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, "
-          f"{len(built)} libraries, one nvcc each, in parallel")
-    for name, path in built.items():
-        _kernels.library(name)
-        print(f"  {name}: {path.name}")
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "Compiling" in line or "Used" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
-
-    # ---------------------------------------------------- 2. the example
     paths: dict[str, dict[str, int]] = {}
 
     counters = (sp.LAUNCHES, segp.LAUNCHES, spl.LAUNCHES, tp.LAUNCHES)
@@ -2675,6 +3292,36 @@ def main(argv=None) -> int:
     def only(name, n):
         return {key: (n if key == name else 0)
                 for counter in counters for key in counter}
+
+    # ---------------------------------------------------- 1. identity, build
+    ident = core.card_identity()
+    print(f"card: {ident}")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    if only_fleet:
+        # phase 32 alone: it launches no hand-written kernel, so nothing
+        # is built
+        fleet = fleet_phase(counted, only, paths, work, ident)
+        print(json.dumps({"fleet": fleet}))
+        print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} "
+              f"s")
+        print(ident)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    t0 = time.perf_counter()
+    built = _kernels.build()
+    print(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, "
+          f"{len(built)} libraries, one nvcc each, in parallel")
+    for name, path in built.items():
+        _kernels.library(name)
+        print(f"  {name}: {path.name}")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling" in line or "Used" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
+
+    # ---------------------------------------------------- 2. the example
 
     def served(op):
         """The rung that last served ``op`` (its ``served`` event)."""
@@ -4021,6 +4668,9 @@ def main(argv=None) -> int:
     # ---------------------------------------------------- 31. serving
     serving = serving_phase(counted, only, paths, work, ident, prob)
 
+    # ---------------------------------------------------- 32. the fleet
+    fleet = fleet_phase(counted, only, paths, work, ident)
+
     # ---------------------------------------------------- summary lines
     # launches: the full-size path a user reaches each kernel by (B1 through
     # run_single behind the ladder, cold: its gate's probe included; B2
@@ -4140,6 +4790,7 @@ def main(argv=None) -> int:
     print(json.dumps({"workloads": workloads}))
     print(json.dumps({"gang": gang, "card": ident}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"fleet": fleet}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s")
     print(ident)
     print(json.dumps({"kernels": kernels}))

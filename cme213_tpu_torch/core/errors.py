@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import time
 
-import torch
-
 from .trace import record_event
 
 
@@ -63,6 +61,8 @@ def check_op(name: str, *tensors, timer=None):
     record ``{event: "op-failure", op, error, ms, message}`` is emitted and
     attached to the raised error as ``.record``.
     """
+    import torch
+
     from .timing import PhaseRecord
 
     start = time.perf_counter()

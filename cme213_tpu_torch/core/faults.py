@@ -115,9 +115,9 @@ loop.
 
 The value guards (``maybe_poison``, ``maybe_perturb``, ``maybe_drift``)
 walk nested lists, tuples and dicts (dicts in sorted key order, as a JAX
-pytree flattens them) and change tensors only: the changed leaf is a
-``clone()`` on the tensor's own device, never a host copy, and the
-caller's tensors are never written.
+pytree flattens them) and change tensors and numpy arrays: a changed
+tensor is a ``clone()`` on its own device, never a host copy, a changed
+array a copy, and the caller's leaves are never written.
 """
 
 from __future__ import annotations
@@ -438,10 +438,14 @@ def maybe_perturb(op: str, value):
     ``wrong:<op>`` clause fires on this call — the silently-wrong kernel a
     conformance gate exists to catch.  The perturbation is finite and
     large (``x -> x + 1 + |x|``), so it trips both bitwise and declared-
-    tolerance comparisons.  With no float tensor, one element of the first
-    integer tensor has its bits flipped.  First incarnation only (like
-    ``rankkill``), so a restarted gang re-probes clean.  Returns ``value``
-    unchanged when no clause fires; never writes the caller's tensors."""
+    tolerance comparisons.  With no float leaf, one element of the first
+    integer leaf has its bits flipped.  A leaf is a tensor or a numpy
+    array (a served result or a host-side probe, as the sort golden gate's
+    is), as the JAX package perturbs any array.  First incarnation only
+    (like ``rankkill``), so a restarted gang re-probes clean.  Returns
+    ``value`` unchanged when no clause fires; never writes the caller's
+    tensors or arrays."""
+    import numpy as np
     import torch
 
     plan = active()
@@ -450,18 +454,28 @@ def maybe_perturb(op: str, value):
     fire = any(c.fires() for c in plan._matching("wrong", op))
     if not fire or incarnation() != 0:
         return value
-    for pick, change in ((lambda t: t.is_floating_point(),
-                          lambda x: x + 1.0 + abs(x)),
-                         (_is_int, lambda x: ~x)):
+    for pick, np_pick, change in (
+            (lambda t: t.is_floating_point(), np.floating,
+             lambda x: x + 1.0 + abs(x)),
+            (_is_int, np.integer, lambda x: ~x)):
         done = []
 
-        def perturb(i, t, pick=pick, change=change):
-            if (done or not torch.is_tensor(t) or not pick(t)
-                    or not t.numel()):
+        def perturb(i, t, pick=pick, np_pick=np_pick, change=change):
+            if done:
+                return None
+            if isinstance(t, np.ndarray):
+                if not np.issubdtype(t.dtype, np_pick) or not t.size:
+                    return None
+                t = np.array(t)
+                flat = t.reshape(-1)
+                flat[0] = change(flat[0])
+            elif torch.is_tensor(t) and pick(t) and t.numel():
+                t = _with_first(t, change)
+            else:
                 return None
             done.append(i)
             _record("wrong", op, leaf=i)
-            return _with_first(t, change)
+            return t
 
         out = _map_leaves(value, perturb)
         if done:

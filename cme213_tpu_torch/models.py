@@ -1,8 +1,8 @@
 """Workload registry of the port: ``python -m cme213_tpu_torch <workload>``.
 
-Counterpart of ``cme213_tpu/models.py``; holds the workloads ported so far
-(every one but ``fleet`` and ``chaos``).  Each runs on ``cuda``
-unless given ``--device=cpu``.
+Counterpart of ``cme213_tpu/models.py``, with every workload of the JAX
+package.  Each that touches a device runs on ``cuda`` unless given
+``--device=cpu``.
 """
 
 from __future__ import annotations
@@ -112,6 +112,18 @@ def _numerics(argv: list[str]) -> int:
     return numerics_cli.main(argv)
 
 
+def _fleet(argv: list[str]) -> int:
+    from . import fleet_cli
+
+    return fleet_cli.main(argv)
+
+
+def _chaos(argv: list[str]) -> int:
+    from . import chaos_cli
+
+    return chaos_cli.main(argv)
+
+
 WORKLOADS: dict[str, Workload] = {
     w.name: w
     for w in (
@@ -178,6 +190,28 @@ WORKLOADS: dict[str, Workload] = {
                  "demotions, sentinel trips, solver convergence/stall); "
                  "--json for CI, --max-over-budget/--min-samples/"
                  "--forbid-stall gate with exit 1", _numerics),
+        # not a reference workload: the replicated serving tier — the
+        # hw5 gang machinery (supervised relaunch, incarnations,
+        # per-rank sinks) repurposed for N independent server replicas
+        # behind a tenant-fair, SLO-burn-autoscaling front end
+        Workload("fleet", "serving", "up: run a replicated serving fleet "
+                 "(socket front end, tenant-fair router, per-replica "
+                 "breakers, supervised relaunch with zero accepted-"
+                 "request loss, SLO-burn autoscaling; --device=cpu on the "
+                 "CPU); worker: one replica process (spawned by up); "
+                 "jobs: durable long jobs on a running fleet", _fleet),
+        # not a reference workload: the game-day layer composing all of
+        # the above — seeded fault cocktails armed against a live
+        # serving run, global invariants checked after every campaign,
+        # violations ddmin-shrunk to minimal replayable fixtures
+        Workload("chaos", "robustness", "run: seeded chaos campaigns "
+                 "(randomized fault cocktails from the CME213_FAULTS "
+                 "grammar, matrix-filtered, armed against a live "
+                 "inproc/fleet serving run; zero-loss + bitwise-"
+                 "conformance + SLO-report + one-trace + no-leak "
+                 "invariants; violations shrink to banked fixtures; "
+                 "--device=cpu on the CPU); draw | replay | matrix",
+                 _chaos),
     )
 }
 

@@ -12,10 +12,11 @@ Beyond the in-process server, ``transport.py`` adds a concurrent socket
 front end (v1 JSON frames and the v2 binary frames of ``wire.py``, with a
 shared-memory lane, ``shm.py``), ``jobs.py`` a durable long-job lane, and
 ``loadgen.py`` / ``warmup.py`` the CLIs (``python -m cme213_tpu_torch
-serve loadgen|warmup``).  The replicated fleet (the JAX package's
-``router.py`` and ``fleet.py``) is not ported yet (ROADMAP.md, queue A,
-item 7b).  Public names resolve on first access (PEP 562), so ``import
-cme213_tpu_torch.serve`` imports neither torch nor sockets.
+serve loadgen|warmup``), ``router.py`` and ``fleet.py`` the replicated
+fleet behind one front end (``python -m cme213_tpu_torch fleet up``).
+Public names resolve on first access (PEP 562), so ``import
+cme213_tpu_torch.serve`` imports neither torch nor sockets, and
+``serve.router`` imports neither either.
 """
 
 from importlib import import_module
@@ -64,7 +65,8 @@ def main(argv: list[str]) -> int:
               "(into the program cache and the conformance verdicts; "
               "CME213_COMPILE_CACHE does not apply to eager torch)\n\n"
               "loadgen --transport HOST:PORT drives a socket front end "
-              "(a TransportServer of either package) with real concurrent "
+              "(a TransportServer or fleet of either package; see "
+              "`python -m cme213_tpu_torch fleet`) with real concurrent "
               "client threads")
         return 0 if argv else 2
     if argv[0] == "loadgen":

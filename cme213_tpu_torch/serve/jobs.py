@@ -189,17 +189,26 @@ class JobStore:
     def load(self, job: str) -> dict | None:
         """The job's record, CRC-verified; a corrupt candidate is
         quarantined to ``.corrupt`` and the retained ``.prev`` serves —
-        one torn record write never loses the job."""
+        one torn record write never loses the job.
+
+        A candidate that is not there is skipped, not quarantined: a
+        reader (a ``job-status`` control, the fleet front end) racing a
+        publish can find the record gone between ``_write``'s two
+        renames, and by the time it would quarantine, the path holds the
+        fresh record.  The JAX package's store quarantines it then (its
+        ``exists`` check precedes the ``open``), so a finished job can
+        read as RUNNING forever: its DONE record moved aside, ``.prev``
+        serving the last epoch."""
         path = self.record_path(job)
         for candidate in (path, path + ".prev"):
-            if not os.path.exists(candidate):
-                continue
             try:
                 with open(candidate) as f:
                     rec = json.load(f)
                 if rec.get("crc") != _record_crc(rec):
                     raise JobError("record checksum mismatch")
                 return rec
+            except FileNotFoundError:
+                continue
             except (OSError, ValueError) as e:
                 quarantine = candidate + ".corrupt"
                 try:

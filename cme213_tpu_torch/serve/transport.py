@@ -6,9 +6,7 @@ a server of the other.  The batcher thread drives the port's
 ``Server``, whose batches run on its device; results reach the codec as
 numpy.  A replica's rank is the ``RANK`` variable (torchrun's, which the
 port's launcher sets) where the JAX package reads ``JAX_PROCESS_ID``.
-The replicated fleet in front of these servers (the JAX package's
-``serve/router.py`` and ``serve/fleet.py``) is not in the port yet
-(ROADMAP.md, queue A, item 7b).
+The replicated fleet in front of these servers is ``serve/fleet.py``.
 
 The batching server (``serve/server.py``) is deliberately synchronous:
 ``submit`` / ``step`` on one thread, deterministic under a virtual

@@ -1161,3 +1161,76 @@ def test_supervised_gang_on_one_card_recovers_bitwise(cuda, tmp_path,
     save_grid_to_file(want, str(tmp_path / "want.txt"))
     assert (tmp_path / "grid_final.txt").read_text() == \
         (tmp_path / "want.txt").read_text()
+
+
+def test_one_replica_fleet_on_the_card_serves_bitwise(cuda, monkeypatch):
+    """A 1-replica fleet with no device named serves on ``cuda`` (the
+    replica gets ``--device cuda``); every result is bit for bit the same
+    request served by a server on the card in this process."""
+    import threading
+
+    from cme213_tpu_torch.serve import OK, Server
+    from cme213_tpu_torch.serve.fleet import Fleet
+    from cme213_tpu_torch.serve.loadgen import build_mix
+    from cme213_tpu_torch.serve.transport import TransportClient
+
+    from torch_gang import ROOT
+
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    monkeypatch.delenv("CME213_FAULTS", raising=False)
+    specs = build_mix("cipher,sort,heat", 12, seed=3)
+    local = Server(device=cuda)
+    for spec in specs:
+        local.submit(spec.op, spec.payload, tenant=spec.tenant)
+    want = {r.rid: r.value for r in local.drain()}
+    fleet = Fleet(replicas=1, mix="cipher,sort,heat", warm_requests=2,
+                  max_batch=4).start()
+    procs = list(fleet._procs.values())
+    try:
+        assert fleet.device == cuda
+        assert "--device" in procs[0].proc.args and \
+            procs[0].proc.args[procs[0].proc.args.index("--device") + 1] \
+            == "cuda"
+        got = [None] * len(specs)
+
+        def client(i, spec):
+            with TransportClient(fleet.addr, timeout_s=120.0) as c:
+                got[i] = c.solve(spec.op, spec.payload, tenant=spec.tenant)
+
+        threads = [threading.Thread(target=client, args=(i, s))
+                   for i, s in enumerate(specs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+    finally:
+        fleet.close()
+    assert all(r is not None and r.status == OK for r in got)
+    for i, r in enumerate(got):
+        np.testing.assert_array_equal(np.asarray(r.value),
+                                      np.asarray(want[i]))
+        assert np.asarray(r.value).dtype == np.asarray(want[i]).dtype
+    assert all(p.proc.poll() is not None for p in procs)
+
+
+def test_chaos_campaign_on_the_card_holds_every_invariant(cuda, tmp_path):
+    """An in-process campaign on ``cuda`` (the conformance check re-solves
+    on the card), and the banked drift drill's fixture replays there."""
+    from cme213_tpu_torch.core import chaos
+    from cme213_tpu_torch.core.faults import FaultPlan
+
+    res = chaos.run_campaign(
+        "fail:serve.cipher.packed:1:2,slow:serve.sort:20.0:1:2,"
+        "stage:serve.sort.radix:execute:1:1", backend="inproc",
+        mix="cipher,sort,heat", requests=10, seed=3, device="cuda")
+    assert res.ok, [v.as_dict() for v in res.violations]
+    kw = dict(backend="inproc", mix="spmv", requests=6, seed=5,
+              handicaps=("drift-compensation",), device="cuda")
+    cocktail = "drift:serve.spmv_scan.blocked:0.001:1"
+    drill = chaos.run_campaign(cocktail, **kw)
+    assert {v.invariant for v in drill.violations} == {"conformance"}
+    path = chaos.bank_fixture(drill, FaultPlan.parse(cocktail),
+                              directory=str(tmp_path),
+                              handicaps=("drift-compensation",))
+    _, expected, observed = chaos.replay_fixture(path, device="cuda")
+    assert expected == observed == ["conformance"]

@@ -278,6 +278,33 @@ def test_perturb_flips_an_integer_leaf_without_floats():
     assert port["j"][0] == ~1 and port["k"][0] == 0
 
 
+def test_perturb_numpy_leaves_like_the_reference():
+    """A host-side probe (the sort golden gate's candidate is numpy) is
+    perturbed as the JAX package perturbs any array: the first float
+    leaf, else one integer element's bits; the caller's array untouched."""
+    keys = np.arange(7, dtype=np.uint32)
+    mixed = {"a": np.arange(3, dtype=np.int64),
+             "b": torch.ones(2, dtype=torch.float32)}
+    with tfaults.injected("wrong:serve.sort"):
+        port = tfaults.maybe_perturb("serve.sort", keys)
+    with jfaults.injected("wrong:serve.sort"):
+        ref = jfaults.maybe_perturb("serve.sort", keys)
+    np.testing.assert_array_equal(port, ref)
+    assert port.dtype == np.uint32 and port[0] == np.uint32(~np.uint32(0))
+    assert keys[0] == 0
+    assert [e["kind"] for e in ttrace.events("fault-injected")][-1] == "wrong"
+    with tfaults.injected("wrong:op"):
+        out = tfaults.maybe_perturb("op", mixed)
+    assert out["b"][0] == 3.0 and out["a"] is mixed["a"]
+    floats = np.linspace(1.0, 2.0, 4)
+    with tfaults.injected("wrong:op"):
+        out = tfaults.maybe_perturb("op", [floats])
+    with jfaults.injected("wrong:op"):
+        ref = jfaults.maybe_perturb("op", [floats])
+    np.testing.assert_array_equal(out[0], ref[0])
+    assert floats[0] == 1.0
+
+
 def test_perturb_a_single_tensor_like_the_reference():
     t = torch.arange(12, dtype=torch.float64).reshape(3, 4)
     with tfaults.injected("wrong:op"):

@@ -90,7 +90,10 @@ def test_import_leaves_jax_unloaded():
             " cme213_tpu_torch.serve.wire, cme213_tpu_torch.serve.shm,"
             " cme213_tpu_torch.serve.transport, cme213_tpu_torch.serve.jobs,"
             " cme213_tpu_torch.serve.loadgen, cme213_tpu_torch.serve.warmup,"
-            " cme213_tpu_torch.bench.transport_sweep;"
+            " cme213_tpu_torch.bench.transport_sweep,"
+            " cme213_tpu_torch.serve.router, cme213_tpu_torch.serve.fleet,"
+            " cme213_tpu_torch.fleet_cli, cme213_tpu_torch.core.chaos,"
+            " cme213_tpu_torch.chaos_cli;"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cme213_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -106,15 +109,18 @@ def test_import_leaves_jax_unloaded():
     "cme213_tpu_torch.dist.supervisor", "cme213_tpu_torch.dist.launch",
     "cme213_tpu_torch.dist.multihost", "cme213_tpu_torch.serve",
     "cme213_tpu_torch.serve.request", "cme213_tpu_torch.serve.wire",
-    "cme213_tpu_torch.serve.shm"])
+    "cme213_tpu_torch.serve.shm", "cme213_tpu_torch.serve.router",
+    "cme213_tpu_torch.core.resilience", "cme213_tpu_torch.fleet_cli",
+    "cme213_tpu_torch.chaos_cli"])
 def test_light_modules_leave_torch_unloaded(module):
     """The package ``__init__``s resolve their names on first access, so a
     supervised rank's heartbeat path (and the launcher) import no torch,
-    and neither does ``import cme213_tpu_torch.serve`` nor its codecs."""
+    and neither does ``import cme213_tpu_torch.serve`` nor its codecs, nor
+    the fleet's router (nor sockets) and the two CLIs' entry modules."""
     code = (f"import sys, {module}; "
             "sys.exit(1 if 'torch' in sys.modules or ("
-            f"{module!r}.endswith('.serve') and 'socket' in sys.modules)"
-            " else 0)")
+            f"{module!r}.endswith(('.serve', '.router')) "
+            "and 'socket' in sys.modules) else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -136,3 +142,15 @@ def test_lazy_package_names_resolve():
 
     assert run_distributed_heat_supervised is \
         heat.run_distributed_heat_supervised
+
+
+def test_port_has_every_module_of_the_reference():
+    """The ``.py`` file lists of the two packages differ only by the
+    port's own additions."""
+    ref = {p.relative_to(ROOT / "cme213_tpu").as_posix()
+           for p in (ROOT / "cme213_tpu").rglob("*.py")}
+    port = {p.relative_to(ROOT / "cme213_tpu_torch").as_posix()
+            for p in (ROOT / "cme213_tpu_torch").rglob("*.py")}
+    assert ref - port == set()
+    assert port - ref == {"convert.py", "ops/_kernels.py",
+                          "bench/headline.py", "bench/band_menu.py"}
