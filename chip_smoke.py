@@ -3,11 +3,23 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives the
 port (``cme213_tpu_torch``) and imports nothing of JAX or of the JAX
-package.  ``--only fleet`` runs phase 32 alone.
-``--parent DIR`` adds phase 15, old-vs-new timing turns against
-the package of another tree (e.g. the parent commit, unpacked with ``git
-archive``) found at ``DIR/cme213_tpu_torch``.  Phases, each of which fails
-the run (non-zero exit) when it fails:
+package.  ``--only GROUP[,GROUP]`` runs groups of phases alone:
+``kernels`` (1-16), ``guarded`` (17-27), ``tooling`` (28-29), ``gang``
+(30), ``serving`` (31), ``fleet`` (32) and ``multicard`` (33); a phase
+number names its group.  Phase 1's identity always runs, and the build
+with any group but ``fleet``; a group run without ``kernels`` makes what
+it takes from phases 1-16 itself (``NEEDS``: pwtk and its f64 plain
+solve, the hw5 set-up, B1's time, the headline lines, the sweeps' CSVs),
+and ``tooling`` without ``guarded`` its calibration and flight dump.
+Without ``--only`` every group runs, ``multicard`` only on a machine
+with four cards or more (else a line says it was not run and why);
+``--only multicard`` fails on fewer.  ``--parent DIR`` adds phase 15,
+old-vs-new timing turns against the package of another tree (e.g. the
+parent commit, unpacked with ``git archive``) found at
+``DIR/cme213_tpu_torch``.  Before the last lines, the host-clock seconds
+of each phase that ran (``phase N: S s``, then ``{"phase_seconds":
+...}``).  Phases, each of which fails the run (non-zero exit) when it
+fails:
 
 1. Identity and build: the card's name and power limit (``nvidia-smi``),
    the torch and CUDA versions, and the time ``nvcc`` takes to build every
@@ -349,7 +361,8 @@ the run (non-zero exit) when it fails:
    each incarnation's start-up (gang-launch to its ranks' first beats).
    (c) a worker whose rank 1 freezes after its first beat, ``--stall-timeout
    5``: condemned by the stall clock (the detection seconds from its beat
-   to the verdict), both ranks complete in the second incarnation.  (d)
+   to the verdict), both ranks complete in the second incarnation; its
+   ranks touch no card, so it runs beside (d) and (e).  (d)
    (b)'s last commit resumed in this process on a 1-D mesh of 4 shards for
    250 more steps: bit for bit a 1250-step ``run_heat``.  (e)
    ``run_spmv_scan_distributed_supervised`` at pwtk on a 2-rank gang of 2
@@ -414,6 +427,31 @@ the run (non-zero exit) when it fails:
    by any replica, campaign or drill (their sinks' exit snapshots).  The
    numbers go on a ``{"fleet": ...}`` line.  ``--only fleet`` runs this
    phase alone (nothing is built).
+33. Four cards (``--only multicard``; the default run on a machine with
+   four or more).  (a) One process, a mesh over ``cuda:0``-``cuda:3``, a
+   shard a card (halos peer to peer): phase 10's runs at 2000² order 8 ×
+   1000 (1-D and 2-D × sync and async with ``xla``; 1-D and 2-D with
+   ``pallas``; the 2-D mesh at k ∈ {2, 4} with each), each bit for bit the
+   same run on four shards of ``cuda:0``, with B3's launches on each card
+   (``ops.stencil_pipeline.LOCAL_LAUNCHES``: ``iters / k``, plus the gate's
+   probe on a first use), ms a step on four cards and on the four shards
+   of one card, and one exchange alone beside its steps; then the 2-D
+   ``pallas`` solve at 8000² order 8 × 200 (a 4000² block a card), bit
+   for bit ``ops.run_heat`` on ``cuda:0``, beside B1's ms a step there.
+   (b) Phase 11's sharded SpMV-scan at pwtk over the four cards, bit for
+   bit the four shards of ``cuda:0``, ms an iteration.  (c) ``python -m
+   cme213_tpu_torch.dist.launch --np 4``, one rank a card: ``heat2d P
+   --distributed --local-kernel=pallas`` for gridMethod 2 and 1 on NCCL,
+   and gridMethod 2 again with ``--backend gloo`` (host-staged); every
+   rank names its backend, as the ``gang-launch`` span does, each rank's
+   grid is bit for bit (a)'s, B3 launched ``iters`` + the probe's in each
+   rank, ``solve_s`` and ``exchange_s`` by rank and backend.  (d) The
+   supervised NCCL gang: ``--supervised --ckpt-every 250`` under
+   ``rankkill:1:1`` (exit 0, the restart, every rank's grid bit for bit
+   ``run_heat``'s), and ``run_spmv_scan_distributed_supervised`` at pwtk
+   on 4 ranks uninterrupted and under ``rankkill:0:2`` (bit for bit the
+   same); kill to verdict and each incarnation's start-up.  The numbers go
+   on a ``{"multicard": ...}`` line.
 
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28,
 29, 30, 31 and 32 drive through the entry points a user calls: ``run_single``
@@ -426,8 +464,10 @@ their rows), the full-size solves of phase 14, the headline's child
 measurement of phase 16 (B1), phase 28's traced runs (B1 through the
 ``heat2d`` CLI and the ladder's turns, B7 through the ``spmv_scan`` CLI,
 and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
-recorded but not predicted), phase 29's suite sweep (B7, recorded) and
-phase 30's gang (B3 in each rank, read from its sink); phase 31's serving
+recorded but not predicted), phase 29's suite sweep (B7, recorded),
+phase 30's gang (B3 in each rank, read from its sink) and phase 33's
+four-card runs (B3 on each card, and in each rank of its gangs); phase
+31's serving
 paths and phase 32's fleet launch none.  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
 ``ops.stencil_pallas.LAUNCHES``, ``ops.transpose.LAUNCHES``) is set to 0
@@ -474,6 +514,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = {"pipeline": "cme213_tpu_torch/csrc/heat_stencil.cu",
@@ -527,6 +568,10 @@ PWTK_TOL = {"pallas-fused": (1e-5, 1e-3), "pallas": (1e-5, 1e-3),
 
 
 def fail(msg: str) -> None:
+    if PHASE_SECONDS or _OPEN_PHASE:
+        phase(None)
+        print(f"phase seconds until the failure: "
+              f"{json.dumps(PHASE_SECONDS)}", file=sys.stderr)
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
@@ -862,6 +907,7 @@ def runner_phases(counted, only, pwtk, pwtk_ref64, keep):
         return core.time_fn(lambda _: fn(), anchor, warmup=1, iters=2)
 
     # ------------------------------------------- 23. checkpointed heat
+    phase(23)
     full = config.SimParams(nx=FULL_N, ny=FULL_N, order=FULL_ORDER,
                             iters=FULL_ITERS)
     fargs = (full.order, full.xcfl, full.ycfl)
@@ -976,6 +1022,7 @@ def runner_phases(counted, only, pwtk, pwtk_ref64, keep):
     rows["heat_checkpointed"] = heat_row
 
     # ------------------------------------------- 24. checkpointed pwtk
+    phase(24)
     a, xx, flags, _ = spmv.problem_tensors(pwtk, device=dev)
     every, n_it = 5, pwtk.iters
     spmv_rows = {}
@@ -1069,6 +1116,7 @@ def runner_phases(counted, only, pwtk, pwtk_ref64, keep):
     rows["spmv_checkpointed"] = spmv_rows
 
     # ------------------------------------------- 25. batched heat
+    phase(25)
     rng = np.random.default_rng(25)
     example = config.SimParams.from_file(
         os.path.join(HERE, "examples", "params.in"))
@@ -1120,6 +1168,7 @@ def runner_phases(counted, only, pwtk, pwtk_ref64, keep):
     rows["heat_batched"] = heat_batches
 
     # ------------------------------------------- 26. batched SpMV-scan
+    phase(26)
     spmv_batches = {}
     cases = [(f"n={n} {k}", k, [spmv.generate_problem(
         n, p=max(2, n // 64), q=n // 2, iters=6, seed=26 + i)
@@ -1162,70 +1211,8 @@ def runner_phases(counted, only, pwtk, pwtk_ref64, keep):
     rows["spmv_batched"] = spmv_batches
 
     # ------------------------------------------- 27. flight recorder
-    child = (
-        "import json, os, sys\n"
-        f"sys.path.insert(0, {HERE!r})\n"
-        "import torch\n"
-        "from cme213_tpu_torch.apps import heat2d\n"
-        "from cme213_tpu_torch.config import SimParams\n"
-        "from cme213_tpu_torch.core import flight\n"
-        "start = torch.cuda.is_initialized()\n"
-        "flight.install_from_env()\n"
-        "flight.dump('probe')\n"
-        "print(json.dumps({'cuda_at_start': start,\n"
-        "                  'cuda_after_probe': torch.cuda.is_initialized()}),\n"
-        "      flush=True)\n"
-        f"p = SimParams(nx={FULL_N}, ny={FULL_N}, order={FULL_ORDER}, "
-        f"iters={2 * RUNNER_EVERY})\n"
-        "heat2d.run_heat_checkpointed(p, sys.argv[1], "
-        f"every={RUNNER_EVERY}, max_retries=1, device='cuda')\n")
-    with tempfile.TemporaryDirectory() as fdir:
-        env = dict(os.environ, CME213_FLIGHT_DIR=fdir,
-                   CME213_FAULTS="nan:heat2d:1,nan:heat2d:2")
-        env.pop("CME213_TRACE_FILE", None)
-        proc = subprocess.Popen(
-            [sys.executable, "-c", child, os.path.join(fdir, "h.npz")],
-            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, start_new_session=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-            fail("flight child: no result in 300 s")
-        state = json.loads(stdout.strip().splitlines()[0])
-        docs = {}
-        for name in sorted(os.listdir(fdir)):
-            if name.startswith("flight-") and name.endswith(".json"):
-                with open(os.path.join(fdir, name)) as f:
-                    doc = json.load(f)
-                docs[doc["reason"]] = doc
-                if doc["reason"] == "numeric-abort":
-                    rows["flight_dump"] = shutil.copy(
-                        os.path.join(fdir, name), keep)
-    summary = {r: {"card": d["platform"].get("card"),
-                   "open_spans": [s["span"] for s in d["open_spans"]]}
-               for r, d in docs.items()}
-    print(f"flight child: rc {proc.returncode}, CUDA at start "
-          f"{state['cuda_at_start']}, after a dump {state['cuda_after_probe']};"
-          f" dumps {json.dumps(summary)}")
-    abort = docs.get("numeric-abort")
-    if proc.returncode == 0 or "NonFiniteError" not in stderr:
-        fail(f"flight child did not die of NonFiniteError: rc "
-             f"{proc.returncode}\n{stderr[-2000:]}")
-    if state["cuda_at_start"] or state["cuda_after_probe"]:
-        fail(f"flight child: CUDA initialised before its solve: {state}")
-    if set(docs) != {"probe", "numeric-abort", "unhandled-exception"}:
-        fail(f"flight dumps {sorted(docs)}")
-    if docs["probe"]["platform"].get("card") is not None:
-        fail("a dump before any CUDA work named the card")
-    if any(docs[r]["platform"].get("card") != kind
-           for r in ("numeric-abort", "unhandled-exception")):
-        fail(f"flight dumps do not name the card {kind!r}: {summary}")
-    if "checkpoint.chunk" not in summary["numeric-abort"]["open_spans"] \
-            or "NonFiniteError" not in (abort["traceback"] or ""):
-        fail(f"the abort's dump: {summary['numeric-abort']}")
-    rows["flight"] = {"rc": proc.returncode, "dumps": summary}
+    phase(27)
+    rows.update(flight_child(kind, keep))
     rows["seconds"] = time.perf_counter() - t_phases
     print(f"phases 23-27: {rows['seconds']:.1f} s")
     return rows
@@ -1945,54 +1932,47 @@ else:
 '''
 
 
-def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
-               vdev, pwtk, pwtk_ref64):
-    """Phase 30: the hw5 solves as a gang of two processes on the one card
-    (see the module's docstring).  ``counted``, ``only`` and ``paths`` are
-    ``main``'s launch-count helpers and table; ``dist_p`` and ``dist_ref``
-    phase 10's parameters and one-device ``run_heat`` grid, ``dist_rows``
-    its timed paths, ``vdev`` its four virtual shards; ``pwtk`` and
-    ``pwtk_ref64`` phase 8's problem and f64 plain solve.  Returns the
-    numbers for the ``gang`` line."""
+def bitwise(label, got, want):
+    """Fail unless the arrays ``got`` and ``want`` are equal bit for bit."""
     import numpy as np
-    import torch
 
-    from cme213_tpu_torch import config, core, dist, grid, ops
-    from cme213_tpu_torch.verify.checkers import (relative_l2_error,
-                                                  relative_linf_error)
+    if not (got.shape == want.shape and got.dtype == want.dtype
+            and np.array_equal(got.view(np.uint8), want.view(np.uint8))):
+        fail(f"{label}: not bit for bit")
 
-    dev = torch.device("cuda")
-    trace_env = core.trace.TRACE_FILE_ENV
-    t_phase = time.perf_counter()
-    g = tempfile.mkdtemp(prefix="gang-", dir=work)
-    worker = os.path.join(g, "worker.py")
-    with open(worker, "w") as f:
-        f.write(GANG_WORKER.format(here=HERE))
-    params = config.SimParams(nx=DIST_N, ny=DIST_N, order=8,
-                              iters=DIST_ITERS,
-                              grid_method=config.GridMethod.BLOCKS_2D)
-    params_path = os.path.join(g, "params.in")
-    params.to_file(params_path, distributed=True)
-    base_env = {k: v for k, v in os.environ.items()
-                if k not in ("CME213_FAULTS", trace_env)}
-    base_env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
-    rows = {}
 
-    def gang(tag, launcher_args, cmd, faults=None, timeout=400):
+class Gangs:
+    """Gangs of ranks run by ``python -m cme213_tpu_torch.dist.launch``,
+    each in a session and a directory of its own under ``root``, over the
+    worker script ``GANG_WORKER``; every process's sink is at
+    ``root/<tag>-<rank>.jsonl`` (the launcher's ``main``)."""
+
+    def __init__(self, root: str):
+        from cme213_tpu_torch import core
+
+        self.root = root
+        self.worker = os.path.join(root, "worker.py")
+        with open(self.worker, "w") as f:
+            f.write(GANG_WORKER.format(here=HERE))
+        self.trace_env = core.trace.TRACE_FILE_ENV
+        self.env = {k: v for k, v in os.environ.items()
+                    if k not in ("CME213_FAULTS", self.trace_env)}
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+
+    def run(self, tag, launcher_args, cmd, faults=None, timeout=400):
         """``python -m cme213_tpu_torch.dist.launch launcher_args --
-        python worker.py g tag cmd`` in its own session and directory,
-        every process's sink at ``g/tag-{rank}.jsonl``: (output,
-        seconds)."""
-        cwd = os.path.join(g, tag)
+        python worker.py root tag cmd``: (output, seconds); fails on a
+        non-zero exit or after ``timeout`` seconds."""
+        cwd = os.path.join(self.root, tag)
         os.makedirs(cwd)
-        env = dict(base_env, **{trace_env: os.path.join(g, tag + "-{rank}"
-                                                        ".jsonl")})
+        env = dict(self.env, **{self.trace_env: os.path.join(
+            self.root, tag + "-{rank}.jsonl")})
         if faults:
             env["CME213_FAULTS"] = faults
         argv = [sys.executable, "-m", "cme213_tpu_torch.dist.launch",
                 *launcher_args, "--timeout", str(timeout - 30), "--",
-                sys.executable, worker, g, tag, *cmd]
+                sys.executable, self.worker, self.root, tag, *cmd]
         t0 = time.perf_counter()
         proc = subprocess.Popen(argv, cwd=cwd, env=env,
                                 stdout=subprocess.PIPE,
@@ -2012,39 +1992,72 @@ def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
             fail(f"gang {tag}: rc {proc.returncode}")
         return out, secs
 
-    def records(tag, rank):
-        path = os.path.join(g, f"{tag}-{rank}.jsonl")
-        with open(path) as f:
+    def records(self, tag, rank):
+        with open(os.path.join(self.root, f"{tag}-{rank}.jsonl")) as f:
             return [json.loads(line) for line in f if line.strip()]
 
-    def events(tag, rank, event, **match):
-        return [r for r in records(tag, rank) if r["event"] == event
+    def events(self, tag, rank, event, **match):
+        return [r for r in self.records(tag, rank) if r["event"] == event
                 and all(r.get(k) == v for k, v in match.items())]
 
-    def snapshot(tag, rank):
-        snaps = events(tag, rank, "metrics-snapshot")
+    def snapshot(self, tag, rank):
+        snaps = self.events(tag, rank, "metrics-snapshot")
         if not snaps:
             fail(f"gang {tag}: rank {rank} left no metrics snapshot")
         return snaps[-1]["metrics"]
 
-    def grid_of(tag, rank, inc):
-        return np.load(os.path.join(g, f"{tag}-rank{rank}-inc{inc}.npy"))
+    def grid(self, tag, rank, inc):
+        import numpy as np
 
-    def bitwise(label, got, want):
-        if not (got.shape == want.shape and np.array_equal(
-                got.view(np.uint32), want.view(np.uint32))):
-            fail(f"{label}: not bit for bit")
+        return np.load(os.path.join(self.root,
+                                    f"{tag}-rank{rank}-inc{inc}.npy"))
 
-    def startup(tag, inc):
+    def startup(self, tag, inc, ranks):
         """Seconds from the launcher's gang-launch of incarnation ``inc``
-        to the last of its ranks' first heartbeats."""
-        t_launch = events(tag, "main", "gang-launch", incarnation=inc)[0]["t"]
-        first = [min(r["t"] for r in events(tag, rank, "heartbeat",
-                                            incarnation=inc))
-                 for rank in (0, 1)]
+        to the last of ``ranks``' first heartbeats."""
+        t_launch = self.events(tag, "main", "gang-launch",
+                               incarnation=inc)[0]["t"]
+        first = [min(r["t"] for r in self.events(tag, rank, "heartbeat",
+                                                 incarnation=inc))
+                 for rank in ranks]
         return max(first) - t_launch
 
-    gang_dev = ["--np", "2", "--devices-per-proc", "2"]
+
+def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
+               vdev, pwtk, pwtk_ref64):
+    """Phase 30: the hw5 solves as a gang of two processes on the one card
+    (see the module's docstring).  ``counted``, ``only`` and ``paths`` are
+    ``main``'s launch-count helpers and table; ``dist_p`` and ``dist_ref``
+    phase 10's parameters and one-device ``run_heat`` grid, ``dist_rows``
+    its timed paths, ``vdev`` its four virtual shards; ``pwtk`` and
+    ``pwtk_ref64`` phase 8's problem and f64 plain solve.  Returns the
+    numbers for the ``gang`` line."""
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import config, core, dist, grid, ops
+    from cme213_tpu_torch.verify.checkers import (relative_l2_error,
+                                                  relative_linf_error)
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    gangs = Gangs(tempfile.mkdtemp(prefix="gang-", dir=work))
+    g = gangs.root
+    params = config.SimParams(nx=DIST_N, ny=DIST_N, order=8,
+                              iters=DIST_ITERS,
+                              grid_method=config.GridMethod.BLOCKS_2D)
+    params_path = os.path.join(g, "params.in")
+    params.to_file(params_path, distributed=True)
+    rows = {}
+    gang, events, snapshot = gangs.run, gangs.events, gangs.snapshot
+    grid_of = gangs.grid
+
+    def startup(tag, inc):
+        return gangs.startup(tag, inc, (0, 1))
+
+    # the gloo gang on one card (on a machine with more cards the ranks
+    # would get a card each and NCCL: phase 33)
+    gang_dev = ["--np", "2", "--devices-per-proc", "2", "--backend", "gloo"]
     want = dist_ref.cpu().numpy()
 
     # (a) the plain gang through the heat CLI, B3 in each rank
@@ -2122,19 +2135,12 @@ def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
                  "startup_s": [startup("b", 0), startup("b", 1)]}
     print(f"phase 30 (b): {json.dumps(rows['b'])}")
 
-    # (c) a frozen rank, condemned by the stall clock
-    out, secs = gang("c", ["--np", "2", "--stall-timeout", "5",
-                           "--max-restarts", "1"], ["stall"], timeout=200)
-    if "stalled at step 1 for" not in out \
-            or out.count("recovered incarnation 1") != 2:
-        fail("gang c: no stall verdict or no recovery")
-    (beat,) = events("c", 1, "heartbeat", incarnation=0)
-    (verdict,) = events("c", "main", "rank-failed")
-    if verdict["reason"] != "stall":
-        fail(f"gang c: verdict {verdict}")
-    rows["c"] = {"launcher_s": secs, "stall_timeout_s": 5,
-                 "detection_s": verdict["t"] - beat["t"]}
-    print(f"phase 30 (c): {json.dumps(rows['c'])}")
+    # (c) a frozen rank, condemned by the stall clock; its ranks touch no
+    # card and mostly sleep, so it runs beside (d) and (e)
+    beside = ThreadPoolExecutor(1)
+    gang_c = beside.submit(gang, "c", ["--np", "2", "--stall-timeout", "5",
+                                       "--max-restarts", "1"], ["stall"],
+                           timeout=200)
 
     # (d) (b)'s last commit resumed on one process's 1-D mesh of 4 shards
     more = 250
@@ -2198,6 +2204,19 @@ def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
                  "commit_ms_max": e_commits[-1],
                  "launcher_s": [solves["e0"][2], solves["e1"][2]]}
     print(f"phase 30 (e): {json.dumps(rows['e'])}")
+
+    out, secs = gang_c.result()
+    beside.shutdown()
+    if "stalled at step 1 for" not in out \
+            or out.count("recovered incarnation 1") != 2:
+        fail("gang c: no stall verdict or no recovery")
+    (beat,) = events("c", 1, "heartbeat", incarnation=0)
+    (verdict,) = events("c", "main", "rank-failed")
+    if verdict["reason"] != "stall":
+        fail(f"gang c: verdict {verdict}")
+    rows["c"] = {"launcher_s": secs, "stall_timeout_s": 5,
+                 "detection_s": verdict["t"] - beat["t"]}
+    print(f"phase 30 (c): {json.dumps(rows['c'])}")
     rows["seconds"] = time.perf_counter() - t_phase
     print(f"phase 30: {rows['seconds']:.1f} s")
     return rows
@@ -2646,6 +2665,27 @@ def _fleet_workers() -> list[int]:
         if b"cme213_tpu_torch fleet worker" in cmd:
             pids.append(int(name))
     return sorted(pids)
+
+
+def _process_note(pid: int) -> str:
+    """A live process's parent, rank, incarnation, age and command line,
+    from ``/proc``."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            ppid = next(line.split()[1] for line in f
+                        if line.startswith("PPid:"))
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                       if b"=" in kv)
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        age = time.time() - os.stat(f"/proc/{pid}").st_ctime
+    except (OSError, StopIteration) as e:
+        return f"pid {pid}: {e}"
+    keys = (b"RANK", b"CME213_INCARNATION", b"CME213_TRACE_FILE")
+    return (f"pid {pid}, parent {ppid}, about {age:.0f} s old, "
+            + ", ".join(f"{k.decode()}={env.get(k, b'').decode()}"
+                        for k in keys) + f": {cmd}")
 
 
 def _sink_events(path, event):
@@ -3194,6 +3234,8 @@ def fleet_phase(counted, only, paths, work, ident):
     print(f"fleet (f): replica processes left {left}, psm_ segments "
           f"leaked {leaked}, hand-written kernel launches {launches or 0} "
           f"over {len(files)} sinks")
+    for pid in left:
+        print(f"  left: {_process_note(pid)}")
     if left or leaked or any(launches.values()):
         fail(f"fleet f: {rows['f']}")
     rows["seconds"] = time.perf_counter() - t_phase
@@ -3201,18 +3243,566 @@ def fleet_phase(counted, only, paths, work, ident):
     return rows
 
 
+#: phase 33: the cards it needs, and its headline-sized grid (8000²
+#: order 8: a 4000² block a card)
+MULTICARD = 4
+BIG_N, BIG_ITERS = 8000, 200
+
+
+def multicard_phase(counted, only, paths, work, ident, pwtk, pwtk_ref64):
+    """Phase 33: hw5 and the sharded SpMV-scan on four cards, one shard set
+    a card (see the module's docstring).  ``counted``, ``only`` and
+    ``paths`` are ``main``'s launch-count helpers and table; ``pwtk`` and
+    ``pwtk_ref64`` phase 8's problem and f64 plain solve.  Returns the
+    numbers for the ``multicard`` line."""
+    import numpy as np
+    import torch
+
+    from cme213_tpu_torch import config, core, dist, grid, ops
+    from cme213_tpu_torch.apps import spmv_scan as spmv
+    from cme213_tpu_torch.dist import heat as dheat
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+    from cme213_tpu_torch.verify.checkers import (relative_l2_error,
+                                                  relative_linf_error)
+
+    t_phase = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(MULTICARD)]
+    vdev = core.virtual_devices(MULTICARD)  # four shards of cuda:0
+    rows = {"cards": [torch.cuda.get_device_name(d) for d in cards],
+            "card": ident}
+    core.conformance.reset()  # every gate below probes on first use
+    gated = set()
+
+    def probe(mesh, k, order):
+        """The gate's probe launches a card of the first pallas use of
+        (mesh shape, k, order) in this process."""
+        key = (mesh.devices.shape, k, order)
+        if key in gated:
+            return 0
+        gated.add(key)
+        return DIST_PROBE_LAUNCHES
+
+    def per_card(label, run, expect):
+        """``run`` with B3's per-card counts zeroed just before it; fails
+        unless each card launched ``expect`` times (0: none at all)."""
+        sp.LOCAL_LAUNCHES.clear()
+        out = counted(label, None, run)
+        seen = dict(sp.LOCAL_LAUNCHES)
+        want = {str(d): expect for d in cards} if expect else {}
+        print(f"B3 launches a card, {label}: {seen}")
+        if seen != want:
+            fail(f"{label}: B3 launches a card {seen}, expected {want}")
+        return out, seen
+
+    def sync_all():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def exchange_ms(p, mesh, K, reps=50):
+        """One halo exchange of ``mesh``'s blocks (``border`` K), alone:
+        ms, the cards synchronised around the loop."""
+        y, x, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+        u0 = torch.from_numpy(dheat._pad_interior_for_mesh(
+            grid.interior(grid.make_initial_grid(p, device="cpu"),
+                          p.border_size).numpy(), p, y, x))
+        blocks = dheat._scatter(u0, dheat._shard_devices(mesh, y, x),
+                                ny_loc, nx_loc)
+        dheat._assemble_padded(blocks, p, border=K)
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dheat._assemble_padded(blocks, p, border=K)
+        sync_all()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    # (a) one process, a mesh over the four cards, each run held bit for
+    # bit to the same run on four shards of cuda:0
+    base = dict(nx=DIST_N, ny=DIST_N, order=8, iters=DIST_ITERS)
+    method = {"1d": config.GridMethod.STRIPES_1D,
+              "2d": config.GridMethod.BLOCKS_2D}
+    ref = ops.run_heat(grid.make_initial_grid(
+        config.SimParams(**base), device=cards[0]), DIST_ITERS, 8,
+        config.SimParams(**base).xcfl, config.SimParams(**base).ycfl
+    ).cpu().numpy()
+    runs = [("1d", True, "xla", 1), ("1d", False, "xla", 1),
+            ("2d", True, "xla", 1), ("2d", False, "xla", 1),
+            ("1d", True, "pallas", 1), ("2d", True, "pallas", 1),
+            ("2d", True, "xla", 2), ("2d", True, "xla", 4),
+            ("2d", True, "pallas", 2), ("2d", True, "pallas", 4)]
+    one_process = {}
+    rows["a"] = {}
+    for dim, sync, kernel, k in runs:
+        p = config.SimParams(**base, grid_method=method[dim],
+                             synchronous=sync)
+        label = (f"{DIST_N}x{DIST_N} {dim} {'sync' if sync else 'async'} "
+                 f"{kernel} k={k}")
+        mesh4 = dist.mesh_for_method(p.grid_method, devices=cards)
+        meshv = dist.mesh_for_method(p.grid_method, devices=vdev)
+        kw = dict(steps_per_exchange=k, local_kernel=kernel)
+        expect = (DIST_ITERS // k + probe(mesh4, k, p.order)
+                  if kernel == "pallas" else 0)
+        got, seen = per_card(f"run_distributed_heat {label} on 4 cards",
+                             lambda: dist.run_distributed_heat(p, mesh4,
+                                                               **kw), expect)
+        want = dist.run_distributed_heat(p, meshv, **kw)
+        bitwise(f"phase 33 (a) {label}: 4 cards vs 4 shards of cuda:0",
+                got, want)
+        one_process[(dim, kernel, k, sync)] = got
+        ulp = int(core.ulp_distance(got, ref).max())
+        times = {}
+        for where, mesh in (("cards", mesh4), ("one_card", meshv)):
+            iterate, _, k_used = dist.prepare_distributed_heat(p, mesh, **kw)
+            if k_used != k:
+                fail(f"phase 33 (a) {label}: ran k={k_used}")
+            seconds, _ = iterate()
+            times[where] = seconds * 1e3 / DIST_ITERS
+        K = k * p.border_size
+        ex = exchange_ms(p, mesh4, K)
+        rows["a"][label] = {
+            "ms_per_step": times["cards"],
+            "ms_per_step_4_shards_one_card": times["one_card"],
+            "exchange_ms": ex, "exchange_share": ex / (k * times["cards"]),
+            "b3_launches": seen, "max_ulp_vs_run_heat": ulp}
+        print(f"phase 33 (a) {label}: {times['cards']:.6f} ms/step on 4 "
+              f"cards ({times['one_card']:.6f} on 4 shards of cuda:0); one "
+              f"exchange alone {ex:.6f} ms ({ex / (k * times['cards']):.1%} "
+              f"of its {k} step(s)); bit for bit the one-card mesh; vs "
+              f"run_heat max ULP {ulp}")
+    # 8000² order 8: a 4000² block a card, against run_heat on one card
+    pb = config.SimParams(nx=BIG_N, ny=BIG_N, order=8, iters=BIG_ITERS,
+                          grid_method=config.GridMethod.BLOCKS_2D)
+    mesh4 = dist.mesh_for_method(pb.grid_method, devices=cards)
+    label = f"run_distributed_heat {BIG_N}x{BIG_N} 2d sync pallas k=1"
+    got, seen = per_card(f"{label} on 4 cards",
+                         lambda: dist.run_distributed_heat(
+                             pb, mesh4, local_kernel="pallas"),
+                         BIG_ITERS + probe(mesh4, 1, pb.order))
+    u = grid.make_initial_grid(pb, device=cards[0])
+    want = ops.run_heat(u, BIG_ITERS, pb.order, pb.xcfl, pb.ycfl)
+    bitwise(f"phase 33 (a) {label} vs run_heat on cuda:0", got,
+            want.cpu().numpy())
+    iterate, _, _ = dist.prepare_distributed_heat(pb, mesh4,
+                                                  local_kernel="pallas")
+    seconds, _ = iterate()
+    args = (BIG_ITERS, pb.order, pb.xcfl, pb.ycfl, pb.bc)
+    b1_ms = core.time_fn(lambda v: ops.run_heat_pipeline(v, *args, k=1), u,
+                         warmup=1, iters=2) / BIG_ITERS
+    ex = exchange_ms(pb, mesh4, pb.border_size)
+    step = core.roofline.heat_cost(BIG_N, BIG_N, order=8, iters=1)
+    big = {"ms_per_step": seconds * 1e3 / BIG_ITERS,
+           "b1_one_card_ms_per_step": b1_ms, "exchange_ms": ex,
+           "b3_launches": seen}
+    big["gbs"] = step.gbs(big["ms_per_step"])
+    big["speedup_over_one_card_b1"] = b1_ms / big["ms_per_step"]
+    rows["a"][f"{BIG_N}x{BIG_N} 2d sync pallas k=1"] = big
+    print(f"phase 33 (a) {label}: {big['ms_per_step']:.6f} ms/step on 4 "
+          f"cards ({big['gbs']:.1f} GB/s over the grid), B1 on one card "
+          f"{b1_ms:.6f} ms/step ({big['speedup_over_one_card_b1']:.2f}x); "
+          f"one exchange alone {ex:.6f} ms; bit for bit run_heat")
+    del got, want, u
+
+    # (b) the sharded SpMV-scan at pwtk over the four cards
+    timers = {}
+    out = {}
+    for where, devices in (("cards", cards), ("one_card", vdev)):
+        timers[where] = core.PhaseTimer()
+        out[where] = counted(
+            f"run_spmv_scan_distributed {SUITE} on {where}", only(None, 0),
+            lambda devices=devices, where=where:
+            spmv.run_spmv_scan_distributed(
+                pwtk, dist.make_mesh_1d(MULTICARD, devices=devices),
+                timer=timers[where]))
+    bitwise("phase 33 (b) pwtk: 4 cards vs 4 shards of cuda:0",
+            out["cards"], out["one_card"])
+    rel_l2 = relative_l2_error(pwtk_ref64, out["cards"])
+    rel_linf = relative_linf_error(pwtk_ref64, out["cards"])
+    tol_l2, tol_linf = PWTK_TOL["auto"]
+    if not (rel_l2 <= tol_l2 and rel_linf <= tol_linf):
+        fail(f"phase 33 (b): rel L2 {rel_l2:.3e} / rel Linf {rel_linf:.3e}")
+    rows["b"] = {w: timers[w].last_ms("spmv_scan_distributed") / pwtk.iters
+                 for w in timers}
+    rows["b"].update(rel_l2=rel_l2, rel_linf=rel_linf)
+    print(f"phase 33 (b) {SUITE} sharded over 4 cards: {rows['b']['cards']:.6f}"
+          f" ms/iter ({rows['b']['one_card']:.6f} on 4 shards of cuda:0); "
+          f"bit for bit; vs f64 plain rel L2 {rel_l2:.3e}")
+
+    # (c) python -m cme213_tpu_torch.dist.launch --np 4, one rank a card
+    gangs = Gangs(tempfile.mkdtemp(prefix="multicard-", dir=work))
+    params = {}
+    for dim in ("2d", "1d"):
+        params[dim] = os.path.join(gangs.root, f"params-{dim}.in")
+        config.SimParams(**base, grid_method=method[dim]).to_file(
+            params[dim], distributed=True)
+    four = ["--np", str(MULTICARD)]
+    rows["c"] = {}
+    # auto: each rank takes the backend of its layout, a card a rank
+    for tag, dim, asked, backend in (("c-nccl-2d", "2d", "auto", "nccl"),
+                                     ("c-nccl-1d", "1d", "auto", "nccl"),
+                                     ("c-gloo-2d", "2d", "gloo", "gloo")):
+        out_c, secs = gangs.run(tag, [*four, "--backend", asked],
+                                ["heat2d", params[dim], "--distributed",
+                                 "--local-kernel=pallas"])
+        if out_c.count(f"torch.distributed backend {backend}") != MULTICARD:
+            fail(f"gang {tag}: not every rank named {backend}")
+        ranks = {}
+        for rank in range(MULTICARD):
+            bitwise(f"gang {tag} rank {rank} vs the one-process 4-card run",
+                    gangs.grid(tag, rank, 0),
+                    one_process[(dim, "pallas", 1, True)])
+            snap = gangs.snapshot(tag, rank)
+            n = snap["counters"].get("kernel.launches.local", 0)
+            if n != DIST_ITERS + DIST_PROBE_LAUNCHES:
+                fail(f"gang {tag} rank {rank}: {n} B3 launches, expected "
+                     f"{DIST_ITERS + DIST_PROBE_LAUNCHES}")
+            solve = snap["gauges"]["dist_heat.solve_s"]
+            exchange = snap["gauges"]["dist_heat.exchange_s"]
+            ranks[rank] = {"b3_launches": n, "solve_s": solve,
+                           "exchange_s": exchange,
+                           "exchange_share": exchange / solve}
+        (span,) = gangs.events(tag, "main", "span-begin",
+                               span="gang-launch")
+        if span.get("backend") != backend:
+            fail(f"gang {tag}: the gang-launch span names "
+                 f"{span.get('backend')}, not {backend}")
+        rows["c"][tag] = {"backend": backend, "launcher_s": secs,
+                          "ranks": ranks}
+        label = f"gang {tag}: 4 ranks, heat2d CLI {DIST_N}x{DIST_N} pallas"
+        paths[label] = only("local", sum(r["b3_launches"]
+                                         for r in ranks.values()))
+        print(f"launches of {label}: {paths[label]}")
+        print(f"phase 33 (c) {tag}: solve_s "
+              f"{[round(r['solve_s'], 6) for r in ranks.values()]}, "
+              f"exchange_s {[round(r['exchange_s'], 6) for r in ranks.values()]}"
+              f"; bit for bit the one-process 4-card run on every rank")
+
+    # (d) the supervised NCCL gang: heat under rankkill:1:1, pwtk
+    # uninterrupted and under rankkill:0:2
+    ckpt = os.path.join(gangs.root, "ckpt")
+    out_d, secs = gangs.run("d", [*four, "--stall-timeout", "60",
+                                  "--max-restarts", "1", "--ckpt-dir", ckpt,
+                                  "--ckpt-every", "250"],
+                            ["heat2d", params["2d"], "--distributed",
+                             "--supervised"], faults="rankkill:1:1")
+    for needle in ("injected kill: rank 1 at step 1", "condemning the gang",
+                   "gang restart (incarnation 1/1)"):
+        if needle not in out_d:
+            fail(f"gang d: no {needle!r} in its output")
+    if out_d.count("torch.distributed backend nccl") != 2 * MULTICARD:
+        fail("gang d: not every rank of both incarnations named nccl")
+    for rank in range(MULTICARD):
+        bitwise(f"gang d rank {rank} vs run_heat", gangs.grid("d", rank, 1),
+                ref)
+    (kill,) = gangs.events("d", 1, "fault-injected", kind="rankkill")
+    (verdict,) = gangs.events("d", "main", "rank-failed")
+    resumed = min(r["t"] for rank in range(MULTICARD)
+                  for r in gangs.events("d", rank, "heartbeat",
+                                        incarnation=1))
+    rows["d"] = {"launcher_s": secs,
+                 "kill_to_verdict_s": verdict["t"] - kill["t"],
+                 "kill_to_resumed_beat_s": resumed - kill["t"],
+                 "startup_s": [gangs.startup("d", inc, range(MULTICARD))
+                               for inc in (0, 1)]}
+    print(f"phase 33 (d) heat: {json.dumps(rows['d'])}")
+    npz = os.path.join(gangs.root, "pwtk.npz")
+    np.savez(npz, a=pwtk.a, s=pwtk.s, k=pwtk.k, x=pwtk.x, iters=pwtk.iters)
+    solves = {}
+    for tag, faults, restarts in (("e0", None, "0"),
+                                  ("e1", "rankkill:0:2", "1")):
+        out_e, secs = gangs.run(tag, [*four, "--stall-timeout", "120",
+                                      "--max-restarts", restarts,
+                                      "--ckpt-dir",
+                                      os.path.join(gangs.root, f"ck-{tag}"),
+                                      "--ckpt-every", "5"], ["spmv", npz],
+                                faults=faults)
+        inc = 1 if faults else 0
+        res = [gangs.grid(tag, rank, inc) for rank in range(MULTICARD)]
+        for rank in range(1, MULTICARD):
+            bitwise(f"gang {tag} rank {rank} vs rank 0", res[rank], res[0])
+        solves[tag] = (res[0], secs, inc)
+        if faults and "condemning the gang" not in out_e:
+            fail(f"gang {tag}: no gang verdict")
+    bitwise("gang e1 vs the uninterrupted gang", solves["e1"][0],
+            solves["e0"][0])
+    (kill,) = gangs.events("e1", 0, "fault-injected", kind="rankkill")
+    (verdict,) = gangs.events("e1", "main", "rank-failed")
+    rows["d"]["spmv"] = {
+        "launcher_s": [solves["e0"][1], solves["e1"][1]],
+        "kill_to_verdict_s": verdict["t"] - kill["t"],
+        "startup_s": [gangs.startup("e1", inc, range(MULTICARD))
+                      for inc in (0, 1)],
+        "equals_one_process_4_cards": bool(np.array_equal(
+            solves["e0"][0].view(np.uint8), out["cards"].view(np.uint8)))}
+    print(f"phase 33 (d) pwtk: {json.dumps(rows['d']['spmv'])}")
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 33: {rows['seconds']:.1f} s")
+    return rows
+
+
+def flight_child(kind: str, keep: str) -> dict:
+    """Phase 27: a child that dies of a non-finite chunk under the flight
+    recorder; its abort dump is copied into ``keep`` (phase 28 reads it).
+    Returns ``{"flight_dump": path, "flight": {...}}``."""
+    rows = {}
+    child = (
+        "import json, os, sys\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "import torch\n"
+        "from cme213_tpu_torch.apps import heat2d\n"
+        "from cme213_tpu_torch.config import SimParams\n"
+        "from cme213_tpu_torch.core import flight\n"
+        "start = torch.cuda.is_initialized()\n"
+        "flight.install_from_env()\n"
+        "flight.dump('probe')\n"
+        "print(json.dumps({'cuda_at_start': start,\n"
+        "                  'cuda_after_probe': torch.cuda.is_initialized()}),\n"
+        "      flush=True)\n"
+        f"p = SimParams(nx={FULL_N}, ny={FULL_N}, order={FULL_ORDER}, "
+        f"iters={2 * RUNNER_EVERY})\n"
+        "heat2d.run_heat_checkpointed(p, sys.argv[1], "
+        f"every={RUNNER_EVERY}, max_retries=1, device='cuda')\n")
+    with tempfile.TemporaryDirectory() as fdir:
+        env = dict(os.environ, CME213_FLIGHT_DIR=fdir,
+                   CME213_FAULTS="nan:heat2d:1,nan:heat2d:2")
+        env.pop("CME213_TRACE_FILE", None)
+        proc = subprocess.Popen(
+            [sys.executable, "-c", child, os.path.join(fdir, "h.npz")],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail("flight child: no result in 300 s")
+        state = json.loads(stdout.strip().splitlines()[0])
+        docs = {}
+        for name in sorted(os.listdir(fdir)):
+            if name.startswith("flight-") and name.endswith(".json"):
+                with open(os.path.join(fdir, name)) as f:
+                    doc = json.load(f)
+                docs[doc["reason"]] = doc
+                if doc["reason"] == "numeric-abort":
+                    rows["flight_dump"] = shutil.copy(
+                        os.path.join(fdir, name), keep)
+    summary = {r: {"card": d["platform"].get("card"),
+                   "open_spans": [s["span"] for s in d["open_spans"]]}
+               for r, d in docs.items()}
+    print(f"flight child: rc {proc.returncode}, CUDA at start "
+          f"{state['cuda_at_start']}, after a dump {state['cuda_after_probe']};"
+          f" dumps {json.dumps(summary)}")
+    abort = docs.get("numeric-abort")
+    if proc.returncode == 0 or "NonFiniteError" not in stderr:
+        fail(f"flight child did not die of NonFiniteError: rc "
+             f"{proc.returncode}\n{stderr[-2000:]}")
+    if state["cuda_at_start"] or state["cuda_after_probe"]:
+        fail(f"flight child: CUDA initialised before its solve: {state}")
+    if set(docs) != {"probe", "numeric-abort", "unhandled-exception"}:
+        fail(f"flight dumps {sorted(docs)}")
+    if docs["probe"]["platform"].get("card") is not None:
+        fail("a dump before any CUDA work named the card")
+    if any(docs[r]["platform"].get("card") != kind
+           for r in ("numeric-abort", "unhandled-exception")):
+        fail(f"flight dumps do not name the card {kind!r}: {summary}")
+    if "checkpoint.chunk" not in summary["numeric-abort"]["open_spans"] \
+            or "NonFiniteError" not in (abort["traceback"] or ""):
+        fail(f"the abort's dump: {summary['numeric-abort']}")
+    rows["flight"] = {"rc": proc.returncode, "dumps": summary}
+    return rows
+
+
+#: the groups of phases ``--only`` selects, in the order a run takes them
+GROUPS = {"kernels": range(1, 17), "guarded": range(17, 28),
+          "tooling": range(28, 30), "gang": range(30, 31),
+          "serving": range(31, 32), "fleet": range(32, 33),
+          "multicard": range(33, 34)}
+#: what a group takes from phases 1-16, made for it when they do not run:
+#: pwtk and its f64 plain solve (phase 8), phase 10's hw5 set-up, B1's
+#: 4000² time (phase 4), the headline lines (16), the sweeps' CSVs (14)
+NEEDS = {"kernels": set(), "guarded": {"pwtk", "dist", "b1"},
+         "tooling": {"pwtk", "headline", "sweeps"},
+         "gang": {"pwtk", "dist"}, "serving": {"pwtk"}, "fleet": set(),
+         "multicard": {"pwtk"}}
+#: host-clock seconds of each phase that ran, in order ("set-up": what a
+#: group run alone makes for itself)
+PHASE_SECONDS: dict[str, float] = {}
+_OPEN_PHASE: list = []
+
+
+def phase(n) -> None:
+    """Stop the clock of the open phase and start phase ``n``'s (``None``:
+    stop only)."""
+    now = time.perf_counter()
+    if _OPEN_PHASE:
+        name, t0 = _OPEN_PHASE.pop()
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - t0
+    if n is not None:
+        _OPEN_PHASE.append((str(n), now))
+
+
+def parse_args(argv: list[str]) -> tuple[str | None, set[str] | None]:
+    """``(parent, groups)`` from ``[--parent DIR] [--only GROUP[,GROUP]]``;
+    a group may be named by a phase number of its own; ``groups`` is
+    ``None`` without ``--only``."""
+    usage = (f"usage: chip_smoke.py [--parent DIR] [--only GROUP[,GROUP]] "
+             f"(groups: {', '.join(GROUPS)}, or a phase number), got {argv}")
+    parent, groups, rest = None, None, list(argv)
+    while rest:
+        flag = rest.pop(0)
+        if flag not in ("--parent", "--only") or not rest:
+            fail(usage)
+        value = rest.pop(0)
+        if flag == "--parent":
+            parent = os.path.abspath(value)
+            continue
+        groups = set()
+        for name in value.split(","):
+            if name.isdigit():
+                name = next((g for g, r in GROUPS.items()
+                             if int(name) in r), name)
+            if name not in GROUPS:
+                fail(usage)
+            groups.add(name)
+    return parent, groups
+
+
+def module_env() -> dict:
+    """The environment of a ``python -m`` child: the checkout on its path,
+    no fault plan."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    env.pop("CME213_FAULTS", None)
+    return env
+
+
+def run_module(args, timeout):
+    """``python -m args`` from the checkout: (stdout, seconds).  It runs
+    in a session of its own, so a timeout stops its children too."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                            env=module_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(args)}: no result in {timeout} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{' '.join(args)}: rc {proc.returncode}\n{stderr[-3000:]}")
+    return stdout, secs
+
+
+def headline_lines(kind, peak) -> dict:
+    """Phase 16's headline bench as a user runs it, each in a child:
+    ``bench.headline`` at f32 and f64, and ``--spmv``; every row ok, the
+    card and its peak named, the scan rows' launches as their runs imply.
+    Returns the lines by name, each with its child's seconds."""
+    headline = {}
+    for dtype_name in ("f32", "f64"):
+        out, secs = run_module(["cme213_tpu_torch.bench.headline",
+                                f"--dtype={dtype_name}"], 900)
+        line = json.loads(out.strip().splitlines()[-1])
+        headline[dtype_name] = dict(line, seconds=secs)
+        print(f"headline {dtype_name} ({secs:.1f} s): {json.dumps(line)}")
+        bad = [r for r in line["kernels"] if not r.get("ok")]
+        if bad:
+            fail(f"headline {dtype_name}: rows not ok: {bad}")
+        if line["device_kind"] != kind or line["platform"] != "cuda" or \
+                line["pct_hbm_peak"] != round(100 * line["value"]
+                                              / peak.gbs, 1):
+            fail(f"headline {dtype_name}: device or peak: {line}")
+    out, secs = run_module(["cme213_tpu_torch.bench.headline", "--spmv"],
+                           600)
+    spmv_line = json.loads(out.strip().splitlines()[-1])
+    headline["spmv"] = dict(spmv_line, seconds=secs)
+    print(f"headline --spmv ({secs:.1f} s): {json.dumps(spmv_line)}")
+    scan_rows = [r for r in spmv_line["kernels"]
+                 if r["kernel"] in SCAN_KERNELS]
+    if len(scan_rows) != 2 * 3 or any(r["error"] for r in scan_rows):
+        fail(f"headline --spmv: {scan_rows}")
+    # one run_spmv_scan a size and kernel: an untimed iteration, then 8
+    want = sum(r["iters"] + 1 for r in scan_rows) // 2
+    if spmv_line["launches"] != {"segscan": want, "spmv_fused": want}:
+        fail(f"headline --spmv: launches {spmv_line['launches']}, "
+             f"expected {want} each")
+    return headline
+
+
+def calibrate() -> list:
+    """Phase 22: ``doctor calibrate --json`` in a child, its five rows."""
+    out, secs = run_module(["cme213_tpu_torch", "doctor", "calibrate",
+                            "--json"], 300)
+    calibration = json.loads(out)
+    print(f"doctor calibrate --json ({secs:.1f} s):")
+    for r in calibration:
+        print(f"  {json.dumps(r)}")
+    if len(calibration) != 5 or any("error" in r for r in calibration) or \
+            {(r["op"], r["rung"]) for r in calibration} != {
+                ("spmv_scan", "flat"), ("spmv_scan", "pallas-fused"),
+                ("heat", "xla"), ("heat", "pipeline"), ("sort", "xla")}:
+        fail(f"doctor calibrate: {calibration}")
+    return calibration
+
+
+def pwtk_problem(spmv, segp, dev):
+    """Phase 8's instance, pwtk, and its plain solve in float64 on the
+    card: ``(problem, f64 result)``."""
+    prob = spmv.suite_problem(SUITE)
+    a, xx, flags, _ = spmv.problem_tensors(prob, device=dev)
+    ref64 = segp.spmv_scan_pallas_plain(a.double(), xx.double(), flags,
+                                        prob.iters).cpu().numpy()
+    print(f"{SUITE} (set-up): n={prob.n} p={prob.p} q={prob.q} "
+          f"N={prob.iters}")
+    return prob, ref64
+
+
+def dist_setup(config, core, dist, grid, ops, dev):
+    """Phase 10's hw5 set-up: ``(params, run_heat's grid on the card, four
+    virtual shards, their 2 x 2 mesh, rows)``, ``rows`` holding the 2-D
+    sync ``pallas`` path's ms a step as phase 10 times it."""
+    vdev = core.virtual_devices(DIST_SHARDS)
+    dist_p = config.SimParams(nx=DIST_N, ny=DIST_N, order=8,
+                              iters=DIST_ITERS)
+    dist_ref = ops.run_heat(grid.make_initial_grid(dist_p, device=dev),
+                            DIST_ITERS, dist_p.order, dist_p.xcfl,
+                            dist_p.ycfl)
+    mesh2d = dist.make_mesh_2d(2, 2, devices=vdev)
+    iterate, _, _ = dist.prepare_distributed_heat(dist_p, mesh2d,
+                                                  local_kernel="pallas")
+    iterate()  # the first use builds the plan
+    seconds, _ = iterate()
+    label = f"run_distributed {DIST_N}x{DIST_N} 2d sync pallas"
+    rows = {label: {"ms": seconds * 1e3 / DIST_ITERS}}
+    print(f"{label} (set-up): {rows[label]['ms']:.6f} ms/step")
+    return dist_p, dist_ref, vdev, mesh2d, rows
+
+
+def b1_timing(core, grid, ops, full, dev) -> dict:
+    """Phase 4's B1 time at 4000² order 8 f32, k = 1 (CUDA events, one
+    warm-up, best of 2), as ``timings["pipeline"][0]``."""
+    u = grid.make_initial_grid(full, device=dev)
+    args = (full.iters, full.order, full.xcfl, full.ycfl, full.bc)
+    ms = core.time_fn(lambda v: ops.run_heat_pipeline(v, *args, k=1), u,
+                      warmup=1, iters=2) / full.iters
+    print(f"B1 {FULL_N}x{FULL_N} k=1 (set-up): {ms:.6f} ms/step")
+    return {"pipeline": [{"k": 1, "ms": ms}]}
+
+
+def sweep_csvs(run_all, work: str) -> str:
+    """Phase 14's full-size sweeps (``SWEEP_PATH``) into ``work/sweeps``:
+    the directory."""
+    out_dir = os.path.join(work, "sweeps")
+    rc = run_all.main(["--out", out_dir, "--only", ",".join(SWEEP_PATH)])
+    if rc != 0:
+        fail(f"run_all --only {','.join(SWEEP_PATH)} (set-up): rc {rc}")
+    return out_dir
+
+
 def main(argv=None) -> int:
     t_script = time.perf_counter()
-    argv = sys.argv[1:] if argv is None else argv
-    parent = None
-    only_fleet = False
-    if argv[:1] == ["--parent"] and len(argv) == 2:
-        parent = os.path.abspath(argv[1])
-    elif argv in (["--only", "fleet"], ["--only", "32"]):
-        only_fleet = True
-    elif argv:
-        fail(f"usage: chip_smoke.py [--parent DIR | --only fleet], "
-             f"got {argv}")
+    parent, groups = parse_args(sys.argv[1:] if argv is None else argv)
     try:
         import numpy as np
         import torch
@@ -3220,6 +3810,16 @@ def main(argv=None) -> int:
         fail(f"needs torch and numpy: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a card")
+    cards = torch.cuda.device_count()
+    if groups is None:
+        groups = set(GROUPS)
+        if cards < MULTICARD:
+            groups.discard("multicard")
+            print(f"phase 33 (multicard) needs {MULTICARD} cards; this "
+                  f"machine has {cards}: not run")
+    elif "multicard" in groups and cards < MULTICARD:
+        fail(f"--only multicard needs {MULTICARD} cards; this machine has "
+             f"{cards}")
     sys.path.insert(0, HERE)
     try:
         import cme213_tpu_torch
@@ -3293,36 +3893,6 @@ def main(argv=None) -> int:
         return {key: (n if key == name else 0)
                 for counter in counters for key in counter}
 
-    # ---------------------------------------------------- 1. identity, build
-    ident = core.card_identity()
-    print(f"card: {ident}")
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    if only_fleet:
-        # phase 32 alone: it launches no hand-written kernel, so nothing
-        # is built
-        fleet = fleet_phase(counted, only, paths, work, ident)
-        print(json.dumps({"fleet": fleet}))
-        print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} "
-              f"s")
-        print(ident)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind,
-            "count": torch.cuda.device_count()}}))
-        return 0
-    t0 = time.perf_counter()
-    built = _kernels.build()
-    print(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, "
-          f"{len(built)} libraries, one nvcc each, in parallel")
-    for name, path in built.items():
-        _kernels.library(name)
-        print(f"  {name}: {path.name}")
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "Compiling" in line or "Used" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
-
-    # ---------------------------------------------------- 2. the example
-
     def served(op):
         """The rung that last served ``op`` (its ``served`` event)."""
         ev = [e for e in core.trace.events("served") if e["op"] == op]
@@ -3330,1470 +3900,1508 @@ def main(argv=None) -> int:
             fail(f"no served event for {op}")
         return ev[-1]
 
-    params = config.SimParams.from_file(
-        os.path.join(HERE, "examples", "params.in"))
-    with tempfile.TemporaryDirectory() as out_dir:
-        # run_single goes through the ladder: the first use of the kernel
-        # rung runs its conformance probe, then the program's warm-up
-        # launch, then the timed solve
-        res = counted(
-            f"run_single {params.nx}x{params.ny}",
-            only("pipeline", params.iters + 1 + HEAT_PROBE_LAUNCHES),
-            lambda: heat2d.run_single(params, check_cpu=True,
-                                      save_files=True, out_dir=out_dir,
-                                      device="cuda"))
-        dumps = sorted(os.listdir(out_dir))
-    ev = served("heat")
-    print(f"example {params.nx}x{params.ny} order {params.order} "
-          f"{params.iters} iters: ok={res.ok} dumps={dumps}, served by "
-          f"{ev['rung']} (demoted {ev['demoted']})")
-    if not res.ok:
-        fail("the example failed its golden ULP-10 check")
-    if ev["rung"] != "pipeline" or ev["demoted"]:
-        fail(f"the example was served demoted: {ev}")
-    if len(dumps) != 4:
-        fail(f"example: dumps {dumps}")
-
-    # ---------------------------------------------------- 3. kernel vs plain
-    worst_ulp = dict.fromkeys(entries, 0)
-    worst_err = dict.fromkeys(entries, 0.0)
-
-    def note(name, ulp, err):
-        worst_ulp[name] = max(worst_ulp[name], ulp)
-        worst_err[name] = max(worst_err[name], err)
-
-    cases = [((1000, 1000), order, k, torch.float32)
-             for order in (2, 4, 8) for k in (1, 2, 3, 4, 8)]
-    cases += [((1000, 1000), 8, 4, torch.float64),
-              ((1000, 1000), 4, 1, torch.float64),
-              ((1000, 1000), 2, 3, torch.float64),
-              ((257, 121), 8, 1, torch.float32),
-              ((257, 121), 4, 8, torch.float32),
-              # rows not 16-byte aligned: the kernel stages element-wise
-              ((3999, 4001), 8, 1, torch.float32),
-              ((3999, 4001), 2, 3, torch.float32),
-              ((3999, 4001), 8, 2, torch.float64),
-              # a grid smaller than one tile
-              ((5, 7), 8, 1, torch.float32),
-              ((5, 7), 8, 3, torch.float32),
-              ((512, 512), 8, 1, torch.float32)]
-    # the main path's own shapes: the example's and the full size's
-    cases += [((FULL_N, FULL_N), FULL_ORDER, k, torch.float32)
-              for k in (1, 2, 4, 8)]
-    for seed, ((ny, nx), order, k, dtype) in enumerate(cases):
-        p = config.SimParams(nx=nx, ny=ny, order=order, bc_top=1.5,
-                             bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
-        u = seeded_grid(p, dtype, seed)
-        args = (8 * k, order, p.xcfl, p.ycfl, p.bc)
-        plain = ops.run_heat_pipeline_plain(u, *args, k=k)
-        for name, fn in entries.items():
-            ulp, err = max_errors(core.check_op(name, fn(u, *args, k=k)),
-                                  plain, limit=0)
-            note(name, ulp, err)
-            print(f"  vs plain: {name:<10} {ny}x{nx} order {order} k={k} "
-                  f"{str(dtype)[6:]}: max ULP {ulp}, max |err| {err:.3g}")
-
-    # ---------------------------------------------------- 4. full size
+    cwd = os.getcwd()
+    env = module_env()
     full = config.SimParams(nx=FULL_N, ny=FULL_N, order=FULL_ORDER,
                             iters=FULL_ITERS)
-    full_path = f"run_single {FULL_N}x{FULL_N}"
-    res = counted(full_path, only("pipeline", full.iters + 1),
-                  lambda: heat2d.run_single(full, check_cpu=False,
-                                            device="cuda"))
-    if not res.ok:
-        fail("full-size run_single")
-    u = grid.make_initial_grid(full, device="cuda")
-    args = (full.iters, full.order, full.xcfl, full.ycfl, full.bc)
-    step = roofline.heat_cost(full.ny, full.nx, order=full.order, iters=1)
-    timings = {name: [] for name in entries}
-    outs = []
-    for name, fn in entries.items():
-        for k in (1, 2, 4, 8):
-            # one counted solve (its result is checked below), then the
-            # timed solves, whose launches are not read
-            out = counted(f"{fn.__name__} {FULL_N}x{FULL_N} k={k}",
-                          only(name, full.iters // k),
-                          lambda fn=fn, k=k: fn(u, *args, k=k))
-            outs.append((name, k, out))
-            ms = core.time_fn(lambda v, fn=fn, k=k: fn(v, *args, k=k), u,
-                              warmup=1, iters=2) / full.iters
-            # one launch runs k steps: it reads and writes the grid once
-            # and does k steps' arithmetic
-            launch = roofline.Cost(step.nbytes, step.flops * k)
-            b_ms, b_by = roofline.bound_ms(launch, peak, torch.float32)
-            gbs = step.gbs(ms)
-            timings[name].append({"k": k, "ms": ms, "bound_ms": b_ms / k,
-                                  "bound_by": b_by, "gbs": gbs})
-            att = roofline.attribute(gbs, step.gflops(ms), device=kind)
-            plan = sp.launch_plan(u, 1, k, full.order)
-            per_sm, regs, local = _kernels.heat_ksteps_occupancy(
-                dev, 4, full.order, k, plan.smem)
-            timings[name][-1].update(
-                tile=f"{plan.tile_y}x{plan.tile_x}", threads=plan.threads,
-                grid=list(plan.grid), blocks_per_sm=per_sm, registers=regs,
-                local_bytes=local)
-            print(f"full {name:<10} k={k}: {ms:.6f} ms/iter, {gbs:.1f} GB/s "
-                  f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), "
-                  f"bound {b_ms / k:.6f} ms/iter by {b_by}; tile "
-                  f"{plan.tile_y}x{plan.tile_x}, {plan.threads} threads, "
-                  f"grid {plan.grid}, {per_sm} blocks/SM, {regs} registers, "
-                  f"{local} B local (spills)")
-    n_plain = 10
-    plain_ms = core.time_fn(
-        lambda v: ops.run_heat_pipeline_plain(v, n_plain, *args[1:], k=1),
-        u, warmup=1, iters=2) / n_plain
-    torch_ms = core.time_fn(lambda v: ops.run_heat(v, n_plain, *args[1:4]),
-                            u, warmup=1, iters=2) / n_plain
-    ref = ops.run_heat(u, *args[:4])
-    for name, k, out in outs:
-        ulp, err = max_errors(out, ref, limit=0)
-        note(name, ulp, err)
-        print(f"  vs run_heat: {name:<10} k={k} {FULL_ITERS} iters: "
-              f"max ULP {ulp}, max |err| {err:.3g}")
+    # the first use of each SpMV kernel rung runs its conformance probe:
+    # the probe program's warm-up iteration and its iterations
+    scan_probe = 1 + spmv._PROBE_SHAPE["iters"]
 
-    torch.backends.cudnn.allow_tf32 = False
+    # ---------------------------------------------------- 1. identity, build
+    phase(1)
+    ident = core.card_identity()
+    print(f"card: {ident}")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    print(f"groups: {', '.join(g for g in GROUPS if g in groups)}")
+    if groups != {"fleet"}:
+        # phase 32 launches no hand-written kernel; every other group does
+        t0 = time.perf_counter()
+        built = _kernels.build()
+        print(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, "
+              f"{len(built)} libraries, one nvcc each, in parallel")
+        for name, path in built.items():
+            _kernels.library(name)
+            print(f"  {name}: {path.name}")
+            for line in path.with_suffix(".log").read_text().splitlines():
+                if "Compiling" in line or "Used" in line or "spill" in line:
+                    print(f"    ptxas: {line.strip()}")
+    lines = {}  # the groups' JSON lines, by name
 
-    def cross_weight(p):
-        """``p``'s stencil step as a (1, 1, 2b+1, 2b+1) conv2d weight."""
-        b = p.border_size
-        w = torch.zeros(2 * b + 1, 2 * b + 1, dtype=torch.float32)
-        coeffs = torch.tensor(ops.STENCIL_COEFFS[p.order])
-        w[b, :] += coeffs * p.xcfl
-        w[:, b] += coeffs * p.ycfl
-        w[b, b] += 1.0
-        return w.to(dev)[None, None]
+    if "kernels" in groups:
+        # ---------------------------------------------------- 2. the example
+        phase(2)
 
-    w = cross_weight(full)
-    conv = torch.nn.functional.conv2d
-    library_ms = core.time_fn(lambda v: conv(v[None, None], w), u,
-                              warmup=2, iters=5)
-    print(f"plain version {plain_ms:.6f} ms/iter, ops.stencil.run_heat "
-          f"{torch_ms:.6f} ms/iter, conv2d yardstick {library_ms:.6f} ms")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
-         "power.limit,temperature.gpu", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    print(f"card after the runs: {smi.stdout.strip()}")
+        params = config.SimParams.from_file(
+            os.path.join(HERE, "examples", "params.in"))
+        with tempfile.TemporaryDirectory() as out_dir:
+            # run_single goes through the ladder: the first use of the kernel
+            # rung runs its conformance probe, then the program's warm-up
+            # launch, then the timed solve
+            res = counted(
+                f"run_single {params.nx}x{params.ny}",
+                only("pipeline", params.iters + 1 + HEAT_PROBE_LAUNCHES),
+                lambda: heat2d.run_single(params, check_cpu=True,
+                                          save_files=True, out_dir=out_dir,
+                                          device="cuda"))
+            dumps = sorted(os.listdir(out_dir))
+        ev = served("heat")
+        print(f"example {params.nx}x{params.ny} order {params.order} "
+              f"{params.iters} iters: ok={res.ok} dumps={dumps}, served by "
+              f"{ev['rung']} (demoted {ev['demoted']})")
+        if not res.ok:
+            fail("the example failed its golden ULP-10 check")
+        if ev["rung"] != "pipeline" or ev["demoted"]:
+            fail(f"the example was served demoted: {ev}")
+        if len(dumps) != 4:
+            fail(f"example: dumps {dumps}")
 
-    # ---------------------------------------------------- 5. SpMV example
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as out_dir:
-        os.chdir(out_dir)  # the CLI writes b.txt and b_cpu.txt here
-        try:
-            if spmv.main(["spmv_scan", "gen", "a.txt", "x.txt"]) != 0:
-                fail("spmv_scan gen")
-            gen = spmv.load_problem("a.txt", "x.txt")
-            # the first use of each kernel rung runs its conformance probe:
-            # the probe program's warm-up iteration and its iterations
-            scan_probe = 1 + spmv._PROBE_SHAPE["iters"]
-            for kernel, name in SCAN_KERNELS.items():
-                buf = io.StringIO()
+        # ---------------------------------------------------- 3. kernel vs plain
+        phase(3)
+        worst_ulp = dict.fromkeys(entries, 0)
+        worst_err = dict.fromkeys(entries, 0.0)
 
-                def cli(kernel=kernel, buf=buf):
-                    with contextlib.redirect_stdout(buf):
-                        return spmv.main(["spmv_scan", "a.txt", "x.txt",
-                                          "cpu_check", f"--kernel={kernel}"])
-                rc = counted(f"spmv_scan CLI gen n={gen.n} {kernel}",
-                             only(name, gen.iters + 1 + scan_probe), cli)
-                print(buf.getvalue(), end="")
-                if rc != 0 or "Worked!" not in buf.getvalue():
-                    fail(f"spmv_scan CLI --kernel={kernel}: rc {rc}, no "
-                         f"'Worked!'")
-        finally:
-            os.chdir(cwd)
+        def note(name, ulp, err):
+            worst_ulp[name] = max(worst_ulp[name], ulp)
+            worst_err[name] = max(worst_err[name], err)
 
-    # ---------------------------------------------------- 6. dense2
-    d2 = dense2_problem(iters=10, seed=0)
-    for kernel, name in SCAN_KERNELS.items():
-        out = counted(f"run_spmv_scan dense2 {kernel}",
-                      only(name, d2.iters + 1),
-                      lambda k=kernel: spmv.run_spmv_scan(d2, kernel=k,
-                                                          device=dev))
-        errs = spmv.external_check(d2, out)
-        print(f"dense2 n={d2.n} p={d2.p} N={d2.iters} {kernel}: rel L2 "
-              f"{errs['rel_l2']:.3e}, rel Linf {errs['rel_linf']:.3e}")
-        if not (np.isfinite(out).all() and errs["rel_l2"] <= 1e-4
-                and errs["rel_linf"] <= 1e-3):
-            fail(f"dense2 {kernel}: external_check {errs}")
+        cases = [((1000, 1000), order, k, torch.float32)
+                 for order in (2, 4, 8) for k in (1, 2, 3, 4, 8)]
+        cases += [((1000, 1000), 8, 4, torch.float64),
+                  ((1000, 1000), 4, 1, torch.float64),
+                  ((1000, 1000), 2, 3, torch.float64),
+                  ((257, 121), 8, 1, torch.float32),
+                  ((257, 121), 4, 8, torch.float32),
+                  # rows not 16-byte aligned: the kernel stages element-wise
+                  ((3999, 4001), 8, 1, torch.float32),
+                  ((3999, 4001), 2, 3, torch.float32),
+                  ((3999, 4001), 8, 2, torch.float64),
+                  # a grid smaller than one tile
+                  ((5, 7), 8, 1, torch.float32),
+                  ((5, 7), 8, 3, torch.float32),
+                  ((512, 512), 8, 1, torch.float32)]
+        # the main path's own shapes: the example's and the full size's
+        cases += [((FULL_N, FULL_N), FULL_ORDER, k, torch.float32)
+                  for k in (1, 2, 4, 8)]
+        for seed, ((ny, nx), order, k, dtype) in enumerate(cases):
+            p = config.SimParams(nx=nx, ny=ny, order=order, bc_top=1.5,
+                                 bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+            u = seeded_grid(p, dtype, seed)
+            args = (8 * k, order, p.xcfl, p.ycfl, p.bc)
+            plain = ops.run_heat_pipeline_plain(u, *args, k=k)
+            for name, fn in entries.items():
+                ulp, err = max_errors(core.check_op(name, fn(u, *args, k=k)),
+                                      plain, limit=0)
+                note(name, ulp, err)
+                print(f"  vs plain: {name:<10} {ny}x{nx} order {order} k={k} "
+                      f"{str(dtype)[6:]}: max ULP {ulp}, max |err| {err:.3g}")
 
-    # ---------------------------------------------------- 7. scan vs plain
-    scan_ulp = dict.fromkeys(SCAN_KERNELS.values(), 0)
-    scan_err = dict.fromkeys(SCAN_KERNELS.values(), 0.0)
+        # ---------------------------------------------------- 4. full size
+        phase(4)
+        full_path = f"run_single {FULL_N}x{FULL_N}"
+        res = counted(full_path, only("pipeline", full.iters + 1),
+                      lambda: heat2d.run_single(full, check_cpu=False,
+                                                device="cuda"))
+        if not res.ok:
+            fail("full-size run_single")
+        u = grid.make_initial_grid(full, device="cuda")
+        args = (full.iters, full.order, full.xcfl, full.ycfl, full.bc)
+        step = roofline.heat_cost(full.ny, full.nx, order=full.order, iters=1)
+        timings = {name: [] for name in entries}
+        outs = []
+        for name, fn in entries.items():
+            for k in (1, 2, 4, 8):
+                # one counted solve (its result is checked below), then the
+                # timed solves, whose launches are not read
+                out = counted(f"{fn.__name__} {FULL_N}x{FULL_N} k={k}",
+                              only(name, full.iters // k),
+                              lambda fn=fn, k=k: fn(u, *args, k=k))
+                outs.append((name, k, out))
+                ms = core.time_fn(lambda v, fn=fn, k=k: fn(v, *args, k=k), u,
+                                  warmup=1, iters=2) / full.iters
+                # one launch runs k steps: it reads and writes the grid once
+                # and does k steps' arithmetic
+                launch = roofline.Cost(step.nbytes, step.flops * k)
+                b_ms, b_by = roofline.bound_ms(launch, peak, torch.float32)
+                gbs = step.gbs(ms)
+                timings[name].append({"k": k, "ms": ms, "bound_ms": b_ms / k,
+                                      "bound_by": b_by, "gbs": gbs})
+                att = roofline.attribute(gbs, step.gflops(ms), device=kind)
+                plan = sp.launch_plan(u, 1, k, full.order)
+                per_sm, regs, local = _kernels.heat_ksteps_occupancy(
+                    dev, 4, full.order, k, plan.smem)
+                timings[name][-1].update(
+                    tile=f"{plan.tile_y}x{plan.tile_x}", threads=plan.threads,
+                    grid=list(plan.grid), blocks_per_sm=per_sm, registers=regs,
+                    local_bytes=local)
+                print(f"full {name:<10} k={k}: {ms:.6f} ms/iter, {gbs:.1f} GB/s "
+                      f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), "
+                      f"bound {b_ms / k:.6f} ms/iter by {b_by}; tile "
+                      f"{plan.tile_y}x{plan.tile_x}, {plan.threads} threads, "
+                      f"grid {plan.grid}, {per_sm} blocks/SM, {regs} registers, "
+                      f"{local} B local (spills)")
+        n_plain = 10
+        plain_ms = core.time_fn(
+            lambda v: ops.run_heat_pipeline_plain(v, n_plain, *args[1:], k=1),
+            u, warmup=1, iters=2) / n_plain
+        torch_ms = core.time_fn(lambda v: ops.run_heat(v, n_plain, *args[1:4]),
+                                u, warmup=1, iters=2) / n_plain
+        ref = ops.run_heat(u, *args[:4])
+        for name, k, out in outs:
+            ulp, err = max_errors(out, ref, limit=0)
+            note(name, ulp, err)
+            print(f"  vs run_heat: {name:<10} k={k} {FULL_ITERS} iters: "
+                  f"max ULP {ulp}, max |err| {err:.3g}")
 
-    def scan_note(name, got, ref, label):
-        got, ref = got.cpu().numpy(), ref.cpu().numpy()
-        if not np.isfinite(ref).all():
-            fail(f"{label}: the plain version is not finite")
-        ulp = int(core.ulp_distance(got, ref).max())
-        err = float(np.abs(got.astype(np.float64) - ref).max())
-        print(f"  vs plain: {label}: max ULP {ulp}, max |err| {err:.3g}")
-        if ulp > 0:
-            fail(f"{label}: {ulp} ULP from the plain version (limit 0)")
-        scan_ulp[name] = max(scan_ulp[name], ulp)
-        scan_err[name] = max(scan_err[name], err)
+        torch.backends.cudnn.allow_tf32 = False
 
-    tile = segp.TILE
-    rng = np.random.default_rng(2)
-    for n in (1, 31, tile - 1, tile, tile + 1, 3 * tile + 5, 100_003,
-              1 << 22):
-        v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-        xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
-        v, xx = v.to(dev), xx.to(dev)
-        for heads in ("one", "every", "tile-edges", "random"):
-            f = np.zeros(n, np.int32)
-            if heads == "one":
-                f[0] = 1
-            elif heads == "every":
-                f[:] = 1
-            elif heads == "tile-edges":
-                f[::tile] = 1
-            else:
-                f[rng.random(n) < 0.02] = 1
-                f[0] = 1
-            f = torch.from_numpy(f).to(dev)
-            scan_note("segscan", segp.segmented_scan_pallas(v, f),
-                      segp.segmented_scan_pallas_plain(v, f),
-                      f"B6 n={n} heads={heads}")
-            for it in (1, 8):
-                scan_note("spmv_fused", segp.spmv_scan_pallas(v, xx, f, it),
-                          segp.spmv_scan_pallas_plain(v, xx, f, it),
-                          f"B7 n={n} heads={heads} N={it}")
-    # one head over 2^24 elements: 8192 tiles, the look-back's longest walks
-    n = 1 << 24
-    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-    xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
-    f = torch.zeros(n, dtype=torch.int32, device=dev)
-    f[0] = 1
-    scan_note("segscan", segp.segmented_scan_pallas(v, f),
-              segp.segmented_scan_pallas_plain(v, f), f"B6 n={n} heads=one")
-    scan_note("spmv_fused", segp.spmv_scan_pallas(v, xx, f, 2),
-              segp.spmv_scan_pallas_plain(v, xx, f, 2),
-              f"B7 n={n} heads=one N=2")
-    del v, xx, f
+        def cross_weight(p):
+            """``p``'s stencil step as a (1, 1, 2b+1, 2b+1) conv2d weight."""
+            b = p.border_size
+            w = torch.zeros(2 * b + 1, 2 * b + 1, dtype=torch.float32)
+            coeffs = torch.tensor(ops.STENCIL_COEFFS[p.order])
+            w[b, :] += coeffs * p.xcfl
+            w[:, b] += coeffs * p.ycfl
+            w[b, b] += 1.0
+            return w.to(dev)[None, None]
 
-    # ---------------------------------------------------- 8. full size: pwtk
-    prob = spmv.suite_problem(SUITE)
-    a, xx, flags, starts = spmv.problem_tensors(prob, device=dev)
-    n, n_it = prob.n, prob.iters
-    print(f"{SUITE}: n={n} p={prob.p} q={prob.q} N={n_it}")
-    ref64 = segp.spmv_scan_pallas_plain(a.double(), xx.double(), flags,
-                                        n_it).cpu().numpy()
-    it_cost = roofline.spmv_scan_cost(n, 1)
-    it_bound, it_by = roofline.bound_ms(it_cost, peak, torch.float32)
+        w = cross_weight(full)
+        conv = torch.nn.functional.conv2d
+        library_ms = core.time_fn(lambda v: conv(v[None, None], w), u,
+                                  warmup=2, iters=5)
+        print(f"plain version {plain_ms:.6f} ms/iter, ops.stencil.run_heat "
+              f"{torch_ms:.6f} ms/iter, conv2d yardstick {library_ms:.6f} ms")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+             "power.limit,temperature.gpu", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        print(f"card after the runs: {smi.stdout.strip()}")
 
-    def per_call_ms(fn, x, reps):
-        """Best of 2 timed runs of ``reps`` calls after one warm-up run
-        (CUDA events), per call."""
-        def run(v):
-            for _ in range(reps):
-                out = fn(v)
-            return out
-        return core.time_fn(run, x, warmup=1, iters=2) / reps
+        # ---------------------------------------------------- 5. SpMV example
+        phase(5)
+        with tempfile.TemporaryDirectory() as out_dir:
+            os.chdir(out_dir)  # the CLI writes b.txt and b_cpu.txt here
+            try:
+                if spmv.main(["spmv_scan", "gen", "a.txt", "x.txt"]) != 0:
+                    fail("spmv_scan gen")
+                gen = spmv.load_problem("a.txt", "x.txt")
+                for kernel, name in SCAN_KERNELS.items():
+                    buf = io.StringIO()
 
-    spmv_rows = {}
-    for kernel in ("pallas-fused", "pallas", "auto", "flat"):
-        label = f"run_spmv_scan {SUITE} {kernel}"
-        out = counted(label, only(SCAN_KERNELS.get(kernel), n_it + 1),
-                      lambda k=kernel: spmv.run_spmv_scan(prob, kernel=k,
-                                                          device=dev))
-        runner = spmv._build_runner(kernel, n_it)
-        ms = core.time_fn(lambda v, r=runner: r(v, xx, flags, starts), a,
-                          warmup=1, iters=2) / n_it
+                    def cli(kernel=kernel, buf=buf):
+                        with contextlib.redirect_stdout(buf):
+                            return spmv.main(["spmv_scan", "a.txt", "x.txt",
+                                              "cpu_check", f"--kernel={kernel}"])
+                    rc = counted(f"spmv_scan CLI gen n={gen.n} {kernel}",
+                                 only(name, gen.iters + 1 + scan_probe), cli)
+                    print(buf.getvalue(), end="")
+                    if rc != 0 or "Worked!" not in buf.getvalue():
+                        fail(f"spmv_scan CLI --kernel={kernel}: rc {rc}, no "
+                             f"'Worked!'")
+            finally:
+                os.chdir(cwd)
+
+        # ---------------------------------------------------- 6. dense2
+        phase(6)
+        d2 = dense2_problem(iters=10, seed=0)
+        for kernel, name in SCAN_KERNELS.items():
+            out = counted(f"run_spmv_scan dense2 {kernel}",
+                          only(name, d2.iters + 1),
+                          lambda k=kernel: spmv.run_spmv_scan(d2, kernel=k,
+                                                              device=dev))
+            errs = spmv.external_check(d2, out)
+            print(f"dense2 n={d2.n} p={d2.p} N={d2.iters} {kernel}: rel L2 "
+                  f"{errs['rel_l2']:.3e}, rel Linf {errs['rel_linf']:.3e}")
+            if not (np.isfinite(out).all() and errs["rel_l2"] <= 1e-4
+                    and errs["rel_linf"] <= 1e-3):
+                fail(f"dense2 {kernel}: external_check {errs}")
+
+        # ---------------------------------------------------- 7. scan vs plain
+        phase(7)
+        scan_ulp = dict.fromkeys(SCAN_KERNELS.values(), 0)
+        scan_err = dict.fromkeys(SCAN_KERNELS.values(), 0.0)
+
+        def scan_note(name, got, ref, label):
+            got, ref = got.cpu().numpy(), ref.cpu().numpy()
+            if not np.isfinite(ref).all():
+                fail(f"{label}: the plain version is not finite")
+            ulp = int(core.ulp_distance(got, ref).max())
+            err = float(np.abs(got.astype(np.float64) - ref).max())
+            print(f"  vs plain: {label}: max ULP {ulp}, max |err| {err:.3g}")
+            if ulp > 0:
+                fail(f"{label}: {ulp} ULP from the plain version (limit 0)")
+            scan_ulp[name] = max(scan_ulp[name], ulp)
+            scan_err[name] = max(scan_err[name], err)
+
+        tile = segp.TILE
+        rng = np.random.default_rng(2)
+        for n in (1, 31, tile - 1, tile, tile + 1, 3 * tile + 5, 100_003,
+                  1 << 22):
+            v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+            v, xx = v.to(dev), xx.to(dev)
+            for heads in ("one", "every", "tile-edges", "random"):
+                f = np.zeros(n, np.int32)
+                if heads == "one":
+                    f[0] = 1
+                elif heads == "every":
+                    f[:] = 1
+                elif heads == "tile-edges":
+                    f[::tile] = 1
+                else:
+                    f[rng.random(n) < 0.02] = 1
+                    f[0] = 1
+                f = torch.from_numpy(f).to(dev)
+                scan_note("segscan", segp.segmented_scan_pallas(v, f),
+                          segp.segmented_scan_pallas_plain(v, f),
+                          f"B6 n={n} heads={heads}")
+                for it in (1, 8):
+                    scan_note("spmv_fused", segp.spmv_scan_pallas(v, xx, f, it),
+                              segp.spmv_scan_pallas_plain(v, xx, f, it),
+                              f"B7 n={n} heads={heads} N={it}")
+        # one head over 2^24 elements: 8192 tiles, the look-back's longest walks
+        n = 1 << 24
+        v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+        f = torch.zeros(n, dtype=torch.int32, device=dev)
+        f[0] = 1
+        scan_note("segscan", segp.segmented_scan_pallas(v, f),
+                  segp.segmented_scan_pallas_plain(v, f), f"B6 n={n} heads=one")
+        scan_note("spmv_fused", segp.spmv_scan_pallas(v, xx, f, 2),
+                  segp.spmv_scan_pallas_plain(v, xx, f, 2),
+                  f"B7 n={n} heads=one N=2")
+        del v, xx, f
+
+        # ---------------------------------------------------- 8. full size: pwtk
+        phase(8)
+        prob = spmv.suite_problem(SUITE)
+        a, xx, flags, starts = spmv.problem_tensors(prob, device=dev)
+        n, n_it = prob.n, prob.iters
+        print(f"{SUITE}: n={n} p={prob.p} q={prob.q} N={n_it}")
+        ref64 = segp.spmv_scan_pallas_plain(a.double(), xx.double(), flags,
+                                            n_it).cpu().numpy()
+        it_cost = roofline.spmv_scan_cost(n, 1)
+        it_bound, it_by = roofline.bound_ms(it_cost, peak, torch.float32)
+
+        def per_call_ms(fn, x, reps):
+            """Best of 2 timed runs of ``reps`` calls after one warm-up run
+            (CUDA events), per call."""
+            def run(v):
+                for _ in range(reps):
+                    out = fn(v)
+                return out
+            return core.time_fn(run, x, warmup=1, iters=2) / reps
+
+        spmv_rows = {}
+        for kernel in ("pallas-fused", "pallas", "auto", "flat"):
+            label = f"run_spmv_scan {SUITE} {kernel}"
+            out = counted(label, only(SCAN_KERNELS.get(kernel), n_it + 1),
+                          lambda k=kernel: spmv.run_spmv_scan(prob, kernel=k,
+                                                              device=dev))
+            runner = spmv._build_runner(kernel, n_it)
+            ms = core.time_fn(lambda v, r=runner: r(v, xx, flags, starts), a,
+                              warmup=1, iters=2) / n_it
+            rel_l2 = relative_l2_error(ref64, out)
+            rel_linf = relative_linf_error(ref64, out)
+            gbs = it_cost.gbs(ms)
+            att = roofline.attribute(gbs, it_cost.gflops(ms), device=kind)
+            spmv_rows[kernel] = {"ms": ms, "gbs": gbs, "pct_peak": att["pct_peak"],
+                                 "bound_ms": it_bound, "bound_by": it_by,
+                                 "rel_l2_vs_f64": rel_l2,
+                                 "rel_linf_vs_f64": rel_linf}
+            print(f"full {SUITE} {kernel:<12}: {ms:.6f} ms/iter, {gbs:.1f} GB/s "
+                  f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), bound "
+                  f"{it_bound:.6f} ms/iter by {it_by}; vs f64 plain: rel L2 "
+                  f"{rel_l2:.3e}, rel Linf {rel_linf:.3e}")
+            tol_l2, tol_linf = PWTK_TOL[kernel]
+            if not (np.isfinite(out).all() and rel_l2 <= tol_l2
+                    and rel_linf <= tol_linf):
+                fail(f"{label}: rel L2 {rel_l2:.3e} / rel Linf {rel_linf:.3e} "
+                     f"from the f64 plain run (limits {tol_l2} / {tol_linf})")
+
+        w = a * xx  # B6's input on the pallas path's first iteration
+        scan_note("segscan", segp.segmented_scan_pallas(w, flags),
+                  segp.segmented_scan_pallas_plain(w, flags), f"B6 {SUITE} n={n}")
+        first = segp.spmv_scan_pallas(a, xx, flags, n_it)
+        scan_note("spmv_fused", first,
+                  segp.spmv_scan_pallas_plain(a, xx, flags, n_it),
+                  f"B7 {SUITE} n={n} N={n_it}")
+        for rep in range(3):
+            if not torch.equal(
+                    first.view(torch.int32),
+                    segp.spmv_scan_pallas(a, xx, flags, n_it).view(torch.int32)):
+                fail(f"B7 {SUITE}: solve {rep + 2} differs in bits from the "
+                     f"first")
+        print(f"B7 {SUITE}: three more solves bitwise equal to the first")
+        scan_cost = roofline.segmented_scan_cost(n)
+        b6_bound, b6_by = roofline.bound_ms(scan_cost, peak, torch.float32)
+        b6_ms = per_call_ms(lambda v: segp.segmented_scan_pallas(v, flags), w,
+                            n_it)
+        b6_plain_ms = per_call_ms(
+            lambda v: segp.segmented_scan_pallas_plain(v, flags), w, 3)
+        b7_plain_ms = per_call_ms(
+            lambda v: segp.spmv_scan_pallas_plain(v, xx, flags, 1), a, 3)
+        cumsum_ms = per_call_ms(lambda v: torch.cumsum(v, 0), a, n_it)
+        print(f"B6 alone {SUITE}: {b6_ms:.6f} ms/scan, "
+              f"{scan_cost.gbs(b6_ms):.1f} GB/s, bound {b6_bound:.6f} ms by "
+              f"{b6_by}; plain version {b6_plain_ms:.6f} ms/scan")
+        print(f"B7 plain version {SUITE}: {b7_plain_ms:.6f} ms/iter")
+        print(f"library_ms: null ({NO_LIBRARY})")
+        print(f"yardstick, not a segmented scan: torch.cumsum of {n} f32 "
+              f"{cumsum_ms:.6f} ms")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+             "power.limit,temperature.gpu", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        print(f"card after the runs: {smi.stdout.strip()}")
+
+        # ---------------------------------------------------- 9. B3 vs plain
+        phase(9)
+        local_ulp, local_err = 0, 0.0
+
+        def note_local(ulp, err):
+            nonlocal local_ulp, local_err
+            local_ulp = max(local_ulp, ulp)
+            local_err = max(local_err, err)
+
+        def shard_blocks(p, mesh, K, dtype, seed=0):
+            """{(yi, xi): (K-padded block, gy0, gx0)} as the distributed solve
+            assembles them on the card from a seeded interior of ``p``."""
+            y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+            rng = np.random.default_rng(seed)
+            u = dheat._pad_interior_for_mesh(
+                p.ic + rng.uniform(0, 1, (p.ny, p.nx)), p, y_size, x_size)
+            blocks = dheat._scatter(torch.from_numpy(u).to(dtype),
+                                    dheat._shard_devices(mesh, y_size, x_size),
+                                    ny_loc, nx_loc)
+            padded = dheat._assemble_padded(blocks, p, border=K)
+            b = p.border_size
+            return {(yi, xi): (padded[yi][xi], yi * ny_loc + b - K,
+                               xi * nx_loc + b - K)
+                    for yi in range(y_size) for xi in range(x_size)}
+
+        vdev = core.virtual_devices(DIST_SHARDS)
+        local_cases = {  # name: (ny, nx, mesh, shard)
+            "corner": (DIST_N, DIST_N, dist.make_mesh_2d(2, 2, devices=vdev),
+                       [(0, 0), (1, 1)]),
+            "edge": (DIST_N, DIST_N, dist.make_mesh_1d(4, devices=vdev),
+                     [(1, 0)]),
+            "interior": (2001, 2001,
+                         dist.make_mesh_2d(3, 3, devices=vdev * 3), [(1, 1)]),
+            "ghost": (1999, 2001, dist.make_mesh_2d(2, 2, devices=vdev),
+                      [(1, 1)])}
+        local_runs = [(order, k, torch.float32) for order in (2, 4, 8)
+                      for k in (1, 2, 3, 4, 8)] + [(8, 4, torch.float64),
+                                                   (2, 8, torch.float64),
+                                                   (4, 3, torch.float64)]
+        for seed, (order, k, dtype) in enumerate(local_runs):
+            for where, (ny, nx, mesh, shards) in local_cases.items():
+                p = config.SimParams(nx=nx, ny=ny, order=order, bc_top=1.5,
+                                     bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+                K = k * p.border_size
+                blocks = shard_blocks(p, mesh, K, dtype, seed)
+                for shard in shards:
+                    blk, gy0, gx0 = blocks[shard]
+                    args = (gy0, gx0, p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+                    got = sp.stencil_local_multistep(blk, *args, k=k)
+                    ref = sp.stencil_local_multistep_plain(blk, *args, k=k)
+                    ulp, err = max_errors(got[K:-K, K:-K], ref[K:-K, K:-K],
+                                          limit=0)
+                    note_local(ulp, err)
+                    print(f"  vs plain: local {where} {shard} of {ny}x{nx} "
+                          f"order {order} k={k} {str(dtype)[6:]}: max ULP {ulp}, "
+                          f"max |err| {err:.3g}")
+        # all nine shards of the 3x3 mesh (corner, edge, interior shards) in
+        # one launch
+        mesh3 = local_cases["interior"][2]
+        for order, k, dtype in [(8, 1, torch.float32), (8, 2, torch.float32),
+                                (4, 3, torch.float32), (2, 8, torch.float32),
+                                (8, 4, torch.float64)]:
+            p = config.SimParams(nx=2001, ny=2001, order=order, bc_top=1.5,
+                                 bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
+            K = k * p.border_size
+            blocks = shard_blocks(p, mesh3, K, dtype, seed=order + k)
+            pads = [blk for blk, _, _ in blocks.values()]
+            offs = [(gy0, gx0) for _, gy0, gx0 in blocks.values()]
+            args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+            before = sp.LAUNCHES["local"]
+            got = sp.stencil_local_multistep_shards(pads, offs, *args, k=k)
+            torch.cuda.synchronize()
+            if sp.LAUNCHES["local"] - before != 1:
+                fail(f"nine shards took {sp.LAUNCHES['local'] - before} launches")
+            ref = sp.stencil_local_multistep_shards_plain(pads, offs, *args, k=k)
+            worst = 0
+            for g, r in zip(got, ref):
+                ulp, err = max_errors(g[K:-K, K:-K], r[K:-K, K:-K], limit=0)
+                note_local(ulp, err)
+                worst = max(worst, ulp)
+            print(f"  vs plain: local, the 3x3 mesh's nine shards of 2001x2001 "
+                  f"in one launch, order {order} k={k} {str(dtype)[6:]}: max ULP "
+                  f"{worst}")
+
+        # ---------------------------------------------------- 10. hw5 full size
+        phase(10)
+        base = dict(nx=DIST_N, ny=DIST_N, order=8, iters=DIST_ITERS)
+        dist_p = config.SimParams(**base)
+        dist_ref = ops.run_heat(grid.make_initial_grid(dist_p, device=dev),
+                                DIST_ITERS, dist_p.order, dist_p.xcfl,
+                                dist_p.ycfl)
+        dist_step = roofline.heat_cost(DIST_N, DIST_N, order=8, iters=1)
+        dist_bound, dist_by = roofline.bound_ms(dist_step, peak, torch.float32)
+        method = {"1d": config.GridMethod.STRIPES_1D,
+                  "2d": config.GridMethod.BLOCKS_2D}
+        dist_rows = {}
+
+        def dist_path(label, out, kernel, timed):
+            """Hold ``out`` (the full halo grid) to ``run_heat`` (the ``pallas``
+            paths bit for bit) and time the same solve again through ``timed``
+            (an ``iterate``)."""
+            ulp, err = max_errors(torch.from_numpy(out), dist_ref,
+                                  limit=0 if kernel == "pallas" else MAX_ULPS)
+            if kernel == "pallas":
+                note_local(ulp, err)
+            seconds, _ = timed()
+            ms = seconds * 1e3 / DIST_ITERS
+            gbs = dist_step.gbs(ms)
+            att = roofline.attribute(gbs, dist_step.gflops(ms), device=kind)
+            dist_rows[label] = {"ms": ms, "gbs": gbs,
+                                "pct_peak": att["pct_peak"],
+                                "bound_ms": dist_bound, "bound_by": dist_by,
+                                "max_ulp_vs_run_heat": ulp}
+            print(f"{label}: {ms:.6f} ms/step, {gbs:.1f} GB/s "
+                  f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), bound "
+                  f"{dist_bound:.6f} ms/step by {dist_by}; vs run_heat: max "
+                  f"ULP {ulp}, max |err| {err:.3g}")
+
+        # the first gated use of pallas per (mesh shape, k, order) runs the
+        # gate's probe solve on that mesh
+        gated = set()
+
+        def dist_probe(mesh, k, order):
+            key = (mesh.devices.shape, k, order)
+            if key in gated:
+                return 0
+            gated.add(key)
+            return DIST_PROBE_LAUNCHES
+
+        for dim, sync, kernel in [("1d", True, "xla"), ("1d", False, "xla"),
+                                  ("2d", True, "xla"), ("2d", False, "xla"),
+                                  ("1d", True, "pallas"), ("2d", True, "pallas")]:
+            p = config.SimParams(**base, grid_method=method[dim],
+                                 synchronous=sync)
+            label = (f"run_distributed {DIST_N}x{DIST_N} {dim} "
+                     f"{'sync' if sync else 'async'} {kernel}")
+            # one launch a device a step: the four shards share the card
+            n_local = DIST_ITERS + dist_probe(
+                dist.mesh_for_method(p.grid_method, devices=vdev), 1,
+                p.order) if kernel == "pallas" else 0
+            out = counted(label, only("local", n_local),
+                          lambda p=p, kernel=kernel: heat2d.run_distributed(
+                              p, local_kernel=kernel, devices=vdev))
+            mesh = dist.mesh_for_method(p.grid_method, devices=vdev)
+            iterate, _, _ = dist.prepare_distributed_heat(p, mesh,
+                                                          local_kernel=kernel)
+            dist_path(label, out, kernel, iterate)
+        mesh2d = dist.make_mesh_2d(2, 2, devices=vdev)
+        mesh1 = dist.make_mesh_1d(1, devices=[dev])
+        for mesh, k, kernel in [(mesh2d, 2, "xla"), (mesh2d, 4, "xla"),
+                                (mesh2d, 2, "pallas"), (mesh2d, 4, "pallas"),
+                                (mesh1, 1, "pallas")]:
+            devices = len(set(mesh.devices.flat))
+            label = (f"run_distributed_heat {DIST_N}x{DIST_N} "
+                     f"{'x'.join(map(str, mesh.devices.shape))} {kernel} k={k}")
+            n_local = devices * DIST_ITERS // k + dist_probe(
+                mesh, k, dist_p.order) if kernel == "pallas" else 0
+            out = counted(label, only("local", n_local),
+                          lambda mesh=mesh, k=k, kernel=kernel:
+                          dist.run_distributed_heat(
+                              dist_p, mesh, steps_per_exchange=k,
+                              local_kernel=kernel))
+            iterate, _, k_used = dist.prepare_distributed_heat(
+                dist_p, mesh, steps_per_exchange=k, local_kernel=kernel)
+            if k_used != k:
+                fail(f"{label}: ran k={k_used}")
+            dist_path(label, out, kernel, iterate)
+
+        # B3 alone on the 2-D path's four padded blocks, per step: the batched
+        # call, and for the record the loop of four single-shard calls
+        local_timing = []
+        for k in (1, 2, 4):
+            K = k * dist_p.border_size
+            blocks = list(shard_blocks(dist_p, mesh2d, K,
+                                       torch.float32).values())
+            pads = [blk for blk, _, _ in blocks]
+            offs = [(gy0, gx0) for _, gy0, gx0 in blocks]
+            args = (dist_p.ny, dist_p.nx, dist_p.order, dist_p.xcfl,
+                    dist_p.ycfl, dist_p.bc)
+
+            def batched(_, pads=pads, offs=offs, k=k):
+                return sp.stencil_local_multistep_shards(pads, offs, *args, k=k)
+
+            def per_shard(_, blocks=blocks, k=k):
+                return [sp.stencil_local_multistep(blk, gy0, gx0, *args, k=k)
+                        for blk, gy0, gx0 in blocks]
+
+            ms = per_call_ms(batched, pads[0], 200) / k
+            loop_ms = per_call_ms(per_shard, pads[0], 200) / k
+            nbytes = sum(2 * blk.numel() * blk.element_size() for blk in pads)
+            cost = roofline.Cost(nbytes, ops.flops_per_point(dist_p.order) * k
+                                 * DIST_N * DIST_N)
+            b_ms, b_by = roofline.bound_ms(cost, peak, torch.float32)
+            plan = sp.launch_plan(pads[0], len(pads), k, dist_p.order)
+            local_timing.append({"k": k, "ms": ms, "per_shard_loop_ms": loop_ms,
+                                 "bound_ms": b_ms / k, "bound_by": b_by,
+                                 "gbs": dist_step.gbs(ms),
+                                 "tile": f"{plan.tile_y}x{plan.tile_x}",
+                                 "grid": list(plan.grid),
+                                 "blocks_per_sm": plan.blocks_per_sm})
+            print(f"B3 alone, 2x2 blocks of {DIST_N}x{DIST_N} k={k}: batched "
+                  f"{ms:.6f} ms/step (one launch, grid {plan.grid}, "
+                  f"{plan.blocks_per_sm} blocks/SM), loop of four calls "
+                  f"{loop_ms:.6f} ms/step; bound {b_ms / k:.6f} ms/step by "
+                  f"{b_by}")
+            if k == 1:
+                local_plain_ms = per_call_ms(
+                    lambda _: sp.stencil_local_multistep_shards_plain(
+                        pads, offs, *args, k=1), pads[0], 5)
+                w_dist = cross_weight(dist_p)
+                local_library_ms = per_call_ms(
+                    lambda _: [conv(blk[None, None], w_dist) for blk in pads],
+                    pads[0], 20)
+        print(f"B3 plain version {local_plain_ms:.6f} ms/step, conv2d "
+              f"yardstick over the 4 padded blocks {local_library_ms:.6f} ms")
+
+        # the device's idle share of the 2-D pallas path's step loop
+        idle = dist_idle_share(dheat, config, dist, torch, vdev, DIST_N)
+        print(f"idle share, run_distributed {DIST_N}x{DIST_N} 2d sync pallas: "
+              f"{json.dumps(idle)}")
+
+        # the CLI: a 1x1 mesh of the physical card; the grid it computes is
+        # caught on its way to the dumps
+        params_dist = os.path.join(HERE, "examples", "params_dist.in")
+        cli_p = config.SimParams.from_file(params_dist, distributed=True)
+        caught = {}
+        run_distributed = heat2d.run_distributed
+
+        def catch(*a, **kw):
+            caught["out"] = run_distributed(*a, **kw)
+            return caught["out"]
+
+        with tempfile.TemporaryDirectory() as out_dir:
+            os.chdir(out_dir)
+            heat2d.run_distributed = catch
+            try:
+                cli_mesh = dist.mesh_for_method(cli_p.grid_method)
+                rc = counted(f"heat2d CLI --distributed pallas {cli_p.nx}x"
+                             f"{cli_p.ny}", only("local", cli_p.iters
+                                                 * torch.cuda.device_count()
+                                                 + dist_probe(cli_mesh, 1,
+                                                              cli_p.order)),
+                             lambda: heat2d.main(["heat2d", params_dist,
+                                                  "--distributed",
+                                                  "--local-kernel=pallas"]))
+                dumps = sorted(os.listdir(out_dir))
+            finally:
+                heat2d.run_distributed = run_distributed
+                os.chdir(cwd)
+        # a shard a card: one card here, four on a machine with four
+        want_dumps = sorted([f"grid{i}_final.txt" for i in range(
+            torch.cuda.device_count())] + ["grid_final.txt", "grid_init.txt"])
+        if rc != 0 or dumps != want_dumps:
+            fail(f"heat2d --distributed CLI: rc {rc}, dumps {dumps}")
+        cli_ref = ops.run_heat(grid.make_initial_grid(cli_p, device=dev),
+                               cli_p.iters, cli_p.order, cli_p.xcfl, cli_p.ycfl)
+        ulp, err = max_errors(torch.from_numpy(caught["out"]), cli_ref)
+        note_local(ulp, err)
+        print(f"heat2d CLI --distributed --local-kernel=pallas: dumps {dumps}, "
+              f"vs run_heat max ULP {ulp}, max |err| {err:.3g}")
+
+        # ---------------------------------------------------- 11. sharded pwtk
+        phase(11)
+        timer = core.PhaseTimer()
+        label = f"run_spmv_scan_distributed {SUITE} {DIST_SHARDS} shards"
+        out = counted(label, only(None, 0),
+                      lambda: spmv.run_spmv_scan_distributed(
+                          prob, dist.make_mesh_1d(devices=vdev), timer=timer))
+        dist_scan_ms = timer.last_ms("spmv_scan_distributed") / n_it
         rel_l2 = relative_l2_error(ref64, out)
         rel_linf = relative_linf_error(ref64, out)
-        gbs = it_cost.gbs(ms)
-        att = roofline.attribute(gbs, it_cost.gflops(ms), device=kind)
-        spmv_rows[kernel] = {"ms": ms, "gbs": gbs, "pct_peak": att["pct_peak"],
-                             "bound_ms": it_bound, "bound_by": it_by,
-                             "rel_l2_vs_f64": rel_l2,
-                             "rel_linf_vs_f64": rel_linf}
-        print(f"full {SUITE} {kernel:<12}: {ms:.6f} ms/iter, {gbs:.1f} GB/s "
-              f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), bound "
-              f"{it_bound:.6f} ms/iter by {it_by}; vs f64 plain: rel L2 "
-              f"{rel_l2:.3e}, rel Linf {rel_linf:.3e}")
-        tol_l2, tol_linf = PWTK_TOL[kernel]
+        print(f"{label}: {dist_scan_ms:.6f} ms/iter (host clock after a sync), "
+              f"vs f64 plain: rel L2 {rel_l2:.3e}, rel Linf {rel_linf:.3e}")
+        tol_l2, tol_linf = PWTK_TOL["auto"]
         if not (np.isfinite(out).all() and rel_l2 <= tol_l2
                 and rel_linf <= tol_linf):
             fail(f"{label}: rel L2 {rel_l2:.3e} / rel Linf {rel_linf:.3e} "
-                 f"from the f64 plain run (limits {tol_l2} / {tol_linf})")
+                 f"(limits {tol_l2} / {tol_linf})")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+             "power.limit,temperature.gpu", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        print(f"card after the runs: {smi.stdout.strip()}")
 
-    w = a * xx  # B6's input on the pallas path's first iteration
-    scan_note("segscan", segp.segmented_scan_pallas(w, flags),
-              segp.segmented_scan_pallas_plain(w, flags), f"B6 {SUITE} n={n}")
-    first = segp.spmv_scan_pallas(a, xx, flags, n_it)
-    scan_note("spmv_fused", first,
-              segp.spmv_scan_pallas_plain(a, xx, flags, n_it),
-              f"B7 {SUITE} n={n} N={n_it}")
-    for rep in range(3):
-        if not torch.equal(
-                first.view(torch.int32),
-                segp.spmv_scan_pallas(a, xx, flags, n_it).view(torch.int32)):
-            fail(f"B7 {SUITE}: solve {rep + 2} differs in bits from the "
-                 f"first")
-    print(f"B7 {SUITE}: three more solves bitwise equal to the first")
-    scan_cost = roofline.segmented_scan_cost(n)
-    b6_bound, b6_by = roofline.bound_ms(scan_cost, peak, torch.float32)
-    b6_ms = per_call_ms(lambda v: segp.segmented_scan_pallas(v, flags), w,
-                        n_it)
-    b6_plain_ms = per_call_ms(
-        lambda v: segp.segmented_scan_pallas_plain(v, flags), w, 3)
-    b7_plain_ms = per_call_ms(
-        lambda v: segp.spmv_scan_pallas_plain(v, xx, flags, 1), a, 3)
-    cumsum_ms = per_call_ms(lambda v: torch.cumsum(v, 0), a, n_it)
-    print(f"B6 alone {SUITE}: {b6_ms:.6f} ms/scan, "
-          f"{scan_cost.gbs(b6_ms):.1f} GB/s, bound {b6_bound:.6f} ms by "
-          f"{b6_by}; plain version {b6_plain_ms:.6f} ms/scan")
-    print(f"B7 plain version {SUITE}: {b7_plain_ms:.6f} ms/iter")
-    print(f"library_ms: null ({NO_LIBRARY})")
-    print(f"yardstick, not a segmented scan: torch.cumsum of {n} f32 "
-          f"{cumsum_ms:.6f} ms")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
-         "power.limit,temperature.gpu", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    print(f"card after the runs: {smi.stdout.strip()}")
+        # ---------------------------------------------------- 12. B4/B5 vs plain
+        phase(12)
+        band_ulp = {"stencil_full": 0, "multistep": 0}
+        band_err = {"stencil_full": 0.0, "multistep": 0.0}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    # ---------------------------------------------------- 9. B3 vs plain
-    local_ulp, local_err = 0, 0.0
+        def band_note(name, got, ref, label):
+            ulp, err = max_errors(got, ref, limit=0)
+            band_ulp[name] = max(band_ulp[name], ulp)
+            band_err[name] = max(band_err[name], err)
+            print(f"  vs plain: {label}: max ULP {ulp}, max |err| {err:.3g}")
 
-    def note_local(ulp, err):
-        nonlocal local_ulp, local_err
-        local_ulp = max(local_ulp, ulp)
-        local_err = max(local_err, err)
+        def band_plan(u, order, k, tile):
+            """The launch plan of the band kernel for grid ``u`` and what the
+            card says of its instance, as a dict and a printable line."""
+            plan = spl.launch_plan(u, k, order, tile)
+            per_sm, regs, local = _kernels.heat_band_occupancy(
+                dev, u.element_size(), order, k, plan.smem)
+            blocks = plan.grid[0] * plan.grid[1]
+            row = {"tile": f"{plan.tile_y}x{plan.tile_x}",
+                   "threads": plan.threads, "rows": plan.rows,
+                   "nbuf": plan.nbuf, "run": plan.run, "grid": list(plan.grid),
+                   "smem": plan.smem, "blocks_per_sm": per_sm,
+                   "registers": regs, "local_bytes": local,
+                   "waves": blocks / (sms * max(1, per_sm))}
+            line = (f"TX {plan.tile_x}, {plan.threads} threads, R {plan.rows}, "
+                    f"nbuf {plan.nbuf}, run {plan.run}, grid {plan.grid}, smem "
+                    f"{plan.smem} B, {per_sm} blocks/SM, {regs} registers, "
+                    f"{local} B local (spills), {row['waves']:.2f} waves")
+            if local:
+                fail(f"band kernel spills at order {order} k={k} tile {tile}: "
+                     f"{line}")
+            return row, line
 
-    def shard_blocks(p, mesh, K, dtype, seed=0):
-        """{(yi, xi): (K-padded block, gy0, gx0)} as the distributed solve
-        assembles them on the card from a seeded interior of ``p``."""
-        y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
-        rng = np.random.default_rng(seed)
-        u = dheat._pad_interior_for_mesh(
-            p.ic + rng.uniform(0, 1, (p.ny, p.nx)), p, y_size, x_size)
-        blocks = dheat._scatter(torch.from_numpy(u).to(dtype),
-                                dheat._shard_devices(mesh, y_size, x_size),
-                                ny_loc, nx_loc)
-        padded = dheat._assemble_padded(blocks, p, border=K)
-        b = p.border_size
-        return {(yi, xi): (padded[yi][xi], yi * ny_loc + b - K,
-                           xi * nx_loc + b - K)
-                for yi in range(y_size) for xi in range(x_size)}
-
-    vdev = core.virtual_devices(DIST_SHARDS)
-    local_cases = {  # name: (ny, nx, mesh, shard)
-        "corner": (DIST_N, DIST_N, dist.make_mesh_2d(2, 2, devices=vdev),
-                   [(0, 0), (1, 1)]),
-        "edge": (DIST_N, DIST_N, dist.make_mesh_1d(4, devices=vdev),
-                 [(1, 0)]),
-        "interior": (2001, 2001,
-                     dist.make_mesh_2d(3, 3, devices=vdev * 3), [(1, 1)]),
-        "ghost": (1999, 2001, dist.make_mesh_2d(2, 2, devices=vdev),
-                  [(1, 1)])}
-    local_runs = [(order, k, torch.float32) for order in (2, 4, 8)
-                  for k in (1, 2, 3, 4, 8)] + [(8, 4, torch.float64),
-                                               (2, 8, torch.float64),
-                                               (4, 3, torch.float64)]
-    for seed, (order, k, dtype) in enumerate(local_runs):
-        for where, (ny, nx, mesh, shards) in local_cases.items():
-            p = config.SimParams(nx=nx, ny=ny, order=order, bc_top=1.5,
+        def band_case(n_y, n_x, order, k, tile, dtype, seed):
+            p = config.SimParams(nx=n_x, ny=n_y, order=order, bc_top=1.5,
                                  bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
-            K = k * p.border_size
-            blocks = shard_blocks(p, mesh, K, dtype, seed)
-            for shard in shards:
-                blk, gy0, gx0 = blocks[shard]
-                args = (gy0, gx0, p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
-                got = sp.stencil_local_multistep(blk, *args, k=k)
-                ref = sp.stencil_local_multistep_plain(blk, *args, k=k)
-                ulp, err = max_errors(got[K:-K, K:-K], ref[K:-K, K:-K],
-                                      limit=0)
-                note_local(ulp, err)
-                print(f"  vs plain: local {where} {shard} of {ny}x{nx} "
-                      f"order {order} k={k} {str(dtype)[6:]}: max ULP {ulp}, "
-                      f"max |err| {err:.3g}")
-    # all nine shards of the 3x3 mesh (corner, edge, interior shards) in
-    # one launch
-    mesh3 = local_cases["interior"][2]
-    for order, k, dtype in [(8, 1, torch.float32), (8, 2, torch.float32),
-                            (4, 3, torch.float32), (2, 8, torch.float32),
-                            (8, 4, torch.float64)]:
-        p = config.SimParams(nx=2001, ny=2001, order=order, bc_top=1.5,
-                             bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
-        K = k * p.border_size
-        blocks = shard_blocks(p, mesh3, K, dtype, seed=order + k)
-        pads = [blk for blk, _, _ in blocks.values()]
-        offs = [(gy0, gx0) for _, gy0, gx0 in blocks.values()]
-        args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
-        before = sp.LAUNCHES["local"]
-        got = sp.stencil_local_multistep_shards(pads, offs, *args, k=k)
-        torch.cuda.synchronize()
-        if sp.LAUNCHES["local"] - before != 1:
-            fail(f"nine shards took {sp.LAUNCHES['local'] - before} launches")
-        ref = sp.stencil_local_multistep_shards_plain(pads, offs, *args, k=k)
-        worst = 0
-        for g, r in zip(got, ref):
-            ulp, err = max_errors(g[K:-K, K:-K], r[K:-K, K:-K], limit=0)
-            note_local(ulp, err)
-            worst = max(worst, ulp)
-        print(f"  vs plain: local, the 3x3 mesh's nine shards of 2001x2001 "
-              f"in one launch, order {order} k={k} {str(dtype)[6:]}: max ULP "
-              f"{worst}")
-
-    # ---------------------------------------------------- 10. hw5 full size
-    base = dict(nx=DIST_N, ny=DIST_N, order=8, iters=DIST_ITERS)
-    dist_p = config.SimParams(**base)
-    dist_ref = ops.run_heat(grid.make_initial_grid(dist_p, device=dev),
-                            DIST_ITERS, dist_p.order, dist_p.xcfl,
-                            dist_p.ycfl)
-    dist_step = roofline.heat_cost(DIST_N, DIST_N, order=8, iters=1)
-    dist_bound, dist_by = roofline.bound_ms(dist_step, peak, torch.float32)
-    method = {"1d": config.GridMethod.STRIPES_1D,
-              "2d": config.GridMethod.BLOCKS_2D}
-    dist_rows = {}
-
-    def dist_path(label, out, kernel, timed):
-        """Hold ``out`` (the full halo grid) to ``run_heat`` (the ``pallas``
-        paths bit for bit) and time the same solve again through ``timed``
-        (an ``iterate``)."""
-        ulp, err = max_errors(torch.from_numpy(out), dist_ref,
-                              limit=0 if kernel == "pallas" else MAX_ULPS)
-        if kernel == "pallas":
-            note_local(ulp, err)
-        seconds, _ = timed()
-        ms = seconds * 1e3 / DIST_ITERS
-        gbs = dist_step.gbs(ms)
-        att = roofline.attribute(gbs, dist_step.gflops(ms), device=kind)
-        dist_rows[label] = {"ms": ms, "gbs": gbs,
-                            "pct_peak": att["pct_peak"],
-                            "bound_ms": dist_bound, "bound_by": dist_by,
-                            "max_ulp_vs_run_heat": ulp}
-        print(f"{label}: {ms:.6f} ms/step, {gbs:.1f} GB/s "
-              f"({att['pct_peak']}% of {peak.gbs:.0f} GB/s), bound "
-              f"{dist_bound:.6f} ms/step by {dist_by}; vs run_heat: max "
-              f"ULP {ulp}, max |err| {err:.3g}")
-
-    # the first gated use of pallas per (mesh shape, k, order) runs the
-    # gate's probe solve on that mesh
-    gated = set()
-
-    def dist_probe(mesh, k, order):
-        key = (mesh.devices.shape, k, order)
-        if key in gated:
-            return 0
-        gated.add(key)
-        return DIST_PROBE_LAUNCHES
-
-    for dim, sync, kernel in [("1d", True, "xla"), ("1d", False, "xla"),
-                              ("2d", True, "xla"), ("2d", False, "xla"),
-                              ("1d", True, "pallas"), ("2d", True, "pallas")]:
-        p = config.SimParams(**base, grid_method=method[dim],
-                             synchronous=sync)
-        label = (f"run_distributed {DIST_N}x{DIST_N} {dim} "
-                 f"{'sync' if sync else 'async'} {kernel}")
-        # one launch a device a step: the four shards share the card
-        n_local = DIST_ITERS + dist_probe(
-            dist.mesh_for_method(p.grid_method, devices=vdev), 1,
-            p.order) if kernel == "pallas" else 0
-        out = counted(label, only("local", n_local),
-                      lambda p=p, kernel=kernel: heat2d.run_distributed(
-                          p, local_kernel=kernel, devices=vdev))
-        mesh = dist.mesh_for_method(p.grid_method, devices=vdev)
-        iterate, _, _ = dist.prepare_distributed_heat(p, mesh,
-                                                      local_kernel=kernel)
-        dist_path(label, out, kernel, iterate)
-    mesh2d = dist.make_mesh_2d(2, 2, devices=vdev)
-    mesh1 = dist.make_mesh_1d(1, devices=[dev])
-    for mesh, k, kernel in [(mesh2d, 2, "xla"), (mesh2d, 4, "xla"),
-                            (mesh2d, 2, "pallas"), (mesh2d, 4, "pallas"),
-                            (mesh1, 1, "pallas")]:
-        devices = len(set(mesh.devices.flat))
-        label = (f"run_distributed_heat {DIST_N}x{DIST_N} "
-                 f"{'x'.join(map(str, mesh.devices.shape))} {kernel} k={k}")
-        n_local = devices * DIST_ITERS // k + dist_probe(
-            mesh, k, dist_p.order) if kernel == "pallas" else 0
-        out = counted(label, only("local", n_local),
-                      lambda mesh=mesh, k=k, kernel=kernel:
-                      dist.run_distributed_heat(
-                          dist_p, mesh, steps_per_exchange=k,
-                          local_kernel=kernel))
-        iterate, _, k_used = dist.prepare_distributed_heat(
-            dist_p, mesh, steps_per_exchange=k, local_kernel=kernel)
-        if k_used != k:
-            fail(f"{label}: ran k={k_used}")
-        dist_path(label, out, kernel, iterate)
-
-    # B3 alone on the 2-D path's four padded blocks, per step: the batched
-    # call, and for the record the loop of four single-shard calls
-    local_timing = []
-    for k in (1, 2, 4):
-        K = k * dist_p.border_size
-        blocks = list(shard_blocks(dist_p, mesh2d, K,
-                                   torch.float32).values())
-        pads = [blk for blk, _, _ in blocks]
-        offs = [(gy0, gx0) for _, gy0, gx0 in blocks]
-        args = (dist_p.ny, dist_p.nx, dist_p.order, dist_p.xcfl,
-                dist_p.ycfl, dist_p.bc)
-
-        def batched(_, pads=pads, offs=offs, k=k):
-            return sp.stencil_local_multistep_shards(pads, offs, *args, k=k)
-
-        def per_shard(_, blocks=blocks, k=k):
-            return [sp.stencil_local_multistep(blk, gy0, gx0, *args, k=k)
-                    for blk, gy0, gx0 in blocks]
-
-        ms = per_call_ms(batched, pads[0], 200) / k
-        loop_ms = per_call_ms(per_shard, pads[0], 200) / k
-        nbytes = sum(2 * blk.numel() * blk.element_size() for blk in pads)
-        cost = roofline.Cost(nbytes, ops.flops_per_point(dist_p.order) * k
-                             * DIST_N * DIST_N)
-        b_ms, b_by = roofline.bound_ms(cost, peak, torch.float32)
-        plan = sp.launch_plan(pads[0], len(pads), k, dist_p.order)
-        local_timing.append({"k": k, "ms": ms, "per_shard_loop_ms": loop_ms,
-                             "bound_ms": b_ms / k, "bound_by": b_by,
-                             "gbs": dist_step.gbs(ms),
-                             "tile": f"{plan.tile_y}x{plan.tile_x}",
-                             "grid": list(plan.grid),
-                             "blocks_per_sm": plan.blocks_per_sm})
-        print(f"B3 alone, 2x2 blocks of {DIST_N}x{DIST_N} k={k}: batched "
-              f"{ms:.6f} ms/step (one launch, grid {plan.grid}, "
-              f"{plan.blocks_per_sm} blocks/SM), loop of four calls "
-              f"{loop_ms:.6f} ms/step; bound {b_ms / k:.6f} ms/step by "
-              f"{b_by}")
-        if k == 1:
-            local_plain_ms = per_call_ms(
-                lambda _: sp.stencil_local_multistep_shards_plain(
-                    pads, offs, *args, k=1), pads[0], 5)
-            w_dist = cross_weight(dist_p)
-            local_library_ms = per_call_ms(
-                lambda _: [conv(blk[None, None], w_dist) for blk in pads],
-                pads[0], 20)
-    print(f"B3 plain version {local_plain_ms:.6f} ms/step, conv2d "
-          f"yardstick over the 4 padded blocks {local_library_ms:.6f} ms")
-
-    # the device's idle share of the 2-D pallas path's step loop
-    idle = dist_idle_share(dheat, config, dist, torch, vdev, DIST_N)
-    print(f"idle share, run_distributed {DIST_N}x{DIST_N} 2d sync pallas: "
-          f"{json.dumps(idle)}")
-
-    # the CLI: a 1x1 mesh of the physical card; the grid it computes is
-    # caught on its way to the dumps
-    params_dist = os.path.join(HERE, "examples", "params_dist.in")
-    cli_p = config.SimParams.from_file(params_dist, distributed=True)
-    caught = {}
-    run_distributed = heat2d.run_distributed
-
-    def catch(*a, **kw):
-        caught["out"] = run_distributed(*a, **kw)
-        return caught["out"]
-
-    with tempfile.TemporaryDirectory() as out_dir:
-        os.chdir(out_dir)
-        heat2d.run_distributed = catch
-        try:
-            cli_mesh = dist.mesh_for_method(cli_p.grid_method)
-            rc = counted(f"heat2d CLI --distributed pallas {cli_p.nx}x"
-                         f"{cli_p.ny}", only("local", cli_p.iters
-                                             * torch.cuda.device_count()
-                                             + dist_probe(cli_mesh, 1,
-                                                          cli_p.order)),
-                         lambda: heat2d.main(["heat2d", params_dist,
-                                              "--distributed",
-                                              "--local-kernel=pallas"]))
-            dumps = sorted(os.listdir(out_dir))
-        finally:
-            heat2d.run_distributed = run_distributed
-            os.chdir(cwd)
-    if rc != 0 or dumps != ["grid0_final.txt", "grid_final.txt",
-                            "grid_init.txt"]:
-        fail(f"heat2d --distributed CLI: rc {rc}, dumps {dumps}")
-    cli_ref = ops.run_heat(grid.make_initial_grid(cli_p, device=dev),
-                           cli_p.iters, cli_p.order, cli_p.xcfl, cli_p.ycfl)
-    ulp, err = max_errors(torch.from_numpy(caught["out"]), cli_ref)
-    note_local(ulp, err)
-    print(f"heat2d CLI --distributed --local-kernel=pallas: dumps {dumps}, "
-          f"vs run_heat max ULP {ulp}, max |err| {err:.3g}")
-
-    # ---------------------------------------------------- 11. sharded pwtk
-    timer = core.PhaseTimer()
-    label = f"run_spmv_scan_distributed {SUITE} {DIST_SHARDS} shards"
-    out = counted(label, only(None, 0),
-                  lambda: spmv.run_spmv_scan_distributed(
-                      prob, dist.make_mesh_1d(devices=vdev), timer=timer))
-    dist_scan_ms = timer.last_ms("spmv_scan_distributed") / n_it
-    rel_l2 = relative_l2_error(ref64, out)
-    rel_linf = relative_linf_error(ref64, out)
-    print(f"{label}: {dist_scan_ms:.6f} ms/iter (host clock after a sync), "
-          f"vs f64 plain: rel L2 {rel_l2:.3e}, rel Linf {rel_linf:.3e}")
-    tol_l2, tol_linf = PWTK_TOL["auto"]
-    if not (np.isfinite(out).all() and rel_l2 <= tol_l2
-            and rel_linf <= tol_linf):
-        fail(f"{label}: rel L2 {rel_l2:.3e} / rel Linf {rel_linf:.3e} "
-             f"(limits {tol_l2} / {tol_linf})")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
-         "power.limit,temperature.gpu", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    print(f"card after the runs: {smi.stdout.strip()}")
-
-    # ---------------------------------------------------- 12. B4/B5 vs plain
-    band_ulp = {"stencil_full": 0, "multistep": 0}
-    band_err = {"stencil_full": 0.0, "multistep": 0.0}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def band_note(name, got, ref, label):
-        ulp, err = max_errors(got, ref, limit=0)
-        band_ulp[name] = max(band_ulp[name], ulp)
-        band_err[name] = max(band_err[name], err)
-        print(f"  vs plain: {label}: max ULP {ulp}, max |err| {err:.3g}")
-
-    def band_plan(u, order, k, tile):
-        """The launch plan of the band kernel for grid ``u`` and what the
-        card says of its instance, as a dict and a printable line."""
-        plan = spl.launch_plan(u, k, order, tile)
-        per_sm, regs, local = _kernels.heat_band_occupancy(
-            dev, u.element_size(), order, k, plan.smem)
-        blocks = plan.grid[0] * plan.grid[1]
-        row = {"tile": f"{plan.tile_y}x{plan.tile_x}",
-               "threads": plan.threads, "rows": plan.rows,
-               "nbuf": plan.nbuf, "run": plan.run, "grid": list(plan.grid),
-               "smem": plan.smem, "blocks_per_sm": per_sm,
-               "registers": regs, "local_bytes": local,
-               "waves": blocks / (sms * max(1, per_sm))}
-        line = (f"TX {plan.tile_x}, {plan.threads} threads, R {plan.rows}, "
-                f"nbuf {plan.nbuf}, run {plan.run}, grid {plan.grid}, smem "
-                f"{plan.smem} B, {per_sm} blocks/SM, {regs} registers, "
-                f"{local} B local (spills), {row['waves']:.2f} waves")
-        if local:
-            fail(f"band kernel spills at order {order} k={k} tile {tile}: "
-                 f"{line}")
-        return row, line
-
-    def band_case(n_y, n_x, order, k, tile, dtype, seed):
-        p = config.SimParams(nx=n_x, ny=n_y, order=order, bc_top=1.5,
-                             bc_left=0.5, bc_bottom=2.0, bc_right=0.25)
-        u = seeded_grid(p, dtype, seed)
-        try:
-            _, plan = band_plan(u, order, k, tile)
-        except ValueError as e:
-            print(f"  skipped: {n_y}x{n_x} order {order} k={k} tile {tile} "
-                  f"{str(dtype)[6:]}: {e}")
-            return
-        args = (2 * k, order, p.xcfl, p.ycfl)
-        label = (f"{n_y}x{n_x} order {order} k={k} tile {tile} "
-                 f"{str(dtype)[6:]} ({plan})")
-        band_note("multistep", spl.run_heat_multistep(u, *args, p.bc, k=k,
-                                                      tile_y=tile),
-                  spl.run_heat_multistep_plain(u, *args, p.bc, k=k),
-                  f"B5 {label}")
-        if k == 1:
-            band_note("stencil_full", spl.run_heat_pallas(u, 3, *args[1:],
+            u = seeded_grid(p, dtype, seed)
+            try:
+                _, plan = band_plan(u, order, k, tile)
+            except ValueError as e:
+                print(f"  skipped: {n_y}x{n_x} order {order} k={k} tile {tile} "
+                      f"{str(dtype)[6:]}: {e}")
+                return
+            args = (2 * k, order, p.xcfl, p.ycfl)
+            label = (f"{n_y}x{n_x} order {order} k={k} tile {tile} "
+                     f"{str(dtype)[6:]} ({plan})")
+            band_note("multistep", spl.run_heat_multistep(u, *args, p.bc, k=k,
                                                           tile_y=tile),
-                      spl.run_heat_pallas_plain(u, 3, *args[1:]),
-                      f"B4 {label}")
+                      spl.run_heat_multistep_plain(u, *args, p.bc, k=k),
+                      f"B5 {label}")
+            if k == 1:
+                band_note("stencil_full", spl.run_heat_pallas(u, 3, *args[1:],
+                                                              tile_y=tile),
+                          spl.run_heat_pallas_plain(u, 3, *args[1:]),
+                          f"B4 {label}")
 
-    seed = 0
-    for tile in (40, 80, 200, 400):
+        seed = 0
+        for tile in (40, 80, 200, 400):
+            for order in (2, 4, 8):
+                for k in (1, 2, 3, 4, 8):
+                    seed += 1
+                    band_case(DIST_N, DIST_N, order, k, tile, torch.float32,
+                              seed)
+        for k in (1, 2, 4, 8):
+            band_case(FULL_N, FULL_N, FULL_ORDER, k, BAND_TILE, torch.float32,
+                      100 + k)
+        # tile_y 85 is no multiple of any micro-tile height (a ragged row
+        # chunk); orders 2 and 4 put the interior off the 16-byte grid
         for order in (2, 4, 8):
-            for k in (1, 2, 3, 4, 8):
-                seed += 1
-                band_case(DIST_N, DIST_N, order, k, tile, torch.float32,
-                          seed)
-    for k in (1, 2, 4, 8):
-        band_case(FULL_N, FULL_N, FULL_ORDER, k, BAND_TILE, torch.float32,
-                  100 + k)
-    # tile_y 85 is no multiple of any micro-tile height (a ragged row
-    # chunk); orders 2 and 4 put the interior off the 16-byte grid
-    for order in (2, 4, 8):
-        for k in (1, 2, 3):
-            band_case(255, 121, order, k, 85, torch.float32, 110 + order + k)
-    # rows not 16-byte aligned: staged and stored cell by cell
-    band_case(3999, 4001, 8, 1, 93, torch.float32, 120)
-    band_case(3999, 4001, 2, 2, 93, torch.float32, 121)
-    # f64 at every k class
-    for k in (1, 2, 3, 4, 8):
-        band_case(DIST_N, DIST_N, 8, k, 80, torch.float64, 130 + k)
-    band_case(255, 121, 2, 3, 85, torch.float64, 136)
-    # B4 on a halo that does not hold the boundary values: it passes
-    # through; stencil_interior_pallas writes a bare (ny, nx) array, whose
-    # rows at orders 2 and 4 are off a grid quad's 16-byte store
-    for order in (8, 4, 2):
-        b = order // 2
-        p = config.SimParams(nx=DIST_N, ny=DIST_N, order=order)
-        u = seeded_grid(p, torch.float32, 114 + order)
-        u[:b] += 3.0
-        u[:, -b:] -= 2.0
-        band_note("stencil_full",
-                  spl.run_heat_pallas(u, 3, order, p.xcfl, p.ycfl,
-                                      tile_y=40),
-                  spl.run_heat_pallas_plain(u, 3, order, p.xcfl, p.ycfl),
-                  f"B4 {DIST_N}x{DIST_N} order {order} foreign halo tile 40")
-        band_note("stencil_full",
-                  spl.stencil_interior_pallas(u, order, p.xcfl, p.ycfl,
-                                              tile_y=40),
-                  spl.stencil_interior_pallas_plain(u, order, p.xcfl,
-                                                    p.ycfl),
-                  f"B4 stencil_interior_pallas {DIST_N}x{DIST_N} order "
-                  f"{order} into a bare array, foreign halo")
-    band_plans = {}
-    for n_sq, tile, k in [(DIST_N, t, 1) for t in (40, 80, 200, 400)] + [
-            (FULL_N, BAND_TILE, k) for k in (1, 2, 4, 8)]:
-        p = config.SimParams(nx=n_sq, ny=n_sq, order=8)
-        row, line = band_plan(grid.make_initial_grid(p, device=dev), 8, k,
-                              tile)
-        band_plans[f"{n_sq}^2 tile_y {tile} k={k}"] = row
-        print(f"plan {n_sq}^2 order 8 f32 tile_y {tile} k={k}: {line}")
+            for k in (1, 2, 3):
+                band_case(255, 121, order, k, 85, torch.float32, 110 + order + k)
+        # rows not 16-byte aligned: staged and stored cell by cell
+        band_case(3999, 4001, 8, 1, 93, torch.float32, 120)
+        band_case(3999, 4001, 2, 2, 93, torch.float32, 121)
+        # f64 at every k class
+        for k in (1, 2, 3, 4, 8):
+            band_case(DIST_N, DIST_N, 8, k, 80, torch.float64, 130 + k)
+        band_case(255, 121, 2, 3, 85, torch.float64, 136)
+        # B4 on a halo that does not hold the boundary values: it passes
+        # through; stencil_interior_pallas writes a bare (ny, nx) array, whose
+        # rows at orders 2 and 4 are off a grid quad's 16-byte store
+        for order in (8, 4, 2):
+            b = order // 2
+            p = config.SimParams(nx=DIST_N, ny=DIST_N, order=order)
+            u = seeded_grid(p, torch.float32, 114 + order)
+            u[:b] += 3.0
+            u[:, -b:] -= 2.0
+            band_note("stencil_full",
+                      spl.run_heat_pallas(u, 3, order, p.xcfl, p.ycfl,
+                                          tile_y=40),
+                      spl.run_heat_pallas_plain(u, 3, order, p.xcfl, p.ycfl),
+                      f"B4 {DIST_N}x{DIST_N} order {order} foreign halo tile 40")
+            band_note("stencil_full",
+                      spl.stencil_interior_pallas(u, order, p.xcfl, p.ycfl,
+                                                  tile_y=40),
+                      spl.stencil_interior_pallas_plain(u, order, p.xcfl,
+                                                        p.ycfl),
+                      f"B4 stencil_interior_pallas {DIST_N}x{DIST_N} order "
+                      f"{order} into a bare array, foreign halo")
+        band_plans = {}
+        for n_sq, tile, k in [(DIST_N, t, 1) for t in (40, 80, 200, 400)] + [
+                (FULL_N, BAND_TILE, k) for k in (1, 2, 4, 8)]:
+            p = config.SimParams(nx=n_sq, ny=n_sq, order=8)
+            row, line = band_plan(grid.make_initial_grid(p, device=dev), 8, k,
+                                  tile)
+            band_plans[f"{n_sq}^2 tile_y {tile} k={k}"] = row
+            print(f"plan {n_sq}^2 order 8 f32 tile_y {tile} k={k}: {line}")
 
-    # ---------------------------------------------------- 13. B8 vs library
-    def transpose_case(shape, dtype, tile):
-        gen = torch.Generator().manual_seed(shape[0] + shape[1])
-        width = shape[1] * torch.empty(0, dtype=dtype).element_size()
-        x = torch.randint(0, 256, (shape[0], width), dtype=torch.uint8,
-                          generator=gen).to(dev).view(dtype)
-        got = tp.transpose_pallas(x, tile=tile)
-        ref = x.t().contiguous()
-        same = torch.equal(got.flatten().view(torch.uint8),
-                           ref.flatten().view(torch.uint8))
-        print(f"  vs x.t().contiguous(): B8 {shape[0]}x{shape[1]} "
-              f"{str(dtype)[6:]} tile {tile}: bitwise {same}")
-        if not same:
-            fail(f"B8 {shape} {dtype}: not bit for bit x.t().contiguous()")
+        # ---------------------------------------------------- 13. B8 vs library
+        phase(13)
+        def transpose_case(shape, dtype, tile):
+            gen = torch.Generator().manual_seed(shape[0] + shape[1])
+            width = shape[1] * torch.empty(0, dtype=dtype).element_size()
+            x = torch.randint(0, 256, (shape[0], width), dtype=torch.uint8,
+                              generator=gen).to(dev).view(dtype)
+            got = tp.transpose_pallas(x, tile=tile)
+            ref = x.t().contiguous()
+            same = torch.equal(got.flatten().view(torch.uint8),
+                               ref.flatten().view(torch.uint8))
+            print(f"  vs x.t().contiguous(): B8 {shape[0]}x{shape[1]} "
+                  f"{str(dtype)[6:]} tile {tile}: bitwise {same}")
+            if not same:
+                fail(f"B8 {shape} {dtype}: not bit for bit x.t().contiguous()")
 
-    transpose_case((SIDE, SIDE), torch.float32, SIDE_TILE)
-    transpose_case((1024, 3072), torch.float32, SIDE_TILE)
-    for dtype in (torch.uint8, torch.bfloat16, torch.int32, torch.float64):
-        transpose_case((2048, 768), dtype, SIDE_TILE)
+        transpose_case((SIDE, SIDE), torch.float32, SIDE_TILE)
+        transpose_case((1024, 3072), torch.float32, SIDE_TILE)
+        for dtype in (torch.uint8, torch.bfloat16, torch.int32, torch.float64):
+            transpose_case((2048, 768), dtype, SIDE_TILE)
 
-    # ---------------------------------------------------- 14. the sweeps
-    hk = run_all.JOBS["heat_kernels"][2]
-    pt = run_all.JOBS["pallas_tile"][2]
-    # each heat row runs its solve twice (warm-up, timed)
-    fused = [k for k in hk["ks"] if hk["iters"] % k == 0]
-    per_pipe = 2 * sum(hk["iters"] // k for k in [1] + fused)
-    expect = only(None, 0)
-    expect.update({
-        "pipeline": per_pipe, "pipeline2d": per_pipe,
-        "stencil_full": 2 * hk["iters"] + 2 * pt["iters"] * len(
-            [t for t in pt["tiles"] if pt["size"] % t == 0]),
-        "multistep": 2 * sum(hk["iters"] // k for k in fused),
-        "transpose": 1 + sweeps.TIME_ITERS})
-    sweep_path = f"run_all --only {','.join(SWEEP_PATH)} (full)"
-    csv_rows = {}
-    with tempfile.TemporaryDirectory() as out_dir:
-        rc = counted(sweep_path, expect, lambda: run_all.main(
-            ["--out", out_dir, "--only", ",".join(SWEEP_PATH)]))
-        for name in SWEEP_PATH:
-            with open(os.path.join(out_dir, f"{name}.csv")) as f:
-                csv_rows[name] = list(csv.DictReader(f))
-        with open(os.path.join(out_dir, "failures.json")) as f:
-            failures = json.load(f)
-        sweep_copy = shutil.copytree(out_dir, os.path.join(work, "sweeps"))
-    if rc != 0 or failures != {"failed": [], "retried": []}:
-        fail(f"{sweep_path}: rc {rc}, failures {failures}")
-    for name, rows in csv_rows.items():
-        print(f"{name}.csv ({len(rows)} rows):")
-        for row in rows:
-            print(f"  {json.dumps(row)}")
-            if row.get("error"):
-                fail(f"{name}.csv: error row {row}")
+        # ---------------------------------------------------- 14. the sweeps
+        phase(14)
+        hk = run_all.JOBS["heat_kernels"][2]
+        pt = run_all.JOBS["pallas_tile"][2]
+        # each heat row runs its solve twice (warm-up, timed)
+        fused = [k for k in hk["ks"] if hk["iters"] % k == 0]
+        per_pipe = 2 * sum(hk["iters"] // k for k in [1] + fused)
+        expect = only(None, 0)
+        expect.update({
+            "pipeline": per_pipe, "pipeline2d": per_pipe,
+            "stencil_full": 2 * hk["iters"] + 2 * pt["iters"] * len(
+                [t for t in pt["tiles"] if pt["size"] % t == 0]),
+            "multistep": 2 * sum(hk["iters"] // k for k in fused),
+            "transpose": 1 + sweeps.TIME_ITERS})
+        sweep_path = f"run_all --only {','.join(SWEEP_PATH)} (full)"
+        csv_rows = {}
+        with tempfile.TemporaryDirectory() as out_dir:
+            rc = counted(sweep_path, expect, lambda: run_all.main(
+                ["--out", out_dir, "--only", ",".join(SWEEP_PATH)]))
+            for name in SWEEP_PATH:
+                with open(os.path.join(out_dir, f"{name}.csv")) as f:
+                    csv_rows[name] = list(csv.DictReader(f))
+            with open(os.path.join(out_dir, "failures.json")) as f:
+                failures = json.load(f)
+            sweep_copy = shutil.copytree(out_dir, os.path.join(work, "sweeps"))
+        if rc != 0 or failures != {"failed": [], "retried": []}:
+            fail(f"{sweep_path}: rc {rc}, failures {failures}")
+        for name, rows in csv_rows.items():
+            print(f"{name}.csv ({len(rows)} rows):")
+            for row in rows:
+                print(f"  {json.dumps(row)}")
+                if row.get("error"):
+                    fail(f"{name}.csv: error row {row}")
 
-    iters = hk["iters"]
-    args = (iters, full.order, full.xcfl, full.ycfl)
-    u = grid.make_initial_grid(full, device="cuda")
-    ref = ops.run_heat(u, *args)
-    solves = [("stencil_full", 1, lambda: spl.run_heat_pallas(
-        u, *args, tile_y=BAND_TILE))] + [
-        ("multistep", k, lambda k=k: spl.run_heat_multistep(
-            u, *args, full.bc, k=k, tile_y=BAND_TILE)) for k in fused]
-    for name, k, solve in solves:
-        label = (f"{'run_heat_pallas' if k == 1 else 'run_heat_multistep'} "
-                 f"{FULL_N}x{FULL_N} k={k}")
-        out = counted(label, only(name, iters // k), solve)
-        band_note(name, out, ref, f"{label} {iters} iters vs run_heat")
+        iters = hk["iters"]
+        args = (iters, full.order, full.xcfl, full.ycfl)
+        u = grid.make_initial_grid(full, device="cuda")
+        ref = ops.run_heat(u, *args)
+        solves = [("stencil_full", 1, lambda: spl.run_heat_pallas(
+            u, *args, tile_y=BAND_TILE))] + [
+            ("multistep", k, lambda k=k: spl.run_heat_multistep(
+                u, *args, full.bc, k=k, tile_y=BAND_TILE)) for k in fused]
+        for name, k, solve in solves:
+            label = (f"{'run_heat_pallas' if k == 1 else 'run_heat_multistep'} "
+                     f"{FULL_N}x{FULL_N} k={k}")
+            out = counted(label, only(name, iters // k), solve)
+            band_note(name, out, ref, f"{label} {iters} iters vs run_heat")
 
-    n_band = 200
-    band_timing = {}
-    for name, k, _ in solves:
-        if k == 1:
-            fn = lambda v: spl.run_heat_pallas(  # noqa: E731
-                v, n_band, *args[1:], tile_y=BAND_TILE)
+        n_band = 200
+        band_timing = {}
+        for name, k, _ in solves:
+            if k == 1:
+                fn = lambda v: spl.run_heat_pallas(  # noqa: E731
+                    v, n_band, *args[1:], tile_y=BAND_TILE)
+            else:
+                fn = lambda v, k=k: spl.run_heat_multistep(  # noqa: E731
+                    v, n_band, *args[1:], full.bc, k=k, tile_y=BAND_TILE)
+            ms = core.time_fn(fn, u, warmup=1, iters=2) / n_band
+            launch = roofline.Cost(step.nbytes, step.flops * k)
+            b_ms, b_by = roofline.bound_ms(launch, peak, torch.float32)
+            row, line = band_plan(u, full.order, k, BAND_TILE)
+            band_timing.setdefault(name, []).append(
+                {"k": k, "ms": ms, "bound_ms": b_ms / k, "bound_by": b_by,
+                 "gbs": step.gbs(ms), "share_of_bound": b_ms / k / ms,
+                 "plan": row})
+            print(f"full {name} k={k} tile {BAND_TILE}: {ms:.6f} ms/step, "
+                  f"{step.gbs(ms):.1f} GB/s, bound {b_ms / k:.6f} ms/step by "
+                  f"{b_by} ({b_ms / k / ms:.0%}); plan: {line}")
+        # B4 at the pallas_tile cells (2000², 100 steps): kernel time (CUDA
+        # events) and the host-clocked solve the sweep reports, with each
+        # cell's own bound
+        tp_p = config.SimParams(nx=pt["size"], ny=pt["size"], order=pt["order"])
+        tp_u = grid.make_initial_grid(tp_p, device=dev)
+        tp_step = roofline.heat_cost(tp_p.ny, tp_p.nx, order=tp_p.order,
+                                     iters=1)
+        tp_bound, tp_by = roofline.bound_ms(tp_step, peak, torch.float32)
+        tile_timing = []
+        for tile in pt["tiles"]:
+            def solve(v, tile=tile):
+                return spl.run_heat_pallas(v, pt["iters"], tp_p.order,
+                                           tp_p.xcfl, tp_p.ycfl, tile_y=tile)
+            ms = core.time_fn(solve, tp_u, warmup=1, iters=3) / pt["iters"]
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solve(tp_u)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3 / pt["iters"])
+            row, line = band_plan(tp_u, tp_p.order, 1, tile)
+            tile_timing.append({"tile_y": tile, "ms": ms, "host_ms": min(host),
+                                "bound_ms": tp_bound, "bound_by": tp_by,
+                                "share_of_bound": tp_bound / ms, "plan": row})
+            print(f"B4 pallas_tile {pt['size']}^2 tile_y {tile}: {ms:.6f} "
+                  f"ms/step by CUDA events, {min(host):.6f} host-clocked; "
+                  f"bound {tp_bound:.6f} by {tp_by} ({tp_bound / ms:.0%}); "
+                  f"plan: {line}")
+        band_idle = idle_share(
+            torch, lambda: spl.run_heat_pallas(tp_u, 100, tp_p.order, tp_p.xcfl,
+                                               tp_p.ycfl, tile_y=BAND_TILE), 100)
+        print(f"idle share, run_heat_pallas {pt['size']}x{pt['size']} tile_y "
+              f"{BAND_TILE}, 100 steps: {json.dumps(band_idle)}")
+
+        m = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (SIDE, SIDE)).astype(np.float32)).to(dev)
+        t_cost = roofline.transpose_cost(SIDE, SIDE)
+        t_bound, t_by = roofline.bound_ms(t_cost, peak, torch.float32)
+        t_ms = per_call_ms(lambda v: tp.transpose_pallas(v, tile=SIDE_TILE), m,
+                           100)
+        t_plain_ms = per_call_ms(tp.transpose_pallas_plain, m, 100)
+        t_library_ms = per_call_ms(lambda v: v.t().contiguous(), m, 100)
+        print(f"B8 {SIDE}x{SIDE} f32: {t_ms:.6f} ms, {t_cost.gbs(t_ms):.1f} "
+              f"GB/s, bound {t_bound:.6f} ms by {t_by}; plain version "
+              f"{t_plain_ms:.6f} ms, x.t().contiguous() {t_library_ms:.6f} ms")
+
+        coverage = [name for name in run_all.JOBS if name not in SWEEP_PATH]
+        with tempfile.TemporaryDirectory() as out_dir:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = run_all.main(["--out", out_dir, "--quick", "--only",
+                                   ",".join(coverage)])
+            for name in coverage:
+                with open(os.path.join(out_dir, f"{name}.csv")) as f:
+                    for row in csv.DictReader(f):
+                        if row.get("error") or row.get("ok") == "False":
+                            fail(f"--quick {name}.csv: {row}")
+        print(f"run_all --quick --only {','.join(coverage)}: rc {rc}")
+        if rc != 0:
+            fail(f"run_all --quick coverage run: rc {rc}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+             "power.limit,temperature.gpu", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        print(f"card after the runs: {smi.stdout.strip()}")
+
+        # ---------------------------------------------------- 15. old vs new
+        phase(15)
+        if parent is None:
+            print("old-vs-new turns: not run (no --parent tree given)")
+            turns = None
         else:
-            fn = lambda v, k=k: spl.run_heat_multistep(  # noqa: E731
-                v, n_band, *args[1:], full.bc, k=k, tile_y=BAND_TILE)
-        ms = core.time_fn(fn, u, warmup=1, iters=2) / n_band
-        launch = roofline.Cost(step.nbytes, step.flops * k)
-        b_ms, b_by = roofline.bound_ms(launch, peak, torch.float32)
-        row, line = band_plan(u, full.order, k, BAND_TILE)
-        band_timing.setdefault(name, []).append(
-            {"k": k, "ms": ms, "bound_ms": b_ms / k, "bound_by": b_by,
-             "gbs": step.gbs(ms), "share_of_bound": b_ms / k / ms,
-             "plan": row})
-        print(f"full {name} k={k} tile {BAND_TILE}: {ms:.6f} ms/step, "
-              f"{step.gbs(ms):.1f} GB/s, bound {b_ms / k:.6f} ms/step by "
-              f"{b_by} ({b_ms / k / ms:.0%}); plan: {line}")
-    # B4 at the pallas_tile cells (2000², 100 steps): kernel time (CUDA
-    # events) and the host-clocked solve the sweep reports, with each
-    # cell's own bound
-    tp_p = config.SimParams(nx=pt["size"], ny=pt["size"], order=pt["order"])
-    tp_u = grid.make_initial_grid(tp_p, device=dev)
-    tp_step = roofline.heat_cost(tp_p.ny, tp_p.nx, order=tp_p.order,
-                                 iters=1)
-    tp_bound, tp_by = roofline.bound_ms(tp_step, peak, torch.float32)
-    tile_timing = []
-    for tile in pt["tiles"]:
-        def solve(v, tile=tile):
-            return spl.run_heat_pallas(v, pt["iters"], tp_p.order,
-                                       tp_p.xcfl, tp_p.ycfl, tile_y=tile)
-        ms = core.time_fn(solve, tp_u, warmup=1, iters=3) / pt["iters"]
-        host = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve(tp_u)
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t0) * 1e3 / pt["iters"])
-        row, line = band_plan(tp_u, tp_p.order, 1, tile)
-        tile_timing.append({"tile_y": tile, "ms": ms, "host_ms": min(host),
-                            "bound_ms": tp_bound, "bound_by": tp_by,
-                            "share_of_bound": tp_bound / ms, "plan": row})
-        print(f"B4 pallas_tile {pt['size']}^2 tile_y {tile}: {ms:.6f} "
-              f"ms/step by CUDA events, {min(host):.6f} host-clocked; "
-              f"bound {tp_bound:.6f} by {tp_by} ({tp_bound / ms:.0%}); "
-              f"plan: {line}")
-    band_idle = idle_share(
-        torch, lambda: spl.run_heat_pallas(tp_u, 100, tp_p.order, tp_p.xcfl,
-                                           tp_p.ycfl, tile_y=BAND_TILE), 100)
-    print(f"idle share, run_heat_pallas {pt['size']}x{pt['size']} tile_y "
-          f"{BAND_TILE}, 100 steps: {json.dumps(band_idle)}")
+            turns = old_new_turns(
+                parent, torch, np, config, core, grid, ops, dist, dheat, sp, spl,
+                segp, (a, xx, flags, n_it, ref64,
+                       lambda r, g: (relative_l2_error(r, g),
+                                     relative_linf_error(r, g))))
+            print(f"old-vs-new turns: {json.dumps(turns)}")
 
-    m = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (SIDE, SIDE)).astype(np.float32)).to(dev)
-    t_cost = roofline.transpose_cost(SIDE, SIDE)
-    t_bound, t_by = roofline.bound_ms(t_cost, peak, torch.float32)
-    t_ms = per_call_ms(lambda v: tp.transpose_pallas(v, tile=SIDE_TILE), m,
-                       100)
-    t_plain_ms = per_call_ms(tp.transpose_pallas_plain, m, 100)
-    t_library_ms = per_call_ms(lambda v: v.t().contiguous(), m, 100)
-    print(f"B8 {SIDE}x{SIDE} f32: {t_ms:.6f} ms, {t_cost.gbs(t_ms):.1f} "
-          f"GB/s, bound {t_bound:.6f} ms by {t_by}; plain version "
-          f"{t_plain_ms:.6f} ms, x.t().contiguous() {t_library_ms:.6f} ms")
+        # ---------------------------------------------------- 16. doctor, headline
+        phase(16)
+        out, secs = run_module(["cme213_tpu_torch", "doctor", "--json"], 300)
+        doctor = json.loads(out)
+        devices = doctor["stages"][0]["detail"]["devices"]
+        print(f"doctor --json ({secs:.1f} s): healthy {doctor['healthy']}, "
+              f"platform {doctor['platform']}, {doctor['device_count']} "
+              f"device(s): {[d['kind'] for d in devices]}; liveness "
+              f"{doctor['probe_ms']} ms")
+        if not (doctor["healthy"] and doctor["platform"] == "cuda"
+                and doctor["device_count"] == torch.cuda.device_count()
+                and devices[0]["kind"] == kind):
+            fail(f"doctor: {json.dumps(doctor)}")
 
-    coverage = [name for name in run_all.JOBS if name not in SWEEP_PATH]
-    with tempfile.TemporaryDirectory() as out_dir:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = run_all.main(["--out", out_dir, "--quick", "--only",
-                               ",".join(coverage)])
-        for name in coverage:
-            with open(os.path.join(out_dir, f"{name}.csv")) as f:
-                for row in csv.DictReader(f):
-                    if row.get("error") or row.get("ok") == "False":
-                        fail(f"--quick {name}.csv: {row}")
-    print(f"run_all --quick --only {','.join(coverage)}: rc {rc}")
-    if rc != 0:
-        fail(f"run_all --quick coverage run: rc {rc}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
-         "power.limit,temperature.gpu", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    print(f"card after the runs: {smi.stdout.strip()}")
+        headline = headline_lines(kind, peak)
+        # each pipeline row beside phase 4's CUDA-event time of its kernel at k
+        beside = []
+        for r in headline["f32"]["kernels"]:
+            if not r["kernel"].startswith("pipeline"):
+                continue
+            entry, k = r["kernel"].split("-k")
+            k = int(k)
+            if r["variant"].count("tile_y=") != 1:
+                fail(f"headline {r['kernel']}: variant {r['variant']}")
+            want = (2 * r["calibration_iters"]
+                    + r["final_runs"] * r["iters"]) // k
+            if r["launches"] != {entry: want}:
+                fail(f"headline {r['kernel']}: launches {r['launches']}, "
+                     f"expected {want}")
+            events_ms = next(t["ms"] for t in timings[entry] if t["k"] == k)
+            gap = r["ms_per_iter"] / events_ms - 1
+            beside.append({"kernel": r["kernel"], "variant": r["variant"],
+                           "ms_per_iter": r["ms_per_iter"], "gbs": r["gbs"],
+                           "pct_peak": r["pct_peak"], "iters": r["iters"],
+                           "launches": want, "phase4_ms": events_ms,
+                           "gap": gap})
+            print(f"  {r['kernel']:<14} {r['variant']:<22} {r['ms_per_iter']:.4f}"
+                  f" ms/iter host-clocked over {r['iters']} steps, "
+                  f"{r['gbs']} GB/s ({r['pct_peak']}%); phase 4 CUDA events "
+                  f"{events_ms:.6f}: {gap:+.1%}{'  GAP > 25%' if abs(gap) > 0.25 else ''}")
+        spmv_line = headline["spmv"]
+        # one child's measurement in this process: B1 launched exactly as its
+        # calibration and timed runs imply
+        from cme213_tpu_torch.bench import headline as hl
 
-    # ---------------------------------------------------- 15. old vs new
-    if parent is None:
-        print("old-vs-new turns: not run (no --parent tree given)")
-        turns = None
-    else:
-        turns = old_new_turns(
-            parent, torch, np, config, core, grid, ops, dist, dheat, sp, spl,
-            segp, (a, xx, flags, n_it, ref64,
-                   lambda r, g: (relative_l2_error(r, g),
-                                 relative_linf_error(r, g))))
-        print(f"old-vs-new turns: {json.dumps(turns)}")
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+        row = hl.measure_one("pipeline-k1", "f32")
+        torch.cuda.synchronize()
+        label = "headline measure_one pipeline-k1"
+        paths[label] = {k: v for c in counters for k, v in c.items()}
+        want = 2 * row.get("calibration_iters", 0) + \
+            row.get("final_runs", 0) * row.get("iters", 0)
+        print(f"launches of {label}: {paths[label]} (calibration 2 x "
+              f"{row.get('calibration_iters')}, {row.get('final_runs')} x "
+              f"{row.get('iters')}); {row.get('ms_per_iter')} ms/iter")
+        if not row["ok"] or paths[label] != only("pipeline", want):
+            fail(f"{label}: {row}, launches {paths[label]}, expected {want}")
 
-    # ---------------------------------------------------- 16. doctor, headline
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
-    env.pop("CME213_FAULTS", None)
+    if "kernels" not in groups:
+        # what the groups that run need from phases 1-16, made here
+        phase("set-up")
+        needs = set().union(*(NEEDS[g] for g in groups))
+        if "pwtk" in needs:
+            prob, ref64 = pwtk_problem(spmv, segp, dev)
+            n_it = prob.iters
+        if "dist" in needs:
+            dist_p, dist_ref, vdev, mesh2d, dist_rows = dist_setup(
+                config, core, dist, grid, ops, dev)
+        if "b1" in needs:
+            timings = b1_timing(core, grid, ops, full, dev)
+        if "headline" in needs:
+            headline = headline_lines(kind, peak)
+        if "sweeps" in needs:
+            sweep_copy = sweep_csvs(run_all, work)
 
-    def run_module(args, timeout):
-        """``python -m args`` from the checkout: (stdout, seconds).  It runs
-        in a session of its own, so a timeout stops its children too."""
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
-                                env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True,
-                                start_new_session=True)
+    if "guarded" in groups:
+        # ---------------------------------------------------- 17. guarded path
+        phase(17)
+        # the main path as a user reaches it: run_single at full width through
+        # the ladder, cold (no verdict, no program) and then warm; the grid and
+        # the timer are caught on their way out of the ladder
+        core.trace.clear_events()  # also empties the program cache
+        core.conformance.reset()
+        real_ladder = heat2d.run_heat_resilient
+        caught_runs = []
+
+        def catch_ladder(*a, **kw):
+            res = real_ladder(*a, **kw)
+            caught_runs.append((res, kw["timer"].last_ms(
+                kw.get("phase_label", "gpu computation shared"))))
+            return res
+
+        guarded = {}
+        heat2d.run_heat_resilient = catch_ladder
         try:
-            stdout, stderr = proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-            fail(f"{' '.join(args)}: no result in {timeout} s")
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"{' '.join(args)}: rc {proc.returncode}\n{stderr[-3000:]}")
-        return stdout, secs
+            for turn, expect in (("cold", full.iters + 1 + HEAT_PROBE_LAUNCHES),
+                                 ("warm", full.iters)):
+                mark = len(core.trace.events())
+                label = f"run_single {FULL_N}x{FULL_N} guarded {turn}"
+                out = counted(label, only("pipeline", expect),
+                              lambda: heat2d.run_single(full, check_cpu=False,
+                                                        device="cuda"))
+                if not out.ok:
+                    fail(f"{label}: not ok")
+                new = core.trace.events()[mark:]
+                guarded[turn] = {
+                    "ms": caught_runs[-1][1],
+                    "probes": [e for e in new
+                               if e["event"] == "conformance-probe"],
+                    "misses": [e for e in new
+                               if e["event"] == "program-cache-miss"],
+                    "compile_ms": [e["ms"] for e in new
+                                   if e["event"] == "span-end"
+                                   and e["span"] == "heat.compile"],
+                    "report": out.reports[1]}
+        finally:
+            heat2d.run_heat_resilient = real_ladder
+        for res, _ in caught_runs:
+            if res.rung != "pipeline" or res.demoted:
+                fail(f"guarded run_single served {res.rung}, failures "
+                     f"{res.failures}")
+        cold, warm = guarded["cold"], guarded["warm"]
+        if [(e["op"], e["rung"], e["ok"]) for e in cold["probes"]] != \
+                [("heat", "pipeline", True)]:
+            fail(f"guarded cold run: probes {cold['probes']}")
+        if warm["probes"] or warm["misses"]:
+            fail(f"guarded warm run: {len(warm['misses'])} program-cache "
+                 f"misses, {len(warm['probes'])} probes (expected none)")
+        guarded_ref = ops.run_heat(grid.make_initial_grid(full, device=dev),
+                                   full.iters, full.order, full.xcfl, full.ycfl)
+        ulp = max(max_errors(res.value, guarded_ref, limit=0)[0]
+                  for res, _ in caught_runs)
+        b1_ms = timings["pipeline"][0]["ms"]
+        guarded_row = {
+            "probe_ms": {e["rung"]: e["ms"] for e in cold["probes"]},
+            "miss_ms": cold["compile_ms"], "cold_misses": len(cold["misses"]),
+            "warm_misses": 0, "warm_probes": 0,
+            "shared_ms_per_step": {t: g["ms"] / full.iters
+                                   for t, g in guarded.items()},
+            "b1_cuda_event_ms": b1_ms,
+            "gap": {t: g["ms"] / full.iters / b1_ms - 1
+                    for t, g in guarded.items()},
+            "max_ulp_vs_run_heat": ulp}
+        print(f"guarded run_single {FULL_N}x{FULL_N}: served pipeline, "
+              f"undemoted; probe {guarded_row['probe_ms']} ms at first use; "
+              f"program-cache misses {cold['compile_ms']} ms (heat.compile "
+              f"spans: the probe's pipeline and xla programs, the solve's); "
+              f"warm run: 0 misses, 0 probes; vs run_heat max ULP {ulp}")
+        for turn, g in guarded.items():
+            per = g["ms"] / full.iters
+            print(f"  'gpu computation shared' {turn}: {per:.6f} ms/step "
+                  f"({g['report']}); B1 k=1 by CUDA events (phase 4) "
+                  f"{b1_ms:.6f}: gap {per / b1_ms - 1:+.2%}")
 
-    out, secs = run_module(["cme213_tpu_torch", "doctor", "--json"], 300)
-    doctor = json.loads(out)
-    devices = doctor["stages"][0]["detail"]["devices"]
-    print(f"doctor --json ({secs:.1f} s): healthy {doctor['healthy']}, "
-          f"platform {doctor['platform']}, {doctor['device_count']} "
-          f"device(s): {[d['kind'] for d in devices]}; liveness "
-          f"{doctor['probe_ms']} ms")
-    if not (doctor["healthy"] and doctor["platform"] == "cuda"
-            and doctor["device_count"] == torch.cuda.device_count()
-            and devices[0]["kind"] == kind):
-        fail(f"doctor: {json.dumps(doctor)}")
-
-    headline = {}
-    for dtype_name in ("f32", "f64"):
-        out, secs = run_module(["cme213_tpu_torch.bench.headline",
-                                f"--dtype={dtype_name}"], 900)
-        line = json.loads(out.strip().splitlines()[-1])
-        headline[dtype_name] = dict(line, seconds=secs)
-        print(f"headline {dtype_name} ({secs:.1f} s): {json.dumps(line)}")
-        bad = [r for r in line["kernels"] if not r.get("ok")]
-        if bad:
-            fail(f"headline {dtype_name}: rows not ok: {bad}")
-        if line["device_kind"] != kind or line["platform"] != "cuda" or \
-                line["pct_hbm_peak"] != round(100 * line["value"]
-                                              / peak.gbs, 1):
-            fail(f"headline {dtype_name}: device or peak: {line}")
-    # each pipeline row beside phase 4's CUDA-event time of its kernel at k
-    beside = []
-    for r in headline["f32"]["kernels"]:
-        if not r["kernel"].startswith("pipeline"):
-            continue
-        entry, k = r["kernel"].split("-k")
-        k = int(k)
-        if r["variant"].count("tile_y=") != 1:
-            fail(f"headline {r['kernel']}: variant {r['variant']}")
-        want = (2 * r["calibration_iters"]
-                + r["final_runs"] * r["iters"]) // k
-        if r["launches"] != {entry: want}:
-            fail(f"headline {r['kernel']}: launches {r['launches']}, "
-                 f"expected {want}")
-        events_ms = next(t["ms"] for t in timings[entry] if t["k"] == k)
-        gap = r["ms_per_iter"] / events_ms - 1
-        beside.append({"kernel": r["kernel"], "variant": r["variant"],
-                       "ms_per_iter": r["ms_per_iter"], "gbs": r["gbs"],
-                       "pct_peak": r["pct_peak"], "iters": r["iters"],
-                       "launches": want, "phase4_ms": events_ms,
-                       "gap": gap})
-        print(f"  {r['kernel']:<14} {r['variant']:<22} {r['ms_per_iter']:.4f}"
-              f" ms/iter host-clocked over {r['iters']} steps, "
-              f"{r['gbs']} GB/s ({r['pct_peak']}%); phase 4 CUDA events "
-              f"{events_ms:.6f}: {gap:+.1%}{'  GAP > 25%' if abs(gap) > 0.25 else ''}")
-    out, secs = run_module(["cme213_tpu_torch.bench.headline", "--spmv"],
-                           600)
-    spmv_line = json.loads(out.strip().splitlines()[-1])
-    headline["spmv"] = dict(spmv_line, seconds=secs)
-    print(f"headline --spmv ({secs:.1f} s): {json.dumps(spmv_line)}")
-    scan_rows = [r for r in spmv_line["kernels"]
-                 if r["kernel"] in SCAN_KERNELS]
-    if len(scan_rows) != 2 * 3 or any(r["error"] for r in scan_rows):
-        fail(f"headline --spmv: {scan_rows}")
-    # one run_spmv_scan a size and kernel: an untimed iteration, then 8
-    want = sum(r["iters"] + 1 for r in scan_rows) // 2
-    if spmv_line["launches"] != {"segscan": want, "spmv_fused": want}:
-        fail(f"headline --spmv: launches {spmv_line['launches']}, "
-             f"expected {want} each")
-    # one child's measurement in this process: B1 launched exactly as its
-    # calibration and timed runs imply
-    from cme213_tpu_torch.bench import headline as hl
-
-    for counter in counters:
-        for key in counter:
-            counter[key] = 0
-    row = hl.measure_one("pipeline-k1", "f32")
-    torch.cuda.synchronize()
-    label = "headline measure_one pipeline-k1"
-    paths[label] = {k: v for c in counters for k, v in c.items()}
-    want = 2 * row.get("calibration_iters", 0) + \
-        row.get("final_runs", 0) * row.get("iters", 0)
-    print(f"launches of {label}: {paths[label]} (calibration 2 x "
-          f"{row.get('calibration_iters')}, {row.get('final_runs')} x "
-          f"{row.get('iters')}); {row.get('ms_per_iter')} ms/iter")
-    if not row["ok"] or paths[label] != only("pipeline", want):
-        fail(f"{label}: {row}, launches {paths[label]}, expected {want}")
-
-    # ---------------------------------------------------- 17. guarded path
-    # the main path as a user reaches it: run_single at full width through
-    # the ladder, cold (no verdict, no program) and then warm; the grid and
-    # the timer are caught on their way out of the ladder
-    core.trace.clear_events()  # also empties the program cache
-    core.conformance.reset()
-    real_ladder = heat2d.run_heat_resilient
-    caught_runs = []
-
-    def catch_ladder(*a, **kw):
-        res = real_ladder(*a, **kw)
-        caught_runs.append((res, kw["timer"].last_ms(
-            kw.get("phase_label", "gpu computation shared"))))
-        return res
-
-    guarded = {}
-    heat2d.run_heat_resilient = catch_ladder
-    try:
-        for turn, expect in (("cold", full.iters + 1 + HEAT_PROBE_LAUNCHES),
-                             ("warm", full.iters)):
-            mark = len(core.trace.events())
-            label = f"run_single {FULL_N}x{FULL_N} guarded {turn}"
-            out = counted(label, only("pipeline", expect),
-                          lambda: heat2d.run_single(full, check_cpu=False,
-                                                    device="cuda"))
-            if not out.ok:
-                fail(f"{label}: not ok")
-            new = core.trace.events()[mark:]
-            guarded[turn] = {
-                "ms": caught_runs[-1][1],
-                "probes": [e for e in new
-                           if e["event"] == "conformance-probe"],
-                "misses": [e for e in new
-                           if e["event"] == "program-cache-miss"],
-                "compile_ms": [e["ms"] for e in new
-                               if e["event"] == "span-end"
-                               and e["span"] == "heat.compile"],
-                "report": out.reports[1]}
-    finally:
-        heat2d.run_heat_resilient = real_ladder
-    for res, _ in caught_runs:
-        if res.rung != "pipeline" or res.demoted:
-            fail(f"guarded run_single served {res.rung}, failures "
-                 f"{res.failures}")
-    cold, warm = guarded["cold"], guarded["warm"]
-    if [(e["op"], e["rung"], e["ok"]) for e in cold["probes"]] != \
-            [("heat", "pipeline", True)]:
-        fail(f"guarded cold run: probes {cold['probes']}")
-    if warm["probes"] or warm["misses"]:
-        fail(f"guarded warm run: {len(warm['misses'])} program-cache "
-             f"misses, {len(warm['probes'])} probes (expected none)")
-    guarded_ref = ops.run_heat(grid.make_initial_grid(full, device=dev),
-                               full.iters, full.order, full.xcfl, full.ycfl)
-    ulp = max(max_errors(res.value, guarded_ref, limit=0)[0]
-              for res, _ in caught_runs)
-    b1_ms = timings["pipeline"][0]["ms"]
-    guarded_row = {
-        "probe_ms": {e["rung"]: e["ms"] for e in cold["probes"]},
-        "miss_ms": cold["compile_ms"], "cold_misses": len(cold["misses"]),
-        "warm_misses": 0, "warm_probes": 0,
-        "shared_ms_per_step": {t: g["ms"] / full.iters
-                               for t, g in guarded.items()},
-        "b1_cuda_event_ms": b1_ms,
-        "gap": {t: g["ms"] / full.iters / b1_ms - 1
-                for t, g in guarded.items()},
-        "max_ulp_vs_run_heat": ulp}
-    print(f"guarded run_single {FULL_N}x{FULL_N}: served pipeline, "
-          f"undemoted; probe {guarded_row['probe_ms']} ms at first use; "
-          f"program-cache misses {cold['compile_ms']} ms (heat.compile "
-          f"spans: the probe's pipeline and xla programs, the solve's); "
-          f"warm run: 0 misses, 0 probes; vs run_heat max ULP {ulp}")
-    for turn, g in guarded.items():
-        per = g["ms"] / full.iters
-        print(f"  'gpu computation shared' {turn}: {per:.6f} ms/step "
-              f"({g['report']}); B1 k=1 by CUDA events (phase 4) "
-              f"{b1_ms:.6f}: gap {per / b1_ms - 1:+.2%}")
-
-    # ---------------------------------------------------- 18. demotions
-    # injected faults, each in a child process of its own (its fault plan
-    # read from CME213_FAULTS at start), all started together; a child
-    # whose ladder raises reports the error
-    child = (
-        "import json, os, sys\n"
-        f"sys.path.insert(0, {HERE!r})\n"
-        "from cme213_tpu_torch import config, core, grid, ops\n"
-        "from cme213_tpu_torch.core import programs\n"
-        "from cme213_tpu_torch.ops import stencil_pipeline as sp\n"
-        f"p = config.SimParams(nx={FULL_N}, ny={FULL_N}, order=8, "
-        "iters=100)\n"
-        "u = grid.make_initial_grid(p, device='cuda')\n"
-        "plain = os.environ.get('SMOKE_PLAIN_FALLBACK') == '1'\n"
-        "try:\n"
-        "    res = sp.run_heat_resilient(u, p.iters, 8, p.xcfl, p.ycfl,\n"
-        "                                p.bc, plain_fallback=plain)\n"
-        "except core.FrameworkError as e:\n"
-        "    print(json.dumps({'rung': None, 'error': str(e)[:300],\n"
-        "                      'launches': dict(sp.LAUNCHES)}))\n"
-        "    sys.exit(0)\n"
-        "ref = ops.run_heat(u, p.iters, 8, p.xcfl, p.ycfl)\n"
-        "ulp = int(core.ulp_distance(res.value.cpu().numpy(),\n"
-        "                            ref.cpu().numpy()).max())\n"
-        "tiles = sorted({dict(k[5]).get('tile_y') for k in programs.keys()\n"
-        "                if k[1] == res.rung and k[2].startswith('4008')})\n"
-        "print(json.dumps({'rung': res.rung, 'ulp': ulp,\n"
-        "    'failed': [[f.rung, f.kind.value] for f in res.failures],\n"
-        "    'shrunk': [[e['from_size'], e['to_size']]\n"
-        "               for e in core.trace.events('chunk-shrunk')],\n"
-        "    'tiles': tiles, 'launches': dict(sp.LAUNCHES)}))\n")
-    picked = sp.pick_pipeline_tile(full.gy, 1, full.order)
-    # a single wrong: clause perturbs the first probe only (pipeline's), so
-    # pipeline2d serves; two clauses perturb both kernel rungs' probes, and
-    # on the card the ladder then raises unless the caller asks for xla
-    both = "wrong:heat,wrong:heat"
-    plans = {("fail:heat.pipeline", False): ("pipeline2d", []),
-             ("wrong:heat", False): ("pipeline2d", []),
-             (both, False): (None, []),
-             (both, True): ("xla", []),
-             ("oom:heat.pipeline", False): ("pipeline",
-                                            [[picked, picked // 2]])}
-    procs = {}
-    for plan, plain in plans:
-        child_env = dict(env, CME213_FAULTS=plan,
-                         SMOKE_PLAIN_FALLBACK="1" if plain else "0")
-        procs[plan, plain] = subprocess.Popen(
-            [sys.executable, "-c", child], cwd=HERE, env=child_env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            start_new_session=True)
-    demotions = {}
-    for (plan, plain), proc in procs.items():
-        name = f"{plan}{' plain_fallback' if plain else ''}"
-        try:
-            stdout, stderr = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            for other in procs.values():
-                if other.poll() is None:
-                    os.killpg(other.pid, signal.SIGKILL)
-                    other.communicate()
-            fail(f"demotion child {name}: no result in 300 s")
-        if proc.returncode != 0:
-            fail(f"demotion child {name}: rc {proc.returncode}\n"
-                 f"{stderr[-3000:]}")
-        row = json.loads(stdout.strip().splitlines()[-1])
-        demotions[name] = row
-        want_rung, want_shrunk = plans[plan, plain]
-        if want_rung is None:
-            print(f"CME213_FAULTS={name}: raised ({row['error']}), "
+        # ---------------------------------------------------- 18. demotions
+        phase(18)
+        # injected faults, each in a child process of its own (its fault plan
+        # read from CME213_FAULTS at start), all started together; a child
+        # whose ladder raises reports the error
+        child = (
+            "import json, os, sys\n"
+            f"sys.path.insert(0, {HERE!r})\n"
+            "from cme213_tpu_torch import config, core, grid, ops\n"
+            "from cme213_tpu_torch.core import programs\n"
+            "from cme213_tpu_torch.ops import stencil_pipeline as sp\n"
+            f"p = config.SimParams(nx={FULL_N}, ny={FULL_N}, order=8, "
+            "iters=100)\n"
+            "u = grid.make_initial_grid(p, device='cuda')\n"
+            "plain = os.environ.get('SMOKE_PLAIN_FALLBACK') == '1'\n"
+            "try:\n"
+            "    res = sp.run_heat_resilient(u, p.iters, 8, p.xcfl, p.ycfl,\n"
+            "                                p.bc, plain_fallback=plain)\n"
+            "except core.FrameworkError as e:\n"
+            "    print(json.dumps({'rung': None, 'error': str(e)[:300],\n"
+            "                      'launches': dict(sp.LAUNCHES)}))\n"
+            "    sys.exit(0)\n"
+            "ref = ops.run_heat(u, p.iters, 8, p.xcfl, p.ycfl)\n"
+            "ulp = int(core.ulp_distance(res.value.cpu().numpy(),\n"
+            "                            ref.cpu().numpy()).max())\n"
+            "tiles = sorted({dict(k[5]).get('tile_y') for k in programs.keys()\n"
+            "                if k[1] == res.rung and k[2].startswith('4008')})\n"
+            "print(json.dumps({'rung': res.rung, 'ulp': ulp,\n"
+            "    'failed': [[f.rung, f.kind.value] for f in res.failures],\n"
+            "    'shrunk': [[e['from_size'], e['to_size']]\n"
+            "               for e in core.trace.events('chunk-shrunk')],\n"
+            "    'tiles': tiles, 'launches': dict(sp.LAUNCHES)}))\n")
+        picked = sp.pick_pipeline_tile(full.gy, 1, full.order)
+        # a single wrong: clause perturbs the first probe only (pipeline's), so
+        # pipeline2d serves; two clauses perturb both kernel rungs' probes, and
+        # on the card the ladder then raises unless the caller asks for xla
+        both = "wrong:heat,wrong:heat"
+        plans = {("fail:heat.pipeline", False): ("pipeline2d", []),
+                 ("wrong:heat", False): ("pipeline2d", []),
+                 (both, False): (None, []),
+                 (both, True): ("xla", []),
+                 ("oom:heat.pipeline", False): ("pipeline",
+                                                [[picked, picked // 2]])}
+        procs = {}
+        for plan, plain in plans:
+            child_env = dict(env, CME213_FAULTS=plan,
+                             SMOKE_PLAIN_FALLBACK="1" if plain else "0")
+            procs[plan, plain] = subprocess.Popen(
+                [sys.executable, "-c", child], cwd=HERE, env=child_env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)
+        demotions = {}
+        for (plan, plain), proc in procs.items():
+            name = f"{plan}{' plain_fallback' if plain else ''}"
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for other in procs.values():
+                    if other.poll() is None:
+                        os.killpg(other.pid, signal.SIGKILL)
+                        other.communicate()
+                fail(f"demotion child {name}: no result in 300 s")
+            if proc.returncode != 0:
+                fail(f"demotion child {name}: rc {proc.returncode}\n"
+                     f"{stderr[-3000:]}")
+            row = json.loads(stdout.strip().splitlines()[-1])
+            demotions[name] = row
+            want_rung, want_shrunk = plans[plan, plain]
+            if want_rung is None:
+                print(f"CME213_FAULTS={name}: raised ({row['error']}), "
+                      f"launches {row['launches']}")
+                if row["rung"] is not None or "all 2 rungs of heat" not in \
+                        row["error"]:
+                    fail(f"{name}: {row}, expected the ladder to raise")
+                continue
+            print(f"CME213_FAULTS={name}: served {row['rung']} (failed "
+                  f"{row['failed']}), tile_y {row['tiles']}, shrunk "
+                  f"{row['shrunk']}, vs run_heat max ULP {row['ulp']}, "
                   f"launches {row['launches']}")
-            if row["rung"] is not None or "all 2 rungs of heat" not in \
-                    row["error"]:
-                fail(f"{name}: {row}, expected the ladder to raise")
-            continue
-        print(f"CME213_FAULTS={name}: served {row['rung']} (failed "
-              f"{row['failed']}), tile_y {row['tiles']}, shrunk "
-              f"{row['shrunk']}, vs run_heat max ULP {row['ulp']}, "
-              f"launches {row['launches']}")
-        if row["rung"] != want_rung or row["ulp"] != 0 or \
-                row["shrunk"] != want_shrunk:
-            fail(f"{name}: {row}, expected {want_rung} at 0 ULP, shrunk "
-                 f"{want_shrunk}")
-        kernel = {"pipeline": "pipeline", "pipeline2d": "pipeline2d"}.get(
-            want_rung)
-        if kernel and row["launches"][kernel] < 100:
-            fail(f"{name}: the serving kernel {kernel} was not launched")
-    if demotions["oom:heat.pipeline"]["tiles"] != [str(picked // 2)]:
-        fail(f"oom: served at tile_y {demotions['oom:heat.pipeline']}")
+            if row["rung"] != want_rung or row["ulp"] != 0 or \
+                    row["shrunk"] != want_shrunk:
+                fail(f"{name}: {row}, expected {want_rung} at 0 ULP, shrunk "
+                     f"{want_shrunk}")
+            kernel = {"pipeline": "pipeline", "pipeline2d": "pipeline2d"}.get(
+                want_rung)
+            if kernel and row["launches"][kernel] < 100:
+                fail(f"{name}: the serving kernel {kernel} was not launched")
+        if demotions["oom:heat.pipeline"]["tiles"] != [str(picked // 2)]:
+            fail(f"oom: served at tile_y {demotions['oom:heat.pipeline']}")
 
-    # ---------------------------------------------------- 19. SpMV ladder
-    # pwtk through the ladder, cold again (phase 17 emptied the verdicts
-    # and the programs): the gate's probe, the warm-up iteration, the solve
-    label = f"run_spmv_scan {SUITE} pallas-fused guarded"
-    out = counted(label, only("spmv_fused", n_it + 1 + scan_probe),
-                  lambda: spmv.run_spmv_scan(prob, kernel="pallas-fused",
-                                             device=dev))
-    ev = served("spmv_scan")
-    rel_l2 = relative_l2_error(ref64, out)
-    rel_linf = relative_linf_error(ref64, out)
-    print(f"{label}: served {ev['rung']} (demoted {ev['demoted']}), vs f64 "
-          f"plain: rel L2 {rel_l2:.3e}, rel Linf {rel_linf:.3e}")
-    if ev["rung"] != "pallas-fused" or ev["demoted"] or not (
-            rel_l2 <= 1e-4 and rel_linf <= 1e-3):
-        fail(f"{label}: {ev}, rel L2 {rel_l2}, rel Linf {rel_linf}")
-    spmv_guarded = {"pwtk": {"rung": ev["rung"], "rel_l2": rel_l2,
-                             "rel_linf": rel_linf}}
-    with tempfile.TemporaryDirectory() as out_dir:
-        os.chdir(out_dir)
-        try:
-            if spmv.main(["spmv_scan", "gen", "a.txt", "x.txt"]) != 0:
-                fail("spmv_scan gen")
-            gen = spmv.load_problem("a.txt", "x.txt")
-            exact = spmv.run_spmv_scan(gen, kernel="pallas-fused",
-                                       device=dev)
-            mark = len(core.trace.events())
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = spmv.main(["spmv_scan", "a.txt", "x.txt", "cpu_check",
-                                "--kernel=pallas-fused", "--canonical"])
-            padded = np.loadtxt("b.txt", dtype=np.float32)
-        finally:
-            os.chdir(cwd)
-    pad_probes = [e for e in core.trace.events()[mark:]
-                  if e["event"] == "conformance-probe"
-                  and e["op"] == "spmv_scan.pad"]
-    n_to = core.programs.canonical_size(gen.n)
-    print(f"spmv_scan CLI --canonical gen n={gen.n} -> bucket {n_to}: rc "
-          f"{rc}, bucket gate {[(e['rung'], e['ok']) for e in pad_probes]},"
-          f" bitwise equal to the unpadded solve: "
-          f"{np.array_equal(padded, exact)}")
-    if rc != 0 or "Worked!" not in buf.getvalue() or \
-            [(e["rung"], e["ok"]) for e in pad_probes] != \
-            [("pallas-fused", True)] or not np.array_equal(padded, exact):
-        fail(f"--canonical: rc {rc}, probes {pad_probes}\n{buf.getvalue()}")
-    if not any(k[2] == f"n{n_to}/i{gen.iters}"
-               for k in core.programs.keys()):
-        fail("--canonical did not solve in its bucket")
-    # on the card a kernel demotes only to the other kernel (B7 to B6), and
-    # to flat, the gate's reference, only when the caller asks; each
-    # demoted result is held to the CLI's own bounds of the f64 golden
-    both = "fail:spmv_scan.pallas-fused,fail:spmv_scan.pallas"
-    fail_cases = (("fail:spmv_scan.pallas-fused", False, "pallas"),
-                  (both, False, None), (both, True, "flat"))
-    for plan, plain, want in fail_cases:
-        name = f"{plan}{' plain_fallback' if plain else ''}"
-        marked = len(core.trace.events("served"))
-        try:
-            with core.faults.injected(plan):
-                out = spmv.run_spmv_scan(gen, kernel="pallas-fused",
-                                         plain_fallback=plain, device=dev)
-        except core.FrameworkError as e:
-            print(f"CME213_FAULTS={name}: raised ({str(e)[:200]})")
-            if want is not None or "all 2 rungs of spmv_scan" not in str(e) \
-                    or len(core.trace.events("served")) != marked:
-                fail(f"{name}: raised {e}")
-            spmv_guarded[name] = {"rung": None}
-            continue
+        # ---------------------------------------------------- 19. SpMV ladder
+        phase(19)
+        # pwtk through the ladder, cold again (phase 17 emptied the verdicts
+        # and the programs): the gate's probe, the warm-up iteration, the solve
+        label = f"run_spmv_scan {SUITE} pallas-fused guarded"
+        out = counted(label, only("spmv_fused", n_it + 1 + scan_probe),
+                      lambda: spmv.run_spmv_scan(prob, kernel="pallas-fused",
+                                                 device=dev))
         ev = served("spmv_scan")
-        errs = spmv.external_check(gen, out)
-        print(f"CME213_FAULTS={name}: served {ev['rung']} (failed "
-              f"{ev['failed_rungs']}); vs f64: rel L2 "
-              f"{errs['rel_l2']:.3e}, rel Linf {errs['rel_linf']:.3e}")
-        if ev["rung"] != want or not (errs["rel_l2"] <= 1e-4
-                                      and errs["rel_linf"] <= 1e-3):
-            fail(f"{name}: {ev}, {errs}, expected {want} within the CLI's "
-                 f"bounds")
-        spmv_guarded[name] = {"rung": ev["rung"], **errs}
-    spmv_guarded.update(canonical={"n": gen.n, "bucket": n_to,
-                                   "bitwise": True})
+        rel_l2 = relative_l2_error(ref64, out)
+        rel_linf = relative_linf_error(ref64, out)
+        print(f"{label}: served {ev['rung']} (demoted {ev['demoted']}), vs f64 "
+              f"plain: rel L2 {rel_l2:.3e}, rel Linf {rel_linf:.3e}")
+        if ev["rung"] != "pallas-fused" or ev["demoted"] or not (
+                rel_l2 <= 1e-4 and rel_linf <= 1e-3):
+            fail(f"{label}: {ev}, rel L2 {rel_l2}, rel Linf {rel_linf}")
+        spmv_guarded = {"pwtk": {"rung": ev["rung"], "rel_l2": rel_l2,
+                                 "rel_linf": rel_linf}}
+        with tempfile.TemporaryDirectory() as out_dir:
+            os.chdir(out_dir)
+            try:
+                if spmv.main(["spmv_scan", "gen", "a.txt", "x.txt"]) != 0:
+                    fail("spmv_scan gen")
+                gen = spmv.load_problem("a.txt", "x.txt")
+                exact = spmv.run_spmv_scan(gen, kernel="pallas-fused",
+                                           device=dev)
+                mark = len(core.trace.events())
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = spmv.main(["spmv_scan", "a.txt", "x.txt", "cpu_check",
+                                    "--kernel=pallas-fused", "--canonical"])
+                padded = np.loadtxt("b.txt", dtype=np.float32)
+            finally:
+                os.chdir(cwd)
+        pad_probes = [e for e in core.trace.events()[mark:]
+                      if e["event"] == "conformance-probe"
+                      and e["op"] == "spmv_scan.pad"]
+        n_to = core.programs.canonical_size(gen.n)
+        print(f"spmv_scan CLI --canonical gen n={gen.n} -> bucket {n_to}: rc "
+              f"{rc}, bucket gate {[(e['rung'], e['ok']) for e in pad_probes]},"
+              f" bitwise equal to the unpadded solve: "
+              f"{np.array_equal(padded, exact)}")
+        if rc != 0 or "Worked!" not in buf.getvalue() or \
+                [(e["rung"], e["ok"]) for e in pad_probes] != \
+                [("pallas-fused", True)] or not np.array_equal(padded, exact):
+            fail(f"--canonical: rc {rc}, probes {pad_probes}\n{buf.getvalue()}")
+        if not any(k[2] == f"n{n_to}/i{gen.iters}"
+                   for k in core.programs.keys()):
+            fail("--canonical did not solve in its bucket")
+        # on the card a kernel demotes only to the other kernel (B7 to B6), and
+        # to flat, the gate's reference, only when the caller asks; each
+        # demoted result is held to the CLI's own bounds of the f64 golden
+        both = "fail:spmv_scan.pallas-fused,fail:spmv_scan.pallas"
+        fail_cases = (("fail:spmv_scan.pallas-fused", False, "pallas"),
+                      (both, False, None), (both, True, "flat"))
+        for plan, plain, want in fail_cases:
+            name = f"{plan}{' plain_fallback' if plain else ''}"
+            marked = len(core.trace.events("served"))
+            try:
+                with core.faults.injected(plan):
+                    out = spmv.run_spmv_scan(gen, kernel="pallas-fused",
+                                             plain_fallback=plain, device=dev)
+            except core.FrameworkError as e:
+                print(f"CME213_FAULTS={name}: raised ({str(e)[:200]})")
+                if want is not None or "all 2 rungs of spmv_scan" not in str(e) \
+                        or len(core.trace.events("served")) != marked:
+                    fail(f"{name}: raised {e}")
+                spmv_guarded[name] = {"rung": None}
+                continue
+            ev = served("spmv_scan")
+            errs = spmv.external_check(gen, out)
+            print(f"CME213_FAULTS={name}: served {ev['rung']} (failed "
+                  f"{ev['failed_rungs']}); vs f64: rel L2 "
+                  f"{errs['rel_l2']:.3e}, rel Linf {errs['rel_linf']:.3e}")
+            if ev["rung"] != want or not (errs["rel_l2"] <= 1e-4
+                                          and errs["rel_linf"] <= 1e-3):
+                fail(f"{name}: {ev}, {errs}, expected {want} within the CLI's "
+                     f"bounds")
+            spmv_guarded[name] = {"rung": ev["rung"], **errs}
+        spmv_guarded.update(canonical={"n": gen.n, "bucket": n_to,
+                                       "bitwise": True})
 
-    # ---------------------------------------------------- 20. hw5 gates
-    core.conformance.reset()
-    mark = len(core.trace.events())
-    label = (f"run_distributed_heat {DIST_N}x{DIST_N} 2x2 pallas "
-             f"conformance")
-    out = counted(label, only("local", DIST_ITERS + DIST_PROBE_LAUNCHES),
-                  lambda: dist.run_distributed_heat(dist_p, mesh2d,
-                                                    local_kernel="pallas"))
-    new = core.trace.events()[mark:]
-    probes = [(e["rung"], e["ok"]) for e in new
-              if e["event"] == "conformance-probe"]
-    demoted = [e for e in new if e["event"] == "rung-failed"]
-    ulp, err = max_errors(torch.from_numpy(out), dist_ref, limit=0)
-    print(f"{label}: probes {probes}, demotions {len(demoted)}, vs the "
-          f"1-device run_heat max ULP {ulp}")
-    if probes != [("pallas-k1", True)] or demoted:
-        fail(f"{label}: probes {probes}, demotions {demoted}")
-    _, mode = dist.make_iterated_sharded_scan_gated(
-        dist.make_mesh_1d(devices=vdev))
-    print(f"make_iterated_sharded_scan_gated on {DIST_SHARDS} shards: "
-          f"serves {mode}")
-    if mode != "ring":
-        fail(f"the gated sharded scan served {mode}")
+        # ---------------------------------------------------- 20. hw5 gates
+        phase(20)
+        core.conformance.reset()
+        mark = len(core.trace.events())
+        label = (f"run_distributed_heat {DIST_N}x{DIST_N} 2x2 pallas "
+                 f"conformance")
+        out = counted(label, only("local", DIST_ITERS + DIST_PROBE_LAUNCHES),
+                      lambda: dist.run_distributed_heat(dist_p, mesh2d,
+                                                        local_kernel="pallas"))
+        new = core.trace.events()[mark:]
+        probes = [(e["rung"], e["ok"]) for e in new
+                  if e["event"] == "conformance-probe"]
+        demoted = [e for e in new if e["event"] == "rung-failed"]
+        ulp, err = max_errors(torch.from_numpy(out), dist_ref, limit=0)
+        print(f"{label}: probes {probes}, demotions {len(demoted)}, vs the "
+              f"1-device run_heat max ULP {ulp}")
+        if probes != [("pallas-k1", True)] or demoted:
+            fail(f"{label}: probes {probes}, demotions {demoted}")
+        _, mode = dist.make_iterated_sharded_scan_gated(
+            dist.make_mesh_1d(devices=vdev))
+        print(f"make_iterated_sharded_scan_gated on {DIST_SHARDS} shards: "
+              f"serves {mode}")
+        if mode != "ring":
+            fail(f"the gated sharded scan served {mode}")
 
-    # ---------------------------------------------------- 21. tune
-    from cme213_tpu_torch import tune_cli
-    from cme213_tpu_torch.core import tune
+        # ---------------------------------------------------- 21. tune
+        phase(21)
+        from cme213_tpu_torch import tune_cli
+        from cme213_tpu_torch.core import tune
 
-    tune_iters = 100
-    with tempfile.TemporaryDirectory() as tune_dir:
-        os.environ[tune.CACHE_ENV] = os.path.join(tune_dir, "tune.json")
-        tune.reset()
-        try:
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = tune_cli.main([
-                    "run", "--op", "heat", "--gy", str(FULL_N), "--gx",
-                    str(FULL_N), "--order", str(FULL_ORDER), "--k", "1",
-                    "--heat-iters", str(tune_iters), "--runs", "5",
-                    "--json"])
-            if rc != 0:
-                fail(f"tune run --op heat: rc {rc}\n{buf.getvalue()}")
-            (tune_rep,) = json.loads(buf.getvalue())
-            tune.reset()  # the winner comes back from the disk cache
-            core.programs.reset()  # only the next solve's programs
-            mark = len(core.trace.events())
-            u = grid.make_initial_grid(full, device=dev)
-            res = sp.run_heat_resilient(u, tune_iters, full.order,
-                                        full.xcfl, full.ycfl, full.bc)
-            hits = [e for e in core.trace.events()[mark:]
-                    if e["event"] == "tune-hit" and e["op"] == "heat"]
-        finally:
-            del os.environ[tune.CACHE_ENV]
+        tune_iters = 100
+        with tempfile.TemporaryDirectory() as tune_dir:
+            os.environ[tune.CACHE_ENV] = os.path.join(tune_dir, "tune.json")
             tune.reset()
-    win = tune_rep["winner"]
-    print(f"tune run --op heat {tune_rep['shape_class']} on "
-          f"{tune_rep['device']}: winner {win['candidate']} "
-          f"{json.dumps(win['statics'])}")
-    for t in tune_rep["trials"]:
-        print(f"  {t['candidate']:<24} median {t['ms'] / tune_iters:.6f} "
-              f"ms/step over {tune_iters} steps (device-synchronised), "
-              f"ok {t['ok']}")
-    if not all(t["ok"] for t in tune_rep["trials"]) or len(
-            tune_rep["trials"]) != 1 + 3:
-        fail(f"tune: {tune_rep}")
-    ty_run = {dict(k[5]).get("tile_y") for k in core.programs.keys()
-              if k[1] == res.rung and k[2] == tune_rep["shape_class"]
-              and dict(k[5]).get("iters") == str(tune_iters)}
-    print(f"run_heat_resilient with open tiles: tune-hit {hits[-1:]}, "
-          f"served {res.rung} at tile_y {sorted(ty_run)}")
-    if not hits or (win["statics"] and ty_run != {
-            str(win["statics"]["tile_y"])}):
-        fail(f"the tuned winner did not serve: hits {hits}, tiles {ty_run}")
+            try:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = tune_cli.main([
+                        "run", "--op", "heat", "--gy", str(FULL_N), "--gx",
+                        str(FULL_N), "--order", str(FULL_ORDER), "--k", "1",
+                        "--heat-iters", str(tune_iters), "--runs", "5",
+                        "--json"])
+                if rc != 0:
+                    fail(f"tune run --op heat: rc {rc}\n{buf.getvalue()}")
+                (tune_rep,) = json.loads(buf.getvalue())
+                tune.reset()  # the winner comes back from the disk cache
+                core.programs.reset()  # only the next solve's programs
+                mark = len(core.trace.events())
+                u = grid.make_initial_grid(full, device=dev)
+                res = sp.run_heat_resilient(u, tune_iters, full.order,
+                                            full.xcfl, full.ycfl, full.bc)
+                hits = [e for e in core.trace.events()[mark:]
+                        if e["event"] == "tune-hit" and e["op"] == "heat"]
+            finally:
+                del os.environ[tune.CACHE_ENV]
+                tune.reset()
+        win = tune_rep["winner"]
+        print(f"tune run --op heat {tune_rep['shape_class']} on "
+              f"{tune_rep['device']}: winner {win['candidate']} "
+              f"{json.dumps(win['statics'])}")
+        for t in tune_rep["trials"]:
+            print(f"  {t['candidate']:<24} median {t['ms'] / tune_iters:.6f} "
+                  f"ms/step over {tune_iters} steps (device-synchronised), "
+                  f"ok {t['ok']}")
+        if not all(t["ok"] for t in tune_rep["trials"]) or len(
+                tune_rep["trials"]) != 1 + 3:
+            fail(f"tune: {tune_rep}")
+        ty_run = {dict(k[5]).get("tile_y") for k in core.programs.keys()
+                  if k[1] == res.rung and k[2] == tune_rep["shape_class"]
+                  and dict(k[5]).get("iters") == str(tune_iters)}
+        print(f"run_heat_resilient with open tiles: tune-hit {hits[-1:]}, "
+              f"served {res.rung} at tile_y {sorted(ty_run)}")
+        if not hits or (win["statics"] and ty_run != {
+                str(win["statics"]["tile_y"])}):
+            fail(f"the tuned winner did not serve: hits {hits}, tiles {ty_run}")
 
-    # ---------------------------------------------------- 22. calibrate
-    out, secs = run_module(["cme213_tpu_torch", "doctor", "calibrate",
-                            "--json"], 300)
-    calibration = json.loads(out)
-    print(f"doctor calibrate --json ({secs:.1f} s):")
-    for r in calibration:
-        print(f"  {json.dumps(r)}")
-    if len(calibration) != 5 or any("error" in r for r in calibration) or \
-            {(r["op"], r["rung"]) for r in calibration} != {
-                ("spmv_scan", "flat"), ("spmv_scan", "pallas-fused"),
-                ("heat", "xla"), ("heat", "pipeline"), ("sort", "xla")}:
-        fail(f"doctor calibrate: {calibration}")
+        # ---------------------------------------------------- 22. calibrate
+        phase(22)
+        calibration = calibrate()
 
-    # ---------------------------------------------------- 23-27. runners
-    core.trace.clear_events()
-    runners = runner_phases(counted, only, prob, ref64, work)
-    flight_dump = runners.pop("flight_dump")
-
-    # ---------------------------------------------------- 28. telemetry
-    telemetry = telemetry_phase(counted, only, paths, work, ident, prob,
-                                headline, flight_dump, sweep_copy)
-
-    # ---------------------------------------------------- 29. hw1/hw3/hw4
-    workloads = workloads_phase(counted, only, paths, work, ident,
-                                calibration)
+        # ---------------------------------------------------- 23-27. runners
+        core.trace.clear_events()
+        runners = runner_phases(counted, only, prob, ref64, work)
+        flight_dump = runners.pop("flight_dump")
+        lines["runners"] = runners
+    if "tooling" in groups:
+        if "guarded" not in groups:
+            phase("set-up")
+            calibration = calibrate()
+            flight_dump = flight_child(kind, work)["flight_dump"]
+        # ------------------------------------------------ 28. telemetry
+        phase(28)
+        lines["telemetry"] = telemetry_phase(counted, only, paths, work,
+                                             ident, prob, headline,
+                                             flight_dump, sweep_copy)
+        # ------------------------------------------------ 29. hw1/hw3/hw4
+        phase(29)
+        lines["workloads"] = workloads_phase(counted, only, paths, work,
+                                             ident, calibration)
 
     # ---------------------------------------------------- 30. the gang
-    gang = gang_phase(counted, only, paths, work, dist_p, dist_ref,
-                      dist_rows, vdev, prob, ref64)
+    if "gang" in groups:
+        phase(30)
+        gang = gang_phase(counted, only, paths, work, dist_p, dist_ref,
+                          dist_rows, vdev, prob, ref64)
+        lines["gang"] = gang
 
     # ---------------------------------------------------- 31. serving
-    serving = serving_phase(counted, only, paths, work, ident, prob)
+    if "serving" in groups:
+        phase(31)
+        lines["serving"] = serving_phase(counted, only, paths, work, ident,
+                                         prob)
 
     # ---------------------------------------------------- 32. the fleet
-    fleet = fleet_phase(counted, only, paths, work, ident)
+    if "fleet" in groups:
+        phase(32)
+        lines["fleet"] = fleet_phase(counted, only, paths, work, ident)
+
+    # ---------------------------------------------------- 33. four cards
+    if "multicard" in groups:
+        phase(33)
+        lines["multicard"] = multicard_phase(counted, only, paths, work,
+                                             ident, prob, ref64)
+    phase(None)
 
     # ---------------------------------------------------- summary lines
-    # launches: the full-size path a user reaches each kernel by (B1 through
-    # run_single behind the ladder, cold: its gate's probe included; B2
-    # through its own entry point at k = 1; B6 and B7 through run_spmv_scan
-    # at pwtk)
-    main_path = {"pipeline": f"run_single {FULL_N}x{FULL_N} guarded cold",
-                 "pipeline2d": f"run_heat_pipeline2d {FULL_N}x{FULL_N} k=1",
-                 "local": f"run_distributed {DIST_N}x{DIST_N} 2d sync "
-                          f"pallas",
-                 "segscan": f"run_spmv_scan {SUITE} pallas",
-                 "spmv_fused": f"run_spmv_scan {SUITE} pallas-fused",
-                 "stencil_full": sweep_path, "multistep": sweep_path,
-                 "transpose": sweep_path}
-    for name, path in main_path.items():
-        if paths[path][name] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    kernels = None
+    if "kernels" in groups:
+        # launches: the full-size path a user reaches each kernel by (B1 through
+        # run_single behind the ladder, cold: its gate's probe included; B2
+        # through its own entry point at k = 1; B6 and B7 through run_spmv_scan
+        # at pwtk)
+        main_path = {"pipeline": f"run_single {FULL_N}x{FULL_N} guarded cold",
+                     "pipeline2d": f"run_heat_pipeline2d {FULL_N}x{FULL_N} k=1",
+                     "local": f"run_distributed {DIST_N}x{DIST_N} 2d sync "
+                              f"pallas",
+                     "segscan": f"run_spmv_scan {SUITE} pallas",
+                     "spmv_fused": f"run_spmv_scan {SUITE} pallas-fused",
+                     "stencil_full": sweep_path, "multistep": sweep_path,
+                     "transpose": sweep_path}
+        for name, path in main_path.items():
+            if paths[path][name] <= 0:
+                fail(f"kernel {name} was not launched on the main path")
 
-    def by_path(name):
-        return {label: seen[name] for label, seen in paths.items()
-                if seen[name]}
+        def by_path(name):
+            return {label: seen[name] for label, seen in paths.items()
+                    if seen[name]}
 
-    kernels = []
-    for name in entries:
-        k1 = timings[name][0]
+        kernels = []
+        for name in entries:
+            k1 = timings[name][0]
+            kernels.append({
+                "name": f"heat_ksteps ({name})", "route": "cuda",
+                "source": SOURCE[name], "replaces": REPLACES[name],
+                "launches": paths[main_path[name]][name],
+                "main_path": main_path[name],
+                "launches_by_path": by_path(name),
+                "max_abs_err": worst_err[name], "max_ulp": worst_ulp[name],
+                "ms": k1["ms"], "plain_ms": plain_ms, "bound_ms": k1["bound_ms"],
+                "bound_by": k1["bound_by"], "library_ms": library_ms,
+                "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
+                        f"f32, k=1", "per_k": timings[name]})
+        kernels[0]["headline"] = [b for b in beside
+                                  if b["kernel"].startswith("pipeline-")]
+        kernels[1]["headline"] = [b for b in beside
+                                  if b["kernel"].startswith("pipeline2d-")]
+        k1 = local_timing[0]
         kernels.append({
-            "name": f"heat_ksteps ({name})", "route": "cuda",
-            "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": paths[main_path[name]][name],
-            "main_path": main_path[name],
-            "launches_by_path": by_path(name),
-            "max_abs_err": worst_err[name], "max_ulp": worst_ulp[name],
-            "ms": k1["ms"], "plain_ms": plain_ms, "bound_ms": k1["bound_ms"],
-            "bound_by": k1["bound_by"], "library_ms": library_ms,
-            "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
-                    f"f32, k=1", "per_k": timings[name]})
-    kernels[0]["headline"] = [b for b in beside
-                              if b["kernel"].startswith("pipeline-")]
-    kernels[0]["guarded"] = dict(guarded_row, demotions=demotions,
-                                 tune=tune_rep)
-    kernels[1]["headline"] = [b for b in beside
-                              if b["kernel"].startswith("pipeline2d-")]
-    k1 = local_timing[0]
-    kernels.append({
-        "name": "heat_ksteps (local)", "route": "cuda",
-        "source": SOURCE["local"], "replaces": REPLACES["local"],
-        "launches": paths[main_path["local"]]["local"],
-        "main_path": main_path["local"],
-        "launches_by_path": by_path("local"),
-        "max_abs_err": local_err, "max_ulp": local_ulp,
-        "ms": k1["ms"], "plain_ms": local_plain_ms,
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": local_library_ms,
-        "unit": f"ms per step (one launch on the 2x2 mesh's four padded "
-                f"blocks), {DIST_N}x{DIST_N} order 8 f32, k=1",
-        "per_k": local_timing, "paths": dist_rows, "idle_share": idle,
-        "gang": gang["a"]["ranks"]})
-    scan_rows = {
-        "segscan": (b6_ms, b6_plain_ms, b6_bound, b6_by,
-                    f"ms per scan, {SUITE} n={n} f32"),
-        "spmv_fused": (spmv_rows["pallas-fused"]["ms"], b7_plain_ms,
-                       it_bound, it_by,
-                       f"ms per iteration, {SUITE} n={n} f32")}
-    for name, (ms, p_ms, b_ms, b_by, unit) in scan_rows.items():
+            "name": "heat_ksteps (local)", "route": "cuda",
+            "source": SOURCE["local"], "replaces": REPLACES["local"],
+            "launches": paths[main_path["local"]]["local"],
+            "main_path": main_path["local"],
+            "launches_by_path": by_path("local"),
+            "max_abs_err": local_err, "max_ulp": local_ulp,
+            "ms": k1["ms"], "plain_ms": local_plain_ms,
+            "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+            "library_ms": local_library_ms,
+            "unit": f"ms per step (one launch on the 2x2 mesh's four padded "
+                    f"blocks), {DIST_N}x{DIST_N} order 8 f32, k=1",
+            "per_k": local_timing, "paths": dist_rows, "idle_share": idle})
+        scan_rows = {
+            "segscan": (b6_ms, b6_plain_ms, b6_bound, b6_by,
+                        f"ms per scan, {SUITE} n={n} f32"),
+            "spmv_fused": (spmv_rows["pallas-fused"]["ms"], b7_plain_ms,
+                           it_bound, it_by,
+                           f"ms per iteration, {SUITE} n={n} f32")}
+        for name, (ms, p_ms, b_ms, b_by, unit) in scan_rows.items():
+            kernels.append({
+                "name": f"segmented_scan ({name})", "route": "cuda",
+                "source": SOURCE[name], "replaces": REPLACES[name],
+                "launches": paths[main_path[name]][name],
+                "main_path": main_path[name],
+                "launches_by_path": by_path(name),
+                "max_abs_err": scan_err[name], "max_ulp": scan_ulp[name],
+                "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "library_note": NO_LIBRARY,
+                "cumsum_yardstick_ms": cumsum_ms, "unit": unit,
+                "headline": [r for r in spmv_line["kernels"]
+                             if SCAN_KERNELS.get(r["kernel"]) == name]})
+        kernels[-1]["paths"] = spmv_rows  # B7's row: every kernel at pwtk
+        # B4 and B5: per step at 4000² order 8 f32 tile 200 (B5 at k = 2);
+        # their plain versions are run_heat and run_heat_roll, phase 4's
+        band_rows = {"stencil_full": (band_timing["stencil_full"], torch_ms),
+                     "multistep": (band_timing["multistep"], plain_ms)}
+        for name, (per_k, p_ms) in band_rows.items():
+            first = per_k[0]
+            kernels.append({
+                "name": f"heat_band ({name})", "route": "cuda",
+                "source": SOURCE[name], "replaces": REPLACES[name],
+                "launches": paths[main_path[name]][name],
+                "main_path": main_path[name],
+                "launches_by_path": by_path(name),
+                "max_abs_err": band_err[name], "max_ulp": band_ulp[name],
+                "ms": first["ms"], "plain_ms": p_ms,
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": library_ms,
+                "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
+                        f"f32, tile_y {BAND_TILE}, k={first['k']}",
+                "per_k": per_k})
+        # B4's row: the sweeps' CSVs, the pallas_tile cells by CUDA events and
+        # host clock, the idle share of a 2000² solve; both rows: the plans
+        kernels[-2].update(sweep_rows=csv_rows, pallas_tile=tile_timing,
+                           idle_share=band_idle)
+        kernels[-2]["plans"] = kernels[-1]["plans"] = band_plans
         kernels.append({
-            "name": f"segmented_scan ({name})", "route": "cuda",
-            "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": paths[main_path[name]][name],
-            "main_path": main_path[name],
-            "launches_by_path": by_path(name),
-            "max_abs_err": scan_err[name], "max_ulp": scan_ulp[name],
-            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "library_note": NO_LIBRARY,
-            "cumsum_yardstick_ms": cumsum_ms, "unit": unit,
-            "headline": [r for r in spmv_line["kernels"]
-                         if SCAN_KERNELS.get(r["kernel"]) == name]})
-    kernels[-1]["paths"] = spmv_rows  # B7's row: every kernel at pwtk
-    kernels[-1]["guarded"] = spmv_guarded
-    # B4 and B5: per step at 4000² order 8 f32 tile 200 (B5 at k = 2);
-    # their plain versions are run_heat and run_heat_roll, phase 4's
-    band_rows = {"stencil_full": (band_timing["stencil_full"], torch_ms),
-                 "multistep": (band_timing["multistep"], plain_ms)}
-    for name, (per_k, p_ms) in band_rows.items():
-        first = per_k[0]
-        kernels.append({
-            "name": f"heat_band ({name})", "route": "cuda",
-            "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": paths[main_path[name]][name],
-            "main_path": main_path[name],
-            "launches_by_path": by_path(name),
-            "max_abs_err": band_err[name], "max_ulp": band_ulp[name],
-            "ms": first["ms"], "plain_ms": p_ms,
-            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": library_ms,
-            "unit": f"ms per step, {FULL_N}x{FULL_N} order {FULL_ORDER} "
-                    f"f32, tile_y {BAND_TILE}, k={first['k']}",
-            "per_k": per_k})
-    # B4's row: the sweeps' CSVs, the pallas_tile cells by CUDA events and
-    # host clock, the idle share of a 2000² solve; both rows: the plans
-    kernels[-2].update(sweep_rows=csv_rows, pallas_tile=tile_timing,
-                       idle_share=band_idle)
-    kernels[-2]["plans"] = kernels[-1]["plans"] = band_plans
-    kernels.append({
-        "name": "transpose_tiles", "route": "cuda",
-        "source": SOURCE["transpose"], "replaces": REPLACES["transpose"],
-        "launches": paths[main_path["transpose"]]["transpose"],
-        "main_path": main_path["transpose"],
-        "launches_by_path": by_path("transpose"),
-        "max_abs_err": 0.0, "max_ulp": 0,
-        "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
-        "bound_by": t_by, "library_ms": t_library_ms,
-        "unit": f"ms per transpose, {SIDE}x{SIDE} f32"})
-    if turns is not None:
-        for row in kernels[:-1]:  # every kernel but B8
-            row["turns"] = turns
-    print(json.dumps({"runners": runners}))
-    print(json.dumps({"telemetry": telemetry}))
-    print(json.dumps({"workloads": workloads}))
-    print(json.dumps({"gang": gang, "card": ident}))
-    print(json.dumps({"serving": serving}))
-    print(json.dumps({"fleet": fleet}))
+            "name": "transpose_tiles", "route": "cuda",
+            "source": SOURCE["transpose"], "replaces": REPLACES["transpose"],
+            "launches": paths[main_path["transpose"]]["transpose"],
+            "main_path": main_path["transpose"],
+            "launches_by_path": by_path("transpose"),
+            "max_abs_err": 0.0, "max_ulp": 0,
+            "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
+            "bound_by": t_by, "library_ms": t_library_ms,
+            "unit": f"ms per transpose, {SIDE}x{SIDE} f32"})
+        if turns is not None:
+            for row in kernels[:-1]:  # every kernel but B8
+                row["turns"] = turns
+    if kernels is not None:
+        # the other groups' numbers on the kernels they read
+        row = {r["name"]: r for r in kernels}
+        if "guarded" in groups:
+            row["heat_ksteps (pipeline)"]["guarded"] = dict(
+                guarded_row, demotions=demotions, tune=tune_rep)
+            row["segmented_scan (spmv_fused)"]["guarded"] = spmv_guarded
+        if "gang" in groups:
+            row["heat_ksteps (local)"]["gang"] = gang["a"]["ranks"]
+    for name, value in lines.items():
+        print(json.dumps({name: value, "card": ident} if name == "gang"
+                         else {name: value}))
+    for name, secs in PHASE_SECONDS.items():
+        print(f"phase {name}: {secs:.1f} s")
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s")
     print(ident)
-    print(json.dumps({"kernels": kernels}))
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

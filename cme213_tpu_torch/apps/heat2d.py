@@ -267,13 +267,13 @@ def run_distributed(params: SimParams, num_devices: int | None = None,
     rank, world = process_info()
     if world > 1:
         from ..core import metrics
-        from ..dist.multihost import BACKEND
+        from ..dist.multihost import backend
 
         solve = metrics.gauge("dist_heat.solve_s").value
         exchange = metrics.gauge("dist_heat.exchange_s").value
         print(f"rank {rank}/{world}: solve {solve:.6f} s, halo exchange "
               f"{exchange:.6f} s ({100 * exchange / solve:.1f}%), backend "
-              f"{BACKEND}")
+              f"{backend()}")
     if save_files:
         _save_finals(params, out, mesh, out_dir)
     return out
@@ -344,8 +344,8 @@ def main(argv: list[str]) -> int:
     params = SimParams.from_file(path, distributed=distributed or supervised)
     if distributed or supervised:
         # a gang's ranks join the process group before they list its
-        # devices (no-op outside a gang)
-        initialize_multihost()
+        # devices (no-op outside a gang); the device picks the backend
+        initialize_multihost(device=device)
     if supervised:
         run_distributed_supervised(params, ckpt_dir=ckpt_dir,
                                    ckpt_every=ckpt_every, save_files=True,

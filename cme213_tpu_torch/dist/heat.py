@@ -8,8 +8,9 @@ tensor per shard it owns, ``blocks[yi][xi]`` on the mesh's device ``(yi,
 xi)``; a shard another rank of the gang owns is ``None`` there
 (``Mesh.owners``).  The shard's place in that list stands in for
 ``lax.axis_index``.  Each step exchanges ``border``-wide halos
-(``halo.py``: copies within the process, the gang's gloo group across
-ranks) and applies the order-2/4/8 stencil to every block the process
+(``halo.py``: copies within the process, card to card between the cards
+of a mesh; the gang's group across ranks, NCCL card to card or gloo
+through the host) and applies the order-2/4/8 stencil to every block the process
 holds.
 
 Step variants, as in the JAX package:
@@ -49,8 +50,9 @@ from ..grid import interior, make_initial_grid
 from ..ops.stencil import stencil_interior
 from ..ops.stencil_pipeline import (stencil_local_multistep_plain,
                                     stencil_local_multistep_shards)
-from .halo import EXCHANGE, gather_shards, pad_with_halos
+from .halo import EXCHANGE, gather_shards, pad_lines_with_halos
 from .mesh import Mesh
+from .multihost import barrier
 
 #: one tensor per shard, ``blocks[yi][xi]``, ``None`` for a shard another
 #: rank owns; a 1-D mesh has one column
@@ -62,20 +64,20 @@ def _pad_axis(blocks: Blocks, dim: int, border: int, lo_fill, hi_fill,
     """Every line of shards along mesh axis ``dim`` (0: y, 1: x) extended
     by its halos along tensor dim ``dim`` — the JAX package's
     ``_pad_axis0``, which transposes for x.  ``owners`` (the mesh's, shaped
-    like ``blocks``) names the ranks of absent shards; each line's
-    messages take tags of their own."""
+    like ``blocks``) names the ranks of absent shards; all lines exchange
+    at once (``halo.pad_lines_with_halos``), each line's staged messages
+    under tags of their own."""
     y_size, x_size = len(blocks), len(blocks[0])
     if owners is None:
         owners = np.zeros((y_size, x_size), dtype=np.int64)
     if dim == 1:
-        return [pad_with_halos(row, border, lo_fill, hi_fill, dim=1,
-                               owners=owners[yi],
-                               tag=2 * y_size * (x_size + yi))
-                for yi, row in enumerate(blocks)]
-    cols = [pad_with_halos([row[xi] for row in blocks], border, lo_fill,
-                           hi_fill, dim=0, owners=owners[:, xi],
-                           tag=2 * y_size * xi)
-            for xi in range(x_size)]
+        return pad_lines_with_halos(
+            blocks, border, lo_fill, hi_fill, dim=1, owners=list(owners),
+            tags=[2 * y_size * (x_size + yi) for yi in range(y_size)])
+    cols = pad_lines_with_halos(
+        [[row[xi] for row in blocks] for xi in range(x_size)], border,
+        lo_fill, hi_fill, dim=0, owners=[owners[:, xi] for xi in range(x_size)],
+        tags=[2 * y_size * xi for xi in range(x_size)])
     return [[col[yi] for col in cols] for yi in range(y_size)]
 
 
@@ -308,16 +310,6 @@ def _synchronize(devices) -> None:
             torch.cuda.synchronize(d)
 
 
-def _barrier() -> None:
-    """Every rank of the gang reaches this point (a no-op outside one)."""
-    from .multihost import process_info
-
-    if process_info()[1] > 1:
-        import torch.distributed as dist
-
-        dist.barrier()
-
-
 def distributed_heat_step(params: SimParams, mesh: Mesh,
                           overlap: bool = False):
     """The sharded single step ``u (ny_pad, nx_pad) -> u'`` on interior
@@ -401,7 +393,7 @@ def prepare_distributed_heat(params: SimParams, mesh: Mesh,
         blocks = _scatter(torch.from_numpy(u0), devices, ny_loc, nx_loc,
                           owners, mesh.rank)
         _synchronize(local_devices)
-        _barrier()
+        barrier()
         exchanged = EXCHANGE["seconds"]
         t0 = time.perf_counter()
         blocks = _run(blocks, params, iters, overlap, steps_per_exchange=k,

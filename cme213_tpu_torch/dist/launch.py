@@ -7,7 +7,12 @@ distributed runs with ``mpirun -np N ./2dHeat`` under Torque/PBS
     python -m cme213_tpu_torch.dist.launch --np 2 [--devices-per-proc 2] \
         -- python -m cme213_tpu_torch heat2d params.in --distributed
 
-It picks a free port for the process group's rendezvous, spawns N copies of
+It hosts the process group's rendezvous itself, as torchrun's agent does
+(``Rendezvous``): for each incarnation a socket bound to a port the system
+picks and listening before any rank starts, so no other process can take
+the port between its choice and the bind; torch's ``TCPStore`` then
+serves on that socket, and the ranks join it as clients
+(``TORCHELASTIC_USE_AGENT_STORE=True``).  It spawns N copies of
 the command with torchrun's variables (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) that
 ``dist.multihost.initialize_multihost`` reads, prefixes each line of
@@ -16,6 +21,15 @@ rank fails.  ``--devices-per-proc N`` exports ``CME213_DEVICES_PER_PROC``:
 each rank then holds N shards on its own device
 (``core.platform.virtual_devices``).  It never moves a rank to the CPU; a
 rank runs there only when its command asks (``--device=cpu``).
+
+Each rank chooses its backend from the device it runs on
+(``multihost.resolve_backend``: ``nccl`` when each rank gets a card of its
+own, else ``gloo``), since only the rank knows where its shards lie.
+``--backend gloo`` asks every rank for gloo and is exported as
+``CME213_DIST_BACKEND``; ``auto``, the default, exports nothing.  The
+``gang-launch`` span names the backend the launcher expects
+(``gang_backend``: the same rule, for the command's ``--device=``); each
+rank's start line names the one it joined with.
 
 Failure handling is layered:
 
@@ -67,6 +81,53 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind((_HOST, 0))
         return s.getsockname()[1]
+
+
+class Rendezvous:
+    """One incarnation's rendezvous.  ``port`` is bound and listening from
+    construction on (no torch yet); ``serve()`` starts torch's
+    ``TCPStore`` on that socket, which the ranks join as clients under
+    ``TORCHELASTIC_USE_AGENT_STORE=True`` — called after they are
+    spawned, torch's import overlaps their start-up, and a rank that
+    connects first waits in the listen queue.  ``close()`` ends it."""
+
+    def __init__(self, host: str = _HOST):
+        self.host = host
+        self._sock = socket.socket()
+        self._sock.bind((host, 0))
+        self._sock.listen(128)
+        self.port = self._sock.getsockname()[1]
+        self._store = None
+
+    def serve(self) -> "Rendezvous":
+        if self._store is None:
+            from torch.distributed import TCPStore
+
+            self._store = TCPStore(self.host, self.port, is_master=True,
+                                   wait_for_workers=False,
+                                   master_listen_fd=self._sock.fileno())
+            self._sock.detach()  # the store owns the socket now
+        return self
+
+    def close(self) -> None:
+        if self._store is not None:
+            self._store = None  # closes its socket
+        else:
+            self._sock.close()
+
+
+def gang_backend(world: int, cmd: list[str], asked: str = "auto") -> str:
+    """The backend a gang of ``world`` ranks running ``cmd`` is expected to
+    join, for the ``gang-launch`` span: ``gloo`` when asked for (here or in
+    ``CME213_DIST_BACKEND``), else the layout's for the command's
+    ``--device=``.  It is a record, never exported: a rank whose code puts
+    its shards elsewhere chooses for itself.  Raises ``ValueError`` for a
+    backend outside ``multihost.BACKENDS``."""
+    from .multihost import resolve_backend
+
+    device = next((a.split("=", 1)[1] for a in cmd
+                   if a.startswith("--device=")), None)
+    return resolve_backend(world, device, None if asked == "auto" else asked)
 
 
 def _pump(rank: int, stream, out) -> None:
@@ -123,14 +184,25 @@ def _fleet_exposition(sink_paths: list[str]) -> None:
 
 def _rank_env(rank: int, world: int, host: str, port: int,
               incarnation: int, ctx_env: dict, devices_per_proc: int | None,
-              handshake_timeout: float | None) -> dict:
-    """One rank's environment: torchrun's variables, the incarnation, the
-    trace context, and the launcher's options."""
-    from .multihost import DEVICES_PER_PROC_ENV, HANDSHAKE_TIMEOUT_ENV
+              handshake_timeout: float | None, backend: str,
+              agent_store: bool = True) -> dict:
+    """One rank's environment: torchrun's variables (with the launcher's
+    store as the rendezvous when ``agent_store``), the incarnation, the
+    backend when one was asked for, the trace context, and the launcher's
+    options."""
+    from .multihost import (BACKEND_ENV, DEVICES_PER_PROC_ENV,
+                            HANDSHAKE_TIMEOUT_ENV)
 
     env = dict(os.environ, MASTER_ADDR=host, MASTER_PORT=str(port),
                WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
                CME213_INCARNATION=str(incarnation), **ctx_env)
+    if backend != "auto":
+        env[BACKEND_ENV] = backend
+    if agent_store:
+        env.update(TORCHELASTIC_USE_AGENT_STORE="True",
+                   TORCHELASTIC_RESTART_COUNT="0")
+    else:
+        env.pop("TORCHELASTIC_USE_AGENT_STORE", None)
     if handshake_timeout is not None:
         env[HANDSHAKE_TIMEOUT_ENV] = str(handshake_timeout)
     if devices_per_proc:
@@ -151,17 +223,21 @@ def _spawn(rank: int, cmd: list[str], env: dict, pumps: list):
 def launch(np_procs: int, cmd: list[str], devices_per_proc: int | None = None,
            coordinator: str | None = None, timeout: float | None = None,
            handshake_timeout: float | None = None,
-           max_restarts: int = 0) -> int:
+           max_restarts: int = 0, backend: str = "auto") -> int:
     """Spawn ``np_procs`` copies of ``cmd`` with launcher env; returns the
     first unrecovered nonzero exit code (terminating the other ranks),
     124 on ``timeout`` expiry, else 0.  A failed rank is relaunched with
     the same rank id up to ``max_restarts`` times first.  ``coordinator``
-    (``host:port``) fixes the rendezvous; by default a free port here."""
+    (``host:port``) fixes the rendezvous, which rank 0 then hosts; by
+    default the launcher hosts it (``Rendezvous``).  ``backend``:
+    ``auto`` (each rank's layout decides) or ``gloo``."""
     from ..core.trace import propagation_env, record_event, span
-    from .multihost import BACKEND
 
+    expected = gang_backend(np_procs, cmd, backend)
+    rendezvous = None
     if coordinator is None:
-        host, port = _HOST, free_port()
+        rendezvous = Rendezvous()
+        host, port = _HOST, rendezvous.port
     else:
         host, _, port = coordinator.rpartition(":")
         port = int(port)
@@ -175,7 +251,8 @@ def launch(np_procs: int, cmd: list[str], devices_per_proc: int | None = None,
 
     def spawn(rank: int, incarnation: int) -> subprocess.Popen:
         env = _rank_env(rank, np_procs, host, port, incarnation, ctx_env,
-                        devices_per_proc, handshake_timeout)
+                        devices_per_proc, handshake_timeout, backend,
+                        agent_store=rendezvous is not None)
         sink_paths[rank] = _template_trace_file(env, rank)
         _template_metrics_file(env, rank)
         return _spawn(rank, cmd, env, pumps)
@@ -186,12 +263,14 @@ def launch(np_procs: int, cmd: list[str], devices_per_proc: int | None = None,
         # under (via CME213_TRACE_CONTEXT), so a merged multi-rank trace
         # is one causal tree sharing the launcher's trace id
         with span("gang-launch", world=np_procs, coordinator=coordinator,
-                  backend=BACKEND):
+                  backend=expected):
             record_event("gang-launch", incarnation=0, world=np_procs,
                          coordinator=coordinator)
             ctx_env.update(propagation_env())
             for rank in range(np_procs):
                 procs[rank] = spawn(rank, 0)
+            if rendezvous is not None and np_procs > 1:
+                rendezvous.serve()
 
             # poll ALL ranks: a wait() in rank order would miss a higher
             # rank dying first while rank 0 blocks in the rendezvous
@@ -234,6 +313,8 @@ def launch(np_procs: int, cmd: list[str], devices_per_proc: int | None = None,
                 q.wait()
         for t in pumps:
             t.join(timeout=5)
+        if rendezvous is not None:
+            rendezvous.close()
         from ..core.trace import flush_sink
 
         flush_sink()
@@ -250,7 +331,8 @@ def launch_supervised(np_procs: int, cmd: list[str],
                       stall_timeout: float = 30.0,
                       ckpt_dir: str | None = None, ckpt_every: int = 0,
                       resume: bool = False,
-                      poll_interval: float = 0.05) -> int:
+                      poll_interval: float = 0.05,
+                      backend: str = "auto") -> int:
     """Run ``cmd`` as a supervised gang of ``np_procs`` ranks.
 
     Failure unit = the gang: a rank exiting nonzero OR a rank whose
@@ -263,6 +345,12 @@ def launch_supervised(np_procs: int, cmd: list[str],
     (``handshake_timeout``) is raised to at least ``stall_timeout``, so a
     rank waiting for a frozen peer is condemned by the stall clock first.
 
+    Under NCCL a killed rank leaves its peers blocked inside a collective;
+    the exit verdict condemns the gang all the same, and ``kill_gang``
+    ends the blocked ranks (SIGTERM, then SIGKILL after 5 s).  Each
+    incarnation gets a fresh rendezvous store, so its ranks build a fresh
+    process group.
+
     Returns 0 on success, the condemning rank's exit code once the budget
     is exhausted (124 for a stall — it is a hang), or 124 on whole-job
     ``timeout``.
@@ -270,11 +358,11 @@ def launch_supervised(np_procs: int, cmd: list[str],
     import contextlib
 
     from ..core.trace import propagation_env, record_event, span
-    from .multihost import BACKEND
     from .supervisor import (CKPT_DIR_ENV, CKPT_EVERY_ENV, GangSupervisor,
                              HEARTBEAT_DIR_ENV, HEARTBEAT_INTERVAL_ENV,
                              RESUME_ENV)
 
+    expected = gang_backend(np_procs, cmd, backend)
     if ckpt_dir:
         os.makedirs(ckpt_dir, exist_ok=True)
         hb_dir = os.path.join(ckpt_dir, ".heartbeats")
@@ -289,23 +377,28 @@ def launch_supervised(np_procs: int, cmd: list[str],
     # spans under the incarnation that spawned them, so a merged trace
     # separates pre- and post-restart causality
     gang_span = contextlib.ExitStack()
+    rendezvous: list = []  # the live incarnation's
 
     def spawn_gang(incarnation: int) -> dict[int, subprocess.Popen]:
-        # a fresh port per incarnation: the previous one may linger in
-        # TIME_WAIT or be held by a rank not yet reaped
-        port = free_port()
+        # a fresh rendezvous per incarnation: its ranks build a fresh
+        # group, and the previous port may linger in TIME_WAIT
+        for r in rendezvous:
+            r.close()
+        rendezvous[:] = [Rendezvous()]
+        port = rendezvous[0].port
         coordinator = f"{_HOST}:{port}"
         gang_span.close()
         gang_span.enter_context(
             span("gang-launch", incarnation=incarnation, world=np_procs,
-                 coordinator=coordinator, backend=BACKEND))
+                 coordinator=coordinator, backend=expected))
         record_event("gang-launch", incarnation=incarnation,
                      world=np_procs, coordinator=coordinator)
         ctx_env = propagation_env()
         procs = {}
         for rank in range(np_procs):
             env = _rank_env(rank, np_procs, _HOST, port, incarnation,
-                            ctx_env, devices_per_proc, handshake_timeout)
+                            ctx_env, devices_per_proc, handshake_timeout,
+                            backend)
             sink_paths[rank] = _template_trace_file(env, rank)
             _template_metrics_file(env, rank)
             env[HEARTBEAT_DIR_ENV] = hb_dir
@@ -315,6 +408,8 @@ def launch_supervised(np_procs: int, cmd: list[str],
                 env[CKPT_EVERY_ENV] = str(ckpt_every)
             env[RESUME_ENV] = "1" if (resume or incarnation > 0) else "0"
             procs[rank] = _spawn(rank, cmd, env, pumps)
+        if np_procs > 1:
+            rendezvous[0].serve()
         return procs
 
     def kill_gang(procs) -> None:
@@ -386,6 +481,8 @@ def launch_supervised(np_procs: int, cmd: list[str],
             procs = spawn_gang(incarnation)
     finally:
         kill_gang(procs)
+        for r in rendezvous:
+            r.close()
         gang_span.close()
         for t in pumps:
             t.join(timeout=5)
@@ -436,6 +533,12 @@ def main(argv=None) -> int:
                     help="supervised mode: the FIRST incarnation also "
                          "resumes from an existing commit in --ckpt-dir "
                          "(gang restarts always resume)")
+    ap.add_argument("--backend", choices=("auto", "gloo"),
+                    default="auto",
+                    help="the process group's backend (default auto: each "
+                         "rank takes nccl when it gets a card of its own, "
+                         "else gloo; gloo is exported as "
+                         "CME213_DIST_BACKEND)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="command to launch (prefix with --)")
     args = ap.parse_args(argv)
@@ -454,11 +557,12 @@ def main(argv=None) -> int:
             max_restarts=args.max_restarts,
             heartbeat_interval=args.heartbeat_interval,
             stall_timeout=args.stall_timeout, ckpt_dir=args.ckpt_dir,
-            ckpt_every=args.ckpt_every, resume=args.resume)
+            ckpt_every=args.ckpt_every, resume=args.resume,
+            backend=args.backend)
     return launch(args.np_procs, cmd, args.devices_per_proc,
                   args.coordinator, timeout=args.timeout,
                   handshake_timeout=args.handshake_timeout,
-                  max_restarts=args.max_restarts)
+                  max_restarts=args.max_restarts, backend=args.backend)
 
 
 if __name__ == "__main__":

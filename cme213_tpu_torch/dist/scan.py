@@ -10,7 +10,8 @@ elements before its first segment head.  A process holds its shards as a
 list of tensors in mesh order, each on its device; in a gang a shard
 another rank holds is ``None`` there, each rank scans its own shards, and
 the (value, flag) carry of every shard reaches every rank through the
-gang's gloo group (``halo.gather_shards``), so every rank combines all
+gang's group (``halo.gather_shards``: card to card under NCCL, through the
+host under gloo), so every rank combines all
 carries in the same order and a gang gives the single-process mesh's bits.
 
 Two carry-combine backends, with the JAX package's association:

@@ -29,7 +29,8 @@ length once and keeps them.
 Dispatch is on the tensor's device: a CPU tensor takes the plain version
 (``run_heat_pipeline_plain``, ``stencil_local_multistep_plain``); a CUDA
 tensor launches the kernel, and a failed build or launch raises.
-``LAUNCHES`` counts kernel launches per entry point.
+``LAUNCHES`` counts kernel launches per entry point, and
+``LOCAL_LAUNCHES`` B3's launches per card.
 
 The TPU kernels' layout constraints (128-lane and 8-sublane padding,
 ``tile_y % kpad``, ``K ≤ 128``) do not apply here; the bound on a tile is
@@ -49,6 +50,9 @@ from .stencil import BORDER_FOR_ORDER, run_heat_roll, stencil_interior
 
 #: kernel launches per entry point (the plain version launches nothing)
 LAUNCHES = {"pipeline": 0, "pipeline2d": 0, "local": 0}
+#: B3's launches per card (``"cuda:<index>"``), counted with
+#: ``LAUNCHES["local"]``
+LOCAL_LAUNCHES: dict[str, int] = {}
 
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_BUDGET_BYTES = 232_448
@@ -384,6 +388,7 @@ def stencil_local_multistep_shards(
                      for i, r in zip(part, res)], plan, order, k, ny, nx,
                     xcfl, ycfl, bc)
             LAUNCHES["local"] += 1
+            LOCAL_LAUNCHES[str(dev)] = LOCAL_LAUNCHES.get(str(dev), 0) + 1
             for i, r in zip(part, res):
                 out[i] = r
     return out

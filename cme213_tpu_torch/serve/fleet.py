@@ -351,7 +351,20 @@ class Fleet:
                          daemon=True).start()
         rep = ReplicaProc(rank, incarnation, port, proc)
         with self._cv:
-            self._procs[rank] = rep
+            # a relaunch or a scale-up racing ``close``: the fleet has
+            # already taken its list of replicas to stop, so this one
+            # stops itself and is never registered
+            closing = self._stop.is_set()
+            if not closing:
+                self._procs[rank] = rep
+        if closing:
+            proc.terminate()
+            try:
+                proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+            return
+        with self._cv:
             if rank not in self._send_queues:
                 self._send_queues[rank] = queue_mod.Queue()
                 t = threading.Thread(

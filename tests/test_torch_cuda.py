@@ -1107,13 +1107,17 @@ for name, kw in (("overlap", dict(overlap=True)),
 """
 
 
-def test_gang_on_one_card_launches_b3_in_each_rank(cuda, tmp_path, capsys):
+def test_gang_on_one_card_launches_b3_in_each_rank(cuda, tmp_path, capsys,
+                                                   monkeypatch):
     """A 2-rank gang on one card (2 shards a rank, halos over gloo through
     the host): each rank launches B3 once a step for its two shards (plus
     the gate's probe), and both return ``run_heat``'s grid bit for bit, as
-    the overlap step (its exchange on a side stream) and k = 2 do."""
+    the overlap step (its exchange on a side stream) and k = 2 do.  On a
+    machine with more cards the ranks would get a card each and NCCL, so
+    the gang asks for gloo."""
     from torch_gang import run_gang
 
+    monkeypatch.setenv("CME213_DIST_BACKEND", "gloo")
     heat = dict(nx=64, ny=64, order=8, iters=6)
     rc = run_gang(tmp_path, _GANG_WORKER, HEAT=heat)
     out = capsys.readouterr().out
@@ -1152,12 +1156,168 @@ def test_supervised_gang_on_one_card_recovers_bitwise(cuda, tmp_path,
         2, [sys.executable, "-m", "cme213_tpu_torch", "heat2d", path,
             "--distributed", "--supervised"], devices_per_proc=2,
         stall_timeout=120, max_restarts=1, ckpt_dir=str(tmp_path / "ck"),
-        ckpt_every=4, timeout=600)
+        ckpt_every=4, timeout=600, backend="gloo")
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "condemning the gang" in out and "gang restart" in out
     want = run_heat(make_initial_grid(p, device=cuda), p.iters, p.order,
                     p.xcfl, p.ycfl)
+    save_grid_to_file(want, str(tmp_path / "want.txt"))
+    assert (tmp_path / "grid_final.txt").read_text() == \
+        (tmp_path / "want.txt").read_text()
+
+
+@pytest.fixture
+def four_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four cards; this machine has {n}")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+#: (grid method, overlap, k, local kernel) of the four-card mesh cases
+FOUR_CARD_CASES = [(1, False, 1, "xla"), (2, False, 1, "xla"),
+                   (2, True, 1, "xla"), (1, False, 1, "pallas"),
+                   (2, False, 1, "pallas"), (2, False, 4, "pallas")]
+
+
+@pytest.mark.parametrize("method,overlap,k,kernel", FOUR_CARD_CASES)
+def test_four_card_mesh_equals_four_shards_of_one_card(
+        four_cards, method, overlap, k, kernel, monkeypatch):
+    """One process, a mesh over ``cuda:0``-``cuda:3`` (halos peer to
+    peer): bit for bit the same mesh on four shards of ``cuda:0`` and
+    ``run_heat``; with ``pallas``, B3 launches on every card, once a card
+    an exchange; every shard is still on its own card at the final
+    gather."""
+    from cme213_tpu_torch.config import GridMethod
+    from cme213_tpu_torch.dist import heat as dheat
+    from cme213_tpu_torch.dist import mesh_for_method
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    placed = []
+    gather = dheat._gather
+
+    def recording(blocks, owners=None):
+        placed.append([str(b.device) for row in blocks for b in row])
+        return gather(blocks, owners)
+
+    monkeypatch.setattr(dheat, "_gather", recording)
+    p = SimParams(nx=130, ny=98, order=8, iters=8,
+                  grid_method=GridMethod(method))
+    kw = dict(overlap=overlap, steps_per_exchange=k, local_kernel=kernel,
+              conformance=False)
+    sp.LOCAL_LAUNCHES.clear()
+    got = run_distributed_heat(p, mesh_for_method(p.grid_method,
+                                                  devices=four_cards), **kw)
+    launched = dict(sp.LOCAL_LAUNCHES)
+    assert placed == [[str(d) for d in four_cards]]
+    want = run_distributed_heat(
+        p, mesh_for_method(p.grid_method, devices=virtual_devices(4)), **kw)
+    np.testing.assert_array_equal(got, want)
+    ref = run_heat(make_initial_grid(p, device=four_cards[0]), p.iters,
+                   p.order, p.xcfl, p.ycfl).cpu().numpy()
+    np.testing.assert_array_equal(got, ref)
+    if kernel == "pallas":
+        assert launched == {str(d): p.iters // k for d in four_cards}
+    else:
+        assert launched == {}
+
+
+def test_four_card_sharded_scan_equals_four_shards_of_one_card(four_cards):
+    from cme213_tpu_torch.dist import distributed_segmented_scan
+
+    n = 4 * 50_000
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+    f = torch.from_numpy((rng.uniform(0, 1, n) < 0.001).astype(np.int32))
+    for mode in ("ring", "gather"):
+        got = distributed_segmented_scan(v, f, make_mesh_1d(
+            devices=four_cards), carry_mode=mode)
+        want = distributed_segmented_scan(v, f, make_mesh_1d(
+            4, devices=virtual_devices(4)), carry_mode=mode)
+        assert got.device == four_cards[0]
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+_NCCL_WORKER = """
+import numpy as np
+from cme213_tpu_torch.config import GridMethod, SimParams
+from cme213_tpu_torch.dist import mesh_for_method, run_distributed_heat
+from cme213_tpu_torch.dist.mesh import default_devices
+from cme213_tpu_torch.dist.multihost import (backend, initialize_multihost,
+                                             process_info)
+from cme213_tpu_torch.ops import LAUNCHES
+
+initialize_multihost()
+rank, world = process_info()
+for method in (2, 1):
+    p = SimParams(**HEAT, grid_method=GridMethod(method))
+    mesh = mesh_for_method(p.grid_method, devices=default_devices())
+    assert [str(d) for d in mesh.local_devices()] == [f"cuda:{rank}"]
+    g = run_distributed_heat(p, mesh, local_kernel="pallas")
+    np.save(f"{sys.argv[1]}/m{method}-rank{rank}.npy", g)
+print(f"rank {rank} backend {backend()} local launches {LAUNCHES['local']}")
+"""
+
+
+def test_nccl_gang_on_four_cards_bitwise(four_cards, tmp_path, capsys,
+                                         monkeypatch):
+    """A 4-rank gang, one rank a card: the layout takes NCCL, slabs go
+    card to card, and every rank returns ``run_heat``'s grid bit for bit
+    on the 2 x 2 and the 1-D mesh, B3 launching in every rank."""
+    from torch_gang import run_gang
+
+    monkeypatch.delenv("CME213_DIST_BACKEND", raising=False)
+    heat = dict(nx=130, ny=98, order=8, iters=8)
+    rc = run_gang(tmp_path, _NCCL_WORKER, np_procs=4, devices_per_proc=None,
+                  backend="auto", HEAT=heat)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    p = SimParams(**heat)
+    want = run_heat(make_initial_grid(p, device=four_cards[0]), p.iters,
+                    p.order, p.xcfl, p.ycfl).cpu().numpy()
+    for rank in range(4):
+        for method in (1, 2):
+            np.testing.assert_array_equal(
+                np.load(tmp_path / f"m{method}-rank{rank}.npy"), want)
+        # two solves of p.iters steps, each after its gate's probe
+        assert f"rank {rank} backend nccl local launches " \
+               f"{2 * (p.iters + 4)}" in out, out
+
+
+def test_supervised_nccl_gang_on_four_cards_recovers_bitwise(
+        four_cards, tmp_path, monkeypatch, capsys):
+    """``--supervised`` as a 4-rank NCCL gang under ``rankkill:1:1``: the
+    ranks blocked in a collective are ended with the gang, the next
+    incarnation builds a fresh group and resumes; the final grid is
+    ``run_heat``'s bit for bit."""
+    import sys
+
+    from cme213_tpu_torch.config import GridMethod
+    from cme213_tpu_torch.dist.launch import launch_supervised
+    from cme213_tpu_torch.grid import save_grid_to_file
+
+    from torch_gang import ROOT
+
+    p = SimParams(nx=64, ny=48, order=4, iters=12,
+                  grid_method=GridMethod.BLOCKS_2D)
+    path = str(tmp_path / "p.in")
+    p.to_file(path, distributed=True)
+    monkeypatch.delenv("CME213_DIST_BACKEND", raising=False)
+    monkeypatch.setenv("CME213_FAULTS", "rankkill:1:1")
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    monkeypatch.chdir(tmp_path)
+    rc = launch_supervised(
+        4, [sys.executable, "-m", "cme213_tpu_torch", "heat2d", path,
+            "--distributed", "--supervised"], stall_timeout=120,
+        max_restarts=1, ckpt_dir=str(tmp_path / "ck"), ckpt_every=4,
+        timeout=600)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "condemning the gang" in out and "gang restart" in out
+    assert out.count("torch.distributed backend nccl") == 8, out
+    want = run_heat(make_initial_grid(p, device=four_cards[0]), p.iters,
+                    p.order, p.xcfl, p.ycfl)
     save_grid_to_file(want, str(tmp_path / "want.txt"))
     assert (tmp_path / "grid_final.txt").read_text() == \
         (tmp_path / "want.txt").read_text()

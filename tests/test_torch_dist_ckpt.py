@@ -338,7 +338,7 @@ from cme213_tpu_torch.dist import run_distributed_heat_supervised
 from cme213_tpu_torch.dist.mesh import default_devices
 from cme213_tpu_torch.dist.multihost import initialize_multihost
 
-initialize_multihost()
+initialize_multihost(device="cpu")
 p = SimParams(**HEAT, grid_method=GridMethod.BLOCKS_2D)
 mesh = mesh_for_method(p.grid_method, devices=default_devices("cpu"))
 run_distributed_heat_supervised(p, mesh, sys.argv[1] + "/ckpt",

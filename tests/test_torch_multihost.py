@@ -41,7 +41,7 @@ from cme213_tpu_torch.core import faults, trace, ulp_distance, virtual_devices
 from cme213_tpu_torch.dist import (distributed_segmented_scan, make_mesh_1d,
                                    make_mesh_2d, run_distributed_heat)
 from cme213_tpu_torch.dist import multihost
-from cme213_tpu_torch.dist.launch import (_template_trace_file, free_port,
+from cme213_tpu_torch.dist.launch import (Rendezvous, _template_trace_file,
                                           launch, main)
 from cme213_tpu_torch.grid import make_initial_grid
 
@@ -133,7 +133,8 @@ import torch.distributed as dist
 from cme213_tpu_torch.dist.mesh import default_devices
 from cme213_tpu_torch.dist.multihost import initialize_multihost, process_info
 
-initialize_multihost()  # everything from the env, like an MPI launcher
+# the shards are on the CPU; the rest from the env, like an MPI launcher
+initialize_multihost(device="cpu")
 rank, world = process_info()
 assert world == 2, world
 devs = default_devices("cpu")
@@ -161,19 +162,34 @@ def test_two_process_gloo_group(tmp_path, capsys, via):
                 in out
         return
     script = write_worker(tmp_path, _GROUP_WORKER, PER=2)
-    port = free_port()
+    # the rendezvous is held here, bound to a port the system picks, as
+    # the launcher holds it: no window for another socket to take the port
+    rendezvous = Rendezvous().serve()
+    port = rendezvous.port
     procs = [subprocess.Popen(
         [sys.executable, script],
         env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                  WORLD_SIZE="2", RANK=str(rank),
-                 CME213_DEVICES_PER_PROC="2"),
+                 CME213_DEVICES_PER_PROC="2",
+                 TORCHELASTIC_USE_AGENT_STORE="True",
+                 TORCHELASTIC_RESTART_COUNT="0"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(2)]
+    outs = []
     try:
-        outs = [p.communicate(timeout=150) for p in procs]
+        for p in procs:
+            outs.append(p.communicate(timeout=150))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1] for p in procs]
+        pytest.fail("the two ranks did not finish in 150 s; stderr:\n"
+                    + "\n".join(f"--- rank {r} ---\n{e[-3000:]}"
+                                 for r, e in enumerate(errs)))
     finally:
         for p in procs:
             p.kill()
+        rendezvous.close()
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
         assert "OK psum=10.0" in out
@@ -305,7 +321,7 @@ from cme213_tpu_torch.dist import mesh_for_method, run_distributed_heat
 from cme213_tpu_torch.dist.mesh import default_devices
 from cme213_tpu_torch.dist.multihost import initialize_multihost, process_info
 
-initialize_multihost()
+initialize_multihost(device="cpu")
 rank, world = process_info()
 out = sys.argv[1]
 for name, method, overlap, k, kernel in CASES:
@@ -423,7 +439,7 @@ from cme213_tpu_torch.dist import distributed_segmented_scan, make_mesh_1d
 from cme213_tpu_torch.dist.mesh import default_devices
 from cme213_tpu_torch.dist.multihost import initialize_multihost, process_info
 
-initialize_multihost()
+initialize_multihost(device="cpu")
 rank, world = process_info()
 mesh = make_mesh_1d(devices=default_devices("cpu"))
 rng = np.random.default_rng(7)

@@ -22,12 +22,15 @@ def write_worker(tmp_path, body: str, name: str = "worker.py",
 
 def run_gang(tmp_path, body: str, np_procs: int = 2,
              devices_per_proc: int | None = 2, timeout: float = 240,
-             **constants) -> int:
+             backend: str = "gloo", **constants) -> int:
     """Launch ``body`` as a gang of ``np_procs`` ranks, each with
-    ``devices_per_proc`` shards; the worker's ``sys.argv[1]`` is
-    ``tmp_path``.  Returns the launcher's exit code."""
+    ``devices_per_proc`` shards, asking for ``backend`` (``gloo``: the
+    gang is on the CPU, whatever cards the host has; ``auto``: each rank's
+    layout decides); the worker's ``sys.argv[1]`` is ``tmp_path``.
+    Returns the launcher's exit code."""
     from cme213_tpu_torch.dist.launch import launch
 
     script = write_worker(tmp_path, body, **constants)
     return launch(np_procs, [sys.executable, script, str(tmp_path)],
-                  devices_per_proc=devices_per_proc, timeout=timeout)
+                  devices_per_proc=devices_per_proc, timeout=timeout,
+                  backend=backend)
