@@ -1,0 +1,9 @@
+"""``heat.device_idle_pct.l2``: share of the traced window in which no kernel,
+copy or set ran on the card (rank 0's card in a gang), from the
+profiler's trace."""
+
+from perfbench.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
