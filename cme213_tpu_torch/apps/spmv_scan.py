@@ -521,52 +521,66 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     Each (bucket, kernel, dtype, device) is probed once (``_bucket_gate``:
     padded-then-sliced bitwise equal to unpadded); a failing probe keeps
     the exact shape.
+
+    The call is a ``spmv_scan.solve`` host range on the profiler's clock
+    (``core/trace.host_range``), holding the ranges ``spmv_scan.validate``,
+    ``spmv_scan.upload`` (``problem_tensors``) and ``spmv_scan.download``
+    (the copy of the answer to the host) and each attempt's
+    ``spmv_scan.run`` span, so that the Chrome trace of a profiled sweep
+    (``bench/run_all`` under ``CME213_PROFILE_DIR``) names a solve's host
+    work on the card's timeline.
     """
     from ..core import programs, roofline, span, with_fallback
+    from ..core.trace import host_range
 
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} ({'|'.join(KERNELS)})")
-    prob.validate()
-    dev = resolve_device(device)
-    if canonical:
-        n_to = programs.canonical_size(prob.n)
-        if n_to != prob.n and _bucket_gate(n_to, kernel, dtype, dev):
-            out = run_spmv_scan(pad_problem(prob, n_to), timer=timer,
-                                dtype=dtype, kernel=kernel,
-                                fallback=fallback,
-                                plain_fallback=plain_fallback, device=dev)
-            return out[:prob.n]
-    args = problem_tensors(prob, dtype, dev)
-    max_len = int(np.diff(prob.s).max())
-    timer = timer or PhaseTimer()
-    shape_class = f"n{prob.n}/i{prob.iters}"
-    cost = roofline.spmv_scan_cost(prob.n, prob.iters, dtype=dtype)
+    with host_range("spmv_scan.solve"):
+        with host_range("spmv_scan.validate"):
+            prob.validate()
+        dev = resolve_device(device)
+        if canonical:
+            n_to = programs.canonical_size(prob.n)
+            if n_to != prob.n and _bucket_gate(n_to, kernel, dtype, dev):
+                out = run_spmv_scan(pad_problem(prob, n_to), timer=timer,
+                                    dtype=dtype, kernel=kernel,
+                                    fallback=fallback,
+                                    plain_fallback=plain_fallback,
+                                    device=dev)
+                return out[:prob.n]
+        with host_range("spmv_scan.upload"):
+            args = problem_tensors(prob, dtype, dev)
+        max_len = int(np.diff(prob.s).max())
+        timer = timer or PhaseTimer()
+        shape_class = f"n{prob.n}/i{prob.iters}"
+        cost = roofline.spmv_scan_cost(prob.n, prob.iters, dtype=dtype)
 
-    def attempt(rung: str):
-        def thunk():
-            runner = _program(rung, prob.n, prob.iters, dtype, dev,
-                              p=prob.p, max_len=max_len,
-                              warm_args=lambda: args)
-            with span("spmv_scan.run", kernel=rung, n=prob.n,
-                      iters=prob.iters, shape_class=shape_class) as sp:
-                sp.roofline(cost.nbytes, cost.flops)
-                with timer.phase("spmv_scan") as ph:
-                    out = runner(*args)
-                    ph.block(out)
-            return out
-        return thunk
+        def attempt(rung: str):
+            def thunk():
+                runner = _program(rung, prob.n, prob.iters, dtype, dev,
+                                  p=prob.p, max_len=max_len,
+                                  warm_args=lambda: args)
+                with span("spmv_scan.run", kernel=rung, n=prob.n,
+                          iters=prob.iters, shape_class=shape_class) as sp:
+                    sp.roofline(cost.nbytes, cost.flops)
+                    with timer.phase("spmv_scan") as ph:
+                        out = runner(*args)
+                        ph.block(out)
+                return out
+            return thunk
 
-    rungs = ladder(kernel, dev, plain_fallback) if fallback else (kernel,)
-    gate = _conformance_gate(prob.n, dtype, dev) if fallback else None
-    res = with_fallback("spmv_scan", [(r, attempt(r)) for r in rungs],
-                        gate=gate)
-    if res.demoted:
-        print(f"spmv_scan: kernel {kernel!r} demoted to {res.rung!r} "
-              f"(failed: {', '.join(f.rung for f in res.failures)})")
-    ms = timer.last_ms("spmv_scan")
-    print(f"The running time of my code for {prob.iters} iterations is: "
-          f"{ms} milliseconds.")
-    return res.value.cpu().numpy()
+        rungs = ladder(kernel, dev, plain_fallback) if fallback else (kernel,)
+        gate = _conformance_gate(prob.n, dtype, dev) if fallback else None
+        res = with_fallback("spmv_scan", [(r, attempt(r)) for r in rungs],
+                            gate=gate)
+        if res.demoted:
+            print(f"spmv_scan: kernel {kernel!r} demoted to {res.rung!r} "
+                  f"(failed: {', '.join(f.rung for f in res.failures)})")
+        ms = timer.last_ms("spmv_scan")
+        print(f"The running time of my code for {prob.iters} iterations "
+              f"is: {ms} milliseconds.")
+        with host_range("spmv_scan.download"):
+            return res.value.cpu().numpy()
 
 
 def run_spmv_scan_batched(probs: list[Problem], kernel: str = "flat",

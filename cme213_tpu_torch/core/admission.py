@@ -42,7 +42,7 @@ from dataclasses import dataclass
 
 from . import metrics
 from .errors import FrameworkError
-from .trace import record_event
+from .trace import host_range, record_event
 
 #: per-device memory budget override, bytes (suffixes K/M/G accepted)
 BUDGET_ENV = "CME213_MEMORY_BUDGET"
@@ -122,11 +122,14 @@ def preflight(op: str, required_bytes: int, device=None) -> Decision:
 
 def admit(op: str, required_bytes: int, device=None) -> None:
     """:func:`preflight` that raises :class:`AdmissionError` when ``op``'s
-    footprint is over the budget."""
-    decision = preflight(op, required_bytes, device=device)
-    if not decision.admitted:
-        raise AdmissionError(f"{op}: {decision.detail} ({BUDGET_ENV} or "
-                             f"the device's memory)")
+    footprint is over the budget.  The call, the budget's read of the
+    device's memory included, is an ``admission.admit`` host range on the
+    profiler's clock (``trace.host_range``)."""
+    with host_range("admission.admit"):
+        decision = preflight(op, required_bytes, device=device)
+        if not decision.admitted:
+            raise AdmissionError(f"{op}: {decision.detail} ({BUDGET_ENV} "
+                                 f"or the device's memory)")
 
 
 def admit_chunk(op: str, initial: int, preflight_at, floor: int = 1,

@@ -50,6 +50,8 @@ class PhaseTimer:
                 yield ph
             finally:
                 synchronize(ph._blocked)
+                # waited for: the span's own end must not wait again
+                ph._blocked.clear()
                 ms = (time.perf_counter() - start) * 1e3
                 self.records.append(PhaseRecord(label, ms))
                 if self.verbose:

@@ -2,7 +2,7 @@
 
 Counterpart of ``cme213_tpu/core/trace.py``: the same event schema, record
 tags, span ids, sinks and environment variables, so traces of the two
-packages read alike and merge.  Three pieces:
+packages read alike and merge.  Its pieces:
 
 - **Structured events** (``record_event``): op failures
   (``core/errors.check_op``), fallback-ladder demotions and retries
@@ -22,6 +22,23 @@ packages read alike and merge.  Three pieces:
   discipline as ``core/timing.PhaseTimer``, whose phases emit spans).
   Span durations also feed the metrics registry (``core/metrics.py``) as
   ``span.<name>.ms`` histograms.
+
+- **The profiler mirror**: while a ``torch.profiler`` session is
+  recording, ``span`` also holds ``torch.profiler.record_function(name)``
+  open over the span's measured extent, so the span appears among the
+  profiler's host ranges, nested as it ran and on the device trace's own
+  clock: a gap on the card's timeline reads as the innermost program span
+  that was open.  With no session the mirror costs one
+  ``_profiler_enabled()`` check a span (entering ``record_function``
+  costs many times that even with no session), made only when torch is
+  already imported, so a process that never loads torch never loads it
+  here.  Cross-thread hop spans (``begin_span``) are not mirrored: a
+  profiler range must close on the thread that opened it.  The JSON
+  records are the same either way.  ``host_range`` is the mirror alone,
+  for host work that is read only on the profiler's clock (a solve's
+  admission, ladder and launch loop): a range while a session records,
+  and no record, histogram or id otherwise, so that with no session it
+  costs the one check.
 
 - **Cross-process context**: every record is stamped with a ``trace`` id
   that spans the whole job.  A launcher exports ``CME213_TRACE_CONTEXT``
@@ -51,6 +68,7 @@ import contextvars
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 import zlib
@@ -714,6 +732,33 @@ class ClockSync:
         return self.offset_ms, self.err_ms
 
 
+def _profiler_range(name: str):
+    """``record_function(name)``, entered, while a ``torch.profiler``
+    session records on this process; ``None`` otherwise (and always when
+    torch is not loaded: no session can be running then)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+@contextmanager
+def host_range(name: str):
+    """The profiler mirror alone: ``name`` as a ``record_function`` host
+    range over the enclosed block while a ``torch.profiler`` session
+    records, nothing otherwise.  No JSON record, no metrics histogram:
+    readers of the profiler's trace see it nested among the spans'
+    ranges; ``trace summary`` never sees it."""
+    mirror = _profiler_range(name)
+    try:
+        yield
+    finally:
+        if mirror is not None:
+            mirror.__exit__(None, None, None)
+
+
 @contextmanager
 def span(name: str, **tags):
     """Trace the enclosed block as a ``span-begin``/``span-end`` pair.
@@ -726,7 +771,9 @@ def span(name: str, **tags):
     epoch number, ...).  The span-end carries the monotonic duration
     ``ms`` (after synchronising on any ``.block()``-registered tensors) and an
     ``error`` tag when the block raised; the duration also feeds the
-    ``span.<name>.ms`` metrics histogram.
+    ``span.<name>.ms`` metrics histogram.  While a profiler session
+    records, the same extent is a ``record_function`` range of ``name``
+    (the module's profiler mirror).
     """
     sid = _mint_span_id()
     stack = _SPAN_STACK.get()
@@ -738,6 +785,7 @@ def span(name: str, **tags):
     token = _SPAN_STACK.set(stack + (sid,))
     handle = SpanHandle()
     err: str | None = None
+    mirror = _profiler_range(name)
     start = time.perf_counter()
     try:
         yield handle
@@ -748,6 +796,8 @@ def span(name: str, **tags):
         raise
     finally:
         ms = round((time.perf_counter() - start) * 1e3, 3)
+        if mirror is not None:
+            mirror.__exit__(None, None, None)
         _SPAN_STACK.reset(token)
         end = dict(span=name, id=sid, parent=parent, ms=ms, **tags)
         if err is not None:

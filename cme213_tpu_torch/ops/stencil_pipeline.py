@@ -45,6 +45,7 @@ import torch
 
 from . import _kernels
 from ..core.errors import KernelError
+from ..core.trace import host_range
 from ._kernels import MAX_SHARDS
 from .stencil import BORDER_FOR_ORDER, run_heat_roll, stencil_interior
 
@@ -258,14 +259,17 @@ def _run(name: str, u: torch.Tensor, iters: int, order: int, xcfl, ycfl,
     src = u.contiguous()
     if iters == 0:
         return src.clone()
-    plan = launch_plan(src, 1, k, order, tile_y)
-    bufs = [torch.empty_like(src), torch.empty_like(src)]
-    for i in range(iters // k):
-        dst = bufs[i % 2]
-        _launch([(src, dst, 0, 0)], plan, order, k, gy - 2 * b, gx - 2 * b,
-                xcfl, ycfl, bc)
-        LAUNCHES[name] += 1
-        src = dst
+    # one host range a solve, never one a launch: the loop's host work is
+    # what it measures, and it waits for no launch
+    with host_range("heat.launch_loop"):
+        plan = launch_plan(src, 1, k, order, tile_y)
+        bufs = [torch.empty_like(src), torch.empty_like(src)]
+        for i in range(iters // k):
+            dst = bufs[i % 2]
+            _launch([(src, dst, 0, 0)], plan, order, k, gy - 2 * b,
+                    gx - 2 * b, xcfl, ycfl, bc)
+            LAUNCHES[name] += 1
+            src = dst
     return src
 
 
@@ -620,11 +624,14 @@ def run_heat_resilient(u: torch.Tensor, iters: int, order: int, xcfl, ycfl,
     ``SMEM_BUDGET_BYTES``), the port's own limit; the JAX package's
     ``k·border ≤ 128`` is a Pallas layout limit that does not apply here.
 
-    Every attempt fetches its program through ``core/programs.get`` (a
-    miss builds it and makes one warm-up launch; a hit does neither) and
-    runs under a ``heat.run`` span carrying ``heat_cost``, timed as
-    ``phase_label`` on ``timer``.  Returns a ``FallbackResult``: ``.value``
-    the grid (``u`` is not modified), ``.rung`` the rung that served.
+    The whole solve is a ``heat.solve`` host range on the profiler's clock
+    (``core/trace.host_range``), holding its ``admission.admit`` range and
+    its ``heat.run`` spans.  Every attempt fetches its program through
+    ``core/programs.get`` (a miss builds it and makes one warm-up launch;
+    a hit does neither) and runs under a ``heat.run`` span carrying
+    ``heat_cost``, timed as ``phase_label`` on ``timer``.
+    Returns a ``FallbackResult``: ``.value`` the grid (``u`` is not
+    modified), ``.rung`` the rung that served.
     """
     from ..core import PhaseTimer, admission, metrics, span, with_fallback
     from ..core.faults import maybe_oom
@@ -637,59 +644,61 @@ def run_heat_resilient(u: torch.Tensor, iters: int, order: int, xcfl, ycfl,
     if iters % k != 0:
         raise ValueError(f"iters={iters} must divide by k={k}")
     gy, gx = u.shape
-    elem = u.element_size()
-    admission.admit("heat", 3 * u.numel() * elem, u.device)
     shape_class = f"{gy}x{gx}/order{order}/k{k}"
-    if tile_y is None:
-        from ..core import tune
+    with host_range("heat.solve"):
+        elem = u.element_size()
+        admission.admit("heat", 3 * u.numel() * elem, u.device)
+        if tile_y is None:
+            from ..core import tune
 
-        tile_y = tune.resolve("heat", shape_class, tune.dtype_name(u.dtype),
-                              device=u.device, tile_y=None)["tile_y"]
-    quantum = design(k, elem).rows
-    ty = tile_y or pick_pipeline_tile(gy, k, order, dtype_bytes=elem)
-    timer = timer or PhaseTimer()
-    cost = heat_cost(gy, gx, order=order, iters=iters, dtype=u.dtype)
+            tile_y = tune.resolve("heat", shape_class,
+                                  tune.dtype_name(u.dtype), device=u.device,
+                                  tile_y=None)["tile_y"]
+        quantum = design(k, elem).rows
+        ty = tile_y or pick_pipeline_tile(gy, k, order, dtype_bytes=elem)
+        timer = timer or PhaseTimer()
+        cost = heat_cost(gy, gx, order=order, iters=iters, dtype=u.dtype)
 
-    def timed(rung, shrinkable=True):
-        def attempt(ty_cur):
-            maybe_oom(f"heat.{rung}")
-            runner = _heat_program(rung, u, iters, order, xcfl, ycfl, bc, k,
-                                   ty_cur, cost)
-            with span("heat.run", kernel=rung, size=gy, iters=iters,
-                      shape_class=shape_class) as sp:
-                sp.roofline(cost.nbytes, cost.flops)
-                with timer.phase(phase_label) as ph:
-                    out = runner(u)
-                    ph.block(out)
-            return out
+        def timed(rung, shrinkable=True):
+            def attempt(ty_cur):
+                maybe_oom(f"heat.{rung}")
+                runner = _heat_program(rung, u, iters, order, xcfl, ycfl,
+                                       bc, k, ty_cur, cost)
+                with span("heat.run", kernel=rung, size=gy, iters=iters,
+                          shape_class=shape_class) as sp:
+                    sp.roofline(cost.nbytes, cost.flops)
+                    with timer.phase(phase_label) as ph:
+                        out = runner(u)
+                        ph.block(out)
+                return out
 
-        def thunk():
-            ty_cur = ty
-            while True:
-                try:
-                    return attempt(ty_cur)
-                except Exception as e:  # noqa: BLE001 — classified below
-                    if (not shrinkable or ty_cur <= quantum
-                            or isinstance(e, torch.cuda.OutOfMemoryError)
-                            or classify_failure(e)
-                            is not FailureKind.RESOURCE):
-                        raise
-                    ty_new = max(quantum, -(-(ty_cur // 2) // quantum)
-                                 * quantum)
-                    if ty_new >= ty_cur:
-                        raise
-                    metrics.counter("admission.chunk_shrunk").inc()
-                    record_event("chunk-shrunk", op=f"heat.{rung}",
-                                 from_size=ty_cur, to_size=ty_new,
-                                 reason=type(e).__name__)
-                    ty_cur = ty_new
-        return thunk
+            def thunk():
+                ty_cur = ty
+                while True:
+                    try:
+                        return attempt(ty_cur)
+                    except Exception as e:  # noqa: BLE001 — classified below
+                        if (not shrinkable or ty_cur <= quantum
+                                or isinstance(e, torch.cuda.OutOfMemoryError)
+                                or classify_failure(e)
+                                is not FailureKind.RESOURCE):
+                            raise
+                        ty_new = max(quantum, -(-(ty_cur // 2) // quantum)
+                                     * quantum)
+                        if ty_new >= ty_cur:
+                            raise
+                        metrics.counter("admission.chunk_shrunk").inc()
+                        record_event("chunk-shrunk", op=f"heat.{rung}",
+                                     from_size=ty_cur, to_size=ty_new,
+                                     reason=type(e).__name__)
+                        ty_cur = ty_new
+            return thunk
 
-    ladder = [("pipeline", timed("pipeline"))]
-    if smem_bytes(quantum, k, order, elem) <= SMEM_BUDGET_BYTES:
-        ladder.append(("pipeline2d", timed("pipeline2d")))
-    if allows_plain_rungs(u.device, plain_fallback):
-        ladder.append(("xla", timed("xla", shrinkable=False)))
-    gate = (_heat_conformance_gate(order, k, u.dtype, u.device)
-            if conformance else None)
-    return with_fallback("heat", ladder, gate=gate)
+        ladder = [("pipeline", timed("pipeline"))]
+        if smem_bytes(quantum, k, order, elem) <= SMEM_BUDGET_BYTES:
+            ladder.append(("pipeline2d", timed("pipeline2d")))
+        if allows_plain_rungs(u.device, plain_fallback):
+            ladder.append(("xla", timed("xla", shrinkable=False)))
+        gate = (_heat_conformance_gate(order, k, u.dtype, u.device)
+                if conformance else None)
+        return with_fallback("heat", ladder, gate=gate)

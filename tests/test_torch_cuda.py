@@ -94,6 +94,40 @@ def test_kernel_matches_run_heat(cuda):
     assert ulp_distance(out.cpu().numpy(), ref.cpu().numpy()).max() <= 10
 
 
+@pytest.mark.parametrize("entry,k", [(run_heat_pipeline, 1),
+                                     (run_heat_pipeline2d, 4)])
+def test_launch_loop_is_one_span_a_solve(cuda, entry, k):
+    """``_run``'s launch loop is one ``heat.launch_loop`` host range a
+    solve under the profiler, holding every one of its ``iters // k``
+    launches, and writes no record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cme213_tpu_torch.core import trace
+    from cme213_tpu_torch.ops import stencil_pipeline
+
+    p = SimParams(nx=300, ny=200, order=8)
+    u = make_initial_grid(p, device=cuda)
+    rung = "pipeline" if entry is run_heat_pipeline else "pipeline2d"
+    entry(u, 8 * k, 8, p.xcfl, p.ycfl, p.bc, k=k)  # builds the library
+    trace.clear_events()
+    before = stencil_pipeline.LAUNCHES[rung]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        entry(u, 8 * k, 8, p.xcfl, p.ycfl, p.bc, k=k)
+        torch.cuda.synchronize()
+    assert stencil_pipeline.LAUNCHES[rung] - before == 8
+    assert not [e for e in trace.events("span-begin")
+                if e["span"] == "heat.launch_loop"]
+    host = [ev for ev in prof.profiler.kineto_results.events()
+            if "CPU" in str(ev.device_type())]
+    (loop,) = [(ev.start_ns(), ev.start_ns() + ev.duration_ns())
+               for ev in host if ev.name() == "heat.launch_loop"]
+    launches = [ev for ev in host if "LaunchKernel" in ev.name()
+                and loop[0] <= ev.start_ns() <= loop[1]]
+    assert len(launches) == 8
+    trace.clear_events()
+
+
 def test_over_budget_tile_raises(cuda):
     p = SimParams(nx=300, ny=200, order=8)
     u = make_initial_grid(p, device=cuda)
