@@ -89,7 +89,9 @@
 //
 // Host interface: plain C, loaded with ctypes by ops/_kernels.py.  The
 // launch entry enqueues one launch on the given stream and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success).  The loop entry enqueues a single-grid
+// solve's every launch, ping-ponging between two buffers, so the host
+// checks its arguments once a solve rather than once a launch.
 
 #include <cuda_runtime.h>
 
@@ -398,6 +400,32 @@ cudaError_t launch(const HeatShard* shards, int n, const Step<T>& p,
   return cudaGetLastError();
 }
 
+// `launches` launches over one grid: launch i reads the previous launch's
+// output (src for the first) and writes bufs[i % 2]; stops at the first
+// launch whose cudaGetLastError() is not cudaSuccess.  *launched counts
+// the launches enqueued.
+template <typename T, int ORDER, int KC>
+cudaError_t launch_loop(const void* src, void* const* bufs, int launches,
+                        const Step<T>& p, int smem, cudaStream_t stream,
+                        int* launched) {
+  using D = Design<T, KC>;
+  cudaError_t e = opt_in<T, ORDER, KC>();
+  if (e != cudaSuccess) return e;
+  ShardTable table{};
+  table.s[0] = HeatShard{src, nullptr, 0, 0};
+  const dim3 grid((p.W + D::TX - 1) / D::TX, (p.tiles + p.run - 1) / p.run,
+                  1);
+  for (int i = 0; i < launches; ++i) {
+    table.s[0].dst = bufs[i % 2];
+    heat_ksteps<T, ORDER, KC><<<grid, D::NT, smem, stream>>>(table, p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    *launched = i + 1;
+    table.s[0].src = table.s[0].dst;
+  }
+  return cudaSuccess;
+}
+
 // (blocks an SM, registers a thread, local memory bytes a thread) of one
 // instance at `smem` bytes of shared memory a block
 template <typename T, int ORDER, int KC>
@@ -444,6 +472,16 @@ struct Launch {
 };
 
 template <typename T, int ORDER, int KC>
+struct LaunchLoop {
+  static cudaError_t run(const void* src, void* const* bufs, int launches,
+                         Step<T> p, int smem, cudaStream_t stream,
+                         int* launched) {
+    return launch_loop<T, ORDER, KC>(src, bufs, launches, p, smem, stream,
+                                     launched);
+  }
+};
+
+template <typename T, int ORDER, int KC>
 struct Occupancy {
   static cudaError_t run(int smem, int* out) {
     return occupancy<T, ORDER, KC>(smem, out);
@@ -464,23 +502,61 @@ int tx_for(int k) {
                 : Design<T, 3>::TX;
 }
 
+// the checks of a launch's geometry; on success *p holds its step
 template <typename T>
-int dispatch(const HeatShard* shards, int n, int H, int W, int ny, int nx,
-             int order, int k, int tile_y, int tile_x, int run,
-             int smem_bytes, T xcfl, T ycfl, T bc_top, T bc_left,
-             T bc_bottom, T bc_right, void* stream) {
+cudaError_t make_step(int H, int W, int ny, int nx, int order, int k,
+                      int tile_y, int tile_x, int run, int smem_bytes,
+                      T xcfl, T ycfl, T bc_top, T bc_left, T bc_bottom,
+                      T bc_right, Step<T>* p) {
   if (order != 2 && order != 4 && order != 8) return cudaErrorInvalidValue;
-  if (shards == nullptr || n < 1 || n > kMaxShards || H < 1 || W < 1 ||
-      k < 1 || tile_y < 1 || run < 1 || tile_x != tx_for<T>(k))
+  if (H < 1 || W < 1 || k < 1 || tile_y < 1 || run < 1 ||
+      tile_x != tx_for<T>(k))
     return cudaErrorInvalidValue;
   const int tiles = (H + tile_y - 1) / tile_y;
   if ((tiles + run - 1) / run > 65535 ||
       smem_bytes != need_for<T>(order, k, tile_y) || smem_bytes > kSmemOptIn)
     return cudaErrorInvalidValue;
-  const Step<T> p{H,   W,    ny,   nx,   k,      tile_y, run,
-                  tiles, xcfl, ycfl, bc_top, bc_left, bc_bottom, bc_right};
+  *p = Step<T>{H,     W,    ny,   nx,     k,       tile_y,    run,
+               tiles, xcfl, ycfl, bc_top, bc_left, bc_bottom, bc_right};
+  return cudaSuccess;
+}
+
+template <typename T>
+int dispatch(const HeatShard* shards, int n, int H, int W, int ny, int nx,
+             int order, int k, int tile_y, int tile_x, int run,
+             int smem_bytes, T xcfl, T ycfl, T bc_top, T bc_left,
+             T bc_bottom, T bc_right, void* stream) {
+  if (shards == nullptr || n < 1 || n > kMaxShards)
+    return cudaErrorInvalidValue;
+  Step<T> p;
+  const cudaError_t e =
+      make_step<T>(H, W, ny, nx, order, k, tile_y, tile_x, run, smem_bytes,
+                   xcfl, ycfl, bc_top, bc_left, bc_bottom, bc_right, &p);
+  if (e != cudaSuccess) return e;
   return by_order_and_class<T, Launch>(order, k, shards, n, p, smem_bytes,
                                        static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int dispatch_loop(const void* src, void* buf0, void* buf1, int launches,
+                  int H, int W, int ny, int nx, int order, int k, int tile_y,
+                  int tile_x, int run, int smem_bytes, T xcfl, T ycfl,
+                  T bc_top, T bc_left, T bc_bottom, T bc_right, void* stream,
+                  int* launched) {
+  if (launched == nullptr) return cudaErrorInvalidValue;
+  *launched = 0;
+  if (src == nullptr || buf0 == nullptr || buf1 == nullptr || launches < 1 ||
+      buf0 == buf1 || buf0 == src || buf1 == src)
+    return cudaErrorInvalidValue;
+  Step<T> p;
+  const cudaError_t e =
+      make_step<T>(H, W, ny, nx, order, k, tile_y, tile_x, run, smem_bytes,
+                   xcfl, ycfl, bc_top, bc_left, bc_bottom, bc_right, &p);
+  if (e != cudaSuccess) return e;
+  void* const bufs[2] = {buf0, buf1};
+  return by_order_and_class<T, LaunchLoop>(
+      order, k, src, static_cast<void* const*>(bufs), launches, p,
+      smem_bytes, static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // namespace
@@ -511,6 +587,35 @@ int heat_ksteps_f64(const HeatShard* shards, int n, int H, int W, int ny,
   return dispatch<double>(shards, n, H, W, ny, nx, order, k, tile_y, tile_x,
                           run, smem_bytes, xcfl, ycfl, bc_top, bc_left,
                           bc_bottom, bc_right, stream);
+}
+
+// A single-grid solve's `launches` launches (offsets (0, 0), (ny, nx) its
+// interior) in one call: src -> buf0 -> buf1 -> buf0 ..., the geometry as
+// heat_ksteps_f32's, checked once.  Returns 0, or the first error, after
+// *launched launches were enqueued; the last output is bufs[(launches - 1)
+// % 2].  src, buf0 and buf1 are three distinct grids.
+int heat_ksteps_loop_f32(const void* src, void* buf0, void* buf1,
+                         int launches, int H, int W, int ny, int nx,
+                         int order, int k, int tile_y, int tile_x, int run,
+                         int smem_bytes, float xcfl, float ycfl,
+                         float bc_top, float bc_left, float bc_bottom,
+                         float bc_right, void* stream, int* launched) {
+  return dispatch_loop<float>(src, buf0, buf1, launches, H, W, ny, nx, order,
+                              k, tile_y, tile_x, run, smem_bytes, xcfl, ycfl,
+                              bc_top, bc_left, bc_bottom, bc_right, stream,
+                              launched);
+}
+
+int heat_ksteps_loop_f64(const void* src, void* buf0, void* buf1,
+                         int launches, int H, int W, int ny, int nx,
+                         int order, int k, int tile_y, int tile_x, int run,
+                         int smem_bytes, double xcfl, double ycfl,
+                         double bc_top, double bc_left, double bc_bottom,
+                         double bc_right, void* stream, int* launched) {
+  return dispatch_loop<double>(src, buf0, buf1, launches, H, W, ny, nx,
+                               order, k, tile_y, tile_x, run, smem_bytes,
+                               xcfl, ycfl, bc_top, bc_left, bc_bottom,
+                               bc_right, stream, launched);
 }
 
 // out = (blocks an SM, registers a thread, local memory bytes a thread) of

@@ -95,7 +95,8 @@ __all__ = [
 
 def _record_launches() -> None:
     """At exit, add the process's kernel launches to the metrics registry
-    as ``kernel.launches.<kernel>`` counters, so the final
+    as ``kernel.launches.<kernel>`` counters, and the heat solves' calls of
+    the C launch loop as ``kernel.launch_loops.<entry>``, so the final
     ``metrics-snapshot`` of a traced run names the kernels it launched.
     Registered after ``core/metrics`` registered its exit snapshot, so it
     runs first; a process that launched nothing adds nothing."""
@@ -106,6 +107,9 @@ def _record_launches() -> None:
         for name, n in counts.items():
             if n:
                 metrics.counter(f"kernel.launches.{name}").inc(n)
+    for name, n in stencil_pipeline.LAUNCH_LOOPS.items():
+        if n:
+            metrics.counter(f"kernel.launch_loops.{name}").inc(n)
 
 
 atexit.register(_record_launches)

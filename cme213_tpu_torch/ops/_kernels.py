@@ -139,6 +139,13 @@ def _bind_heat_stencil(lib: ctypes.CDLL) -> None:
         fn.argtypes = ([ctypes.c_char_p] + [ctypes.c_int] * 11
                        + [real] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for name, real in (("heat_ksteps_loop_f32", ctypes.c_float),
+                       ("heat_ksteps_loop_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+                       + [real] * 6 + [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
     lib.heat_ksteps_occupancy.argtypes = [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.heat_ksteps_occupancy.restype = ctypes.c_int
@@ -268,6 +275,78 @@ def heat_ksteps(shards, *, order: int, k: int, tile_y: int, tile_x: int,
             f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
             f"order={order} k={k} tile={tile_y}x{tile_x} run={run} "
             f"smem={smem_bytes} {n} shard(s) of {H}x{W} {dtype})")
+
+
+def heat_ksteps_loop(src: torch.Tensor, bufs, launches: int, *,
+                     order: int, k: int, tile_y: int, tile_x: int, run: int,
+                     smem_bytes: int, ny: int, nx: int, xcfl: float,
+                     ycfl: float, bc: tuple[float, float, float, float]
+                     ) -> torch.Tensor:
+    """Enqueue a single-grid solve's ``launches`` launches of
+    ``csrc/heat_stencil.cu:heat_ksteps`` in one call of the C loop, on the
+    current stream: launch i reads the previous output (``src`` for the
+    first) and writes ``bufs[i % 2]``, ``k`` fused steps each, offsets
+    (0, 0).  Returns the last output, ``bufs[(launches - 1) % 2]``.
+
+    ``src`` and the two ``bufs`` are contiguous (H, W) float32/float64
+    tensors of one shape and dtype on one CUDA device, three separate
+    storages; ``launches`` ≥ 1.  They are checked here once, before the
+    library loads; the geometry (``stencil_pipeline.launch_plan``) once in
+    the C entry.  Raises ``KernelError`` naming the refused launch's index
+    when a launch is refused; the launches before it stay enqueued.
+    """
+    if launches < 1:
+        raise ValueError(f"heat_ksteps_loop takes at least one launch, got "
+                         f"{launches}")
+    if len(bufs) != 2:
+        raise ValueError(f"heat_ksteps_loop takes two buffers, got "
+                         f"{len(bufs)}")
+    grids = (src, *bufs)
+    dtype, shape, device = src.dtype, src.shape, src.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"heat_ksteps takes float32 or float64 grids, got "
+                        f"{dtype}")
+    if len(shape) != 2:
+        raise ValueError(f"heat_ksteps takes 2-D grids, got {tuple(shape)}")
+    if any(g.dtype != dtype for g in bufs):
+        raise TypeError(f"heat_ksteps takes grids of one dtype, got "
+                        f"{[g.dtype for g in grids]}")
+    if any(g.shape != shape for g in bufs):
+        raise ValueError(f"heat_ksteps takes grids of one shape, got "
+                         f"{[tuple(g.shape) for g in grids]}")
+    if not all(g.is_contiguous() for g in grids):
+        raise ValueError("heat_ksteps takes contiguous grids")
+    if any(g.device != device for g in bufs):
+        raise ValueError("heat_ksteps takes tensors on one CUDA device")
+    if len({g.untyped_storage().data_ptr() for g in grids}) != 3:
+        raise ValueError("heat_ksteps cannot update a grid in place: the "
+                         "source and the two buffers need storages of "
+                         "their own")
+    if not src.is_cuda:
+        raise ValueError("heat_ksteps takes tensors on one CUDA device")
+    lib = library("heat_stencil")
+    fn = lib.heat_ksteps_loop_f32 if dtype == torch.float32 \
+        else lib.heat_ksteps_loop_f64
+    H, W = shape
+    launched = ctypes.c_int(0)
+    # the launches go to the current device; switching costs host time, so
+    # it is done only when the grid lies on another device
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    with contextlib.nullcontext() if index == current \
+            else torch.cuda.device(index):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(src.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+                 launches, H, W, ny, nx, order, k, tile_y, tile_x, run,
+                 smem_bytes, xcfl, ycfl, *bc, stream, ctypes.byref(launched))
+    if err != 0:
+        raise KernelError(
+            f"heat_ksteps launch failed: "
+            f"{lib.heat_error_string(err).decode()} (cudaError {err}; "
+            f"launch {launched.value} of {launches}; order={order} k={k} "
+            f"tile={tile_y}x{tile_x} run={run} smem={smem_bytes} "
+            f"{H}x{W} {dtype})")
+    return bufs[(launches - 1) % 2]
 
 
 def heat_ksteps_occupancy(device: torch.device, dtype_bytes: int, order: int,

@@ -28,9 +28,12 @@ length once and keeps them.
 
 Dispatch is on the tensor's device: a CPU tensor takes the plain version
 (``run_heat_pipeline_plain``, ``stencil_local_multistep_plain``); a CUDA
-tensor launches the kernel, and a failed build or launch raises.
-``LAUNCHES`` counts kernel launches per entry point, and
-``LOCAL_LAUNCHES`` B3's launches per card.
+tensor launches the kernel, and a failed build or launch raises.  A
+single-grid solve enqueues its ``iters / k`` launches in one call of the
+library's C loop (``_kernels.heat_ksteps_loop``); B3 makes one call a
+launch, since its launches interleave with halo exchanges.
+``LAUNCHES`` counts kernel launches per entry point, ``LAUNCH_LOOPS`` the
+C loop's calls, and ``LOCAL_LAUNCHES`` B3's launches per card.
 
 The TPU kernels' layout constraints (128-lane and 8-sublane padding,
 ``tile_y % kpad``, ``K ≤ 128``) do not apply here; the bound on a tile is
@@ -51,6 +54,9 @@ from .stencil import BORDER_FOR_ORDER, run_heat_roll, stencil_interior
 
 #: kernel launches per entry point (the plain version launches nothing)
 LAUNCHES = {"pipeline": 0, "pipeline2d": 0, "local": 0}
+#: calls of the C launch loop per single-grid entry point, one a solve on a
+#: CUDA grid: ``LAUNCHES[name] / LAUNCH_LOOPS[name]`` is ``iters // k``
+LAUNCH_LOOPS = {"pipeline": 0, "pipeline2d": 0}
 #: B3's launches per card (``"cuda:<index>"``), counted with
 #: ``LAUNCHES["local"]``
 LOCAL_LAUNCHES: dict[str, int] = {}
@@ -263,14 +269,14 @@ def _run(name: str, u: torch.Tensor, iters: int, order: int, xcfl, ycfl,
     # what it measures, and it waits for no launch
     with host_range("heat.launch_loop"):
         plan = launch_plan(src, 1, k, order, tile_y)
-        bufs = [torch.empty_like(src), torch.empty_like(src)]
-        for i in range(iters // k):
-            dst = bufs[i % 2]
-            _launch([(src, dst, 0, 0)], plan, order, k, gy - 2 * b,
-                    gx - 2 * b, xcfl, ycfl, bc)
-            LAUNCHES[name] += 1
-            src = dst
-    return src
+        bufs = (torch.empty_like(src), torch.empty_like(src))
+        out = _kernels.heat_ksteps_loop(
+            src, bufs, iters // k, order=order, k=k, tile_y=plan.tile_y,
+            tile_x=plan.tile_x, run=plan.run, smem_bytes=plan.smem,
+            ny=gy - 2 * b, nx=gx - 2 * b, xcfl=xcfl, ycfl=ycfl, bc=bc)
+        LAUNCHES[name] += iters // k
+        LAUNCH_LOOPS[name] += 1
+    return out
 
 
 def run_heat_pipeline(u: torch.Tensor, iters: int, order: int, xcfl, ycfl,

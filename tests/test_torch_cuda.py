@@ -158,6 +158,88 @@ def test_refused_launch_raises(cuda):
             _kernels.heat_ksteps([(u, torch.empty_like(u), 0, 0)], **args)
 
 
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("launches", [1, 2, 3, 400])
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launch_loop_bitwise_vs_single_launches(cuda, launches, order, k,
+                                                dtype):
+    """A solve's one call of the C loop (``_kernels.heat_ksteps_loop``)
+    equals a loop of single ``_kernels.heat_ksteps`` launches (the entry
+    B3 keeps) and ``run_heat_roll`` bit for bit, through both entry
+    points; it leaves the input alone and counts ``iters // k`` launches
+    and one loop a solve."""
+    from cme213_tpu_torch.ops import run_heat_roll
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    p = SimParams(nx=131, ny=67, order=order, bc_top=1.5, bc_left=0.5,
+                  bc_bottom=2.0, bc_right=0.25)
+    u = _grid(p, dtype, cuda, seed=launches + order + k)
+    keep = u.clone()
+    iters = launches * k
+    plan = sp.launch_plan(u, 1, k, order)
+    src, bufs = u, (torch.empty_like(u), torch.empty_like(u))
+    for i in range(launches):
+        _kernels.heat_ksteps([(src, bufs[i % 2], 0, 0)], order=order, k=k,
+                             tile_y=plan.tile_y, tile_x=plan.tile_x,
+                             run=plan.run, smem_bytes=plan.smem, ny=p.ny,
+                             nx=p.nx, xcfl=p.xcfl, ycfl=p.ycfl, bc=p.bc)
+        src = bufs[i % 2]
+    roll = run_heat_roll(u, iters, order, p.xcfl, p.ycfl, p.bc, k=k)
+    assert torch.equal(_bits(src), _bits(roll))
+    for name, entry in (("pipeline", run_heat_pipeline),
+                        ("pipeline2d", run_heat_pipeline2d)):
+        launched, loops = LAUNCHES[name], sp.LAUNCH_LOOPS[name]
+        out = entry(u, iters, order, p.xcfl, p.ycfl, p.bc, k=k)
+        assert LAUNCHES[name] - launched == launches
+        assert sp.LAUNCH_LOOPS[name] - loops == 1
+        assert torch.equal(_bits(out), _bits(src)), name
+    assert torch.equal(_bits(u), _bits(keep))
+
+
+def test_launch_loop_refusal_names_the_launch(cuda, monkeypatch):
+    """A launch the C loop refuses raises ``KernelError`` with the single
+    launch's text and the refused launch's index, classified as the
+    single launch's refusal is; through ``run_heat_pipeline`` it counts
+    neither launches nor a loop."""
+    import dataclasses
+
+    from cme213_tpu_torch.core import classify_failure
+    from cme213_tpu_torch.ops import stencil_pipeline as sp
+
+    u = torch.zeros(64, 64, device=cuda)
+    bufs = (torch.empty_like(u), torch.empty_like(u))
+    kw = dict(order=8, k=1, tile_y=32, tile_x=128, run=1, ny=56, nx=56,
+              xcfl=0.1, ycfl=0.1, bc=(1.0, 1.0, 1.0, 1.0))
+    good = sp.smem_bytes(32, 1, 8)
+    assert _kernels.heat_ksteps_loop(u, bufs, 3, smem_bytes=good,
+                                     **kw) is bufs[0]
+    for bad in (dict(smem_bytes=good - 16), dict(smem_bytes=good,
+                                                  tile_x=64)):
+        args = {**kw, **bad}
+        with pytest.raises(KernelError, match=r"heat_ksteps launch failed: "
+                           r".*\(cudaError \d+; launch 0 of 3;") as loop:
+            _kernels.heat_ksteps_loop(u, bufs, 3, **args)
+        with pytest.raises(KernelError) as single:
+            _kernels.heat_ksteps([(u, bufs[0], 0, 0)], **args)
+        assert classify_failure(loop.value) \
+            == classify_failure(single.value)
+    torch.cuda.synchronize()
+
+    plan = sp.launch_plan(u, 1, 1, 8)
+    bad_plan = dataclasses.replace(plan, smem=plan.smem - 16)
+    monkeypatch.setattr(sp, "launch_plan", lambda *args, **kws: bad_plan)
+    launched, loops = LAUNCHES["pipeline"], sp.LAUNCH_LOOPS["pipeline"]
+    with pytest.raises(KernelError, match="launch 0 of 4;"):
+        run_heat_pipeline(u, 4, 8, 0.1, 0.1, (1.0, 1.0, 1.0, 1.0))
+    assert LAUNCHES["pipeline"] == launched
+    assert sp.LAUNCH_LOOPS["pipeline"] == loops
+
+
 def test_heat_design_matches_the_compiled_menu(cuda):
     from cme213_tpu_torch.ops import stencil_pipeline as sp
 

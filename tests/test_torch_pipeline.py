@@ -220,6 +220,69 @@ def test_kernel_wrapper_refuses_bad_arguments():
         _kernels.heat_ksteps([(u, torch.zeros(16, 16), 0, 0)] * 33, **kw)
 
 
+def _loop_case(case):
+    """(src, bufs, launches, error type, message) of one refusal of
+    ``heat_ksteps_loop``."""
+    u = torch.zeros(16, 16)
+    v, w = torch.zeros(16, 16), torch.zeros(16, 16)
+    return {
+        "buffer-is-src": (u, (u, w), 2, ValueError, "in place"),
+        "buffer-views-src": (u, (v, u[:]), 2, ValueError, "in place"),
+        "buffers-share": (u, (v, v), 2, ValueError, "in place"),
+        "buffers-share-views": (u, (v, v.view(16, 16)), 2, ValueError,
+                                "in place"),
+        "mixed-shape": (u, (torch.zeros(16, 17), w), 2, ValueError,
+                        "one shape"),
+        "mixed-dtype": (u, (v, torch.zeros(16, 16, dtype=torch.float64)), 2,
+                        TypeError, "one dtype"),
+        "non-contiguous": (u, (torch.zeros(16, 16).t(), w), 2, ValueError,
+                           "contiguous"),
+        "not-2d": (torch.zeros(256), (torch.zeros(256), torch.zeros(256)),
+                   2, ValueError, "2-D"),
+        "int-grid": (u.int(), (v.int(), w.int()), 2, TypeError,
+                     "float32 or float64"),
+        "one-buffer": (u, (v,), 2, ValueError, "two buffers"),
+        "no-launches": (u, (v, w), 0, ValueError, "at least one launch"),
+        "negative-launches": (u, (v, w), -1, ValueError,
+                              "at least one launch"),
+        "cpu-grids": (u, (v, w), 2, ValueError, "CUDA"),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["buffer-is-src", "buffer-views-src",
+                                  "buffers-share", "buffers-share-views",
+                                  "mixed-shape", "mixed-dtype",
+                                  "non-contiguous", "not-2d", "int-grid",
+                                  "one-buffer", "no-launches",
+                                  "negative-launches", "cpu-grids"])
+def test_loop_wrapper_refuses_bad_arguments(monkeypatch, case):
+    """``heat_ksteps_loop`` checks a solve's grids once, before it loads
+    the library, so every refusal is reached without a card."""
+    def no_library(name):
+        raise AssertionError(f"loaded {name} before the checks")
+
+    monkeypatch.setattr(_kernels, "library", no_library)
+    src, bufs, launches, exc, match = _loop_case(case)
+    kw = dict(order=2, k=1, tile_y=8, tile_x=128, run=1,
+              smem_bytes=sp.smem_bytes(8, 1, 2), ny=14, nx=14, xcfl=0.1,
+              ycfl=0.1, bc=BC)
+    with pytest.raises(exc, match=match):
+        _kernels.heat_ksteps_loop(src, bufs, launches, **kw)
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "pipeline2d"])
+def test_cpu_grid_takes_the_plain_version_and_no_loop(entry):
+    p, u0 = _probe(8)
+    u = torch.from_numpy(u0)
+    run = run_heat_pipeline if entry == "pipeline" else run_heat_pipeline2d
+    launches, loops = dict(sp.LAUNCHES), dict(sp.LAUNCH_LOOPS)
+    out = run(u, 6, 8, p.xcfl, p.ycfl, p.bc, k=2)
+    assert sp.LAUNCHES == launches and sp.LAUNCH_LOOPS == loops
+    torch.testing.assert_close(
+        out, run_heat_pipeline_plain(u, 6, 8, p.xcfl, p.ycfl, p.bc, k=2),
+        rtol=0, atol=0)
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_kernels, "_nvcc", lambda: "false")
