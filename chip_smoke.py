@@ -333,7 +333,7 @@ fails:
    without an error and ``ok``, the suite's ``flat`` and ``pallas-fused``
    rows within ``rel_l2`` ≤ 1e-2 of the f64 golden (float32 rounding over
    up to 77 iterations costs up to ~2e-3 there) and its ``blocked`` rows
-   finite (the blocked scan's cancellation, the JAX package's too); its
+   finite (the JAX package's blocked scan cancels, a few 1e-2); its
    ``pallas-fused`` rows' B7 launches are recorded.  Last, phase 28's pwtk files through
    ``load_problem`` with the native and the Python tokenizer: the
    ``spmv_scan.load`` span must name each, the problems bitwise equal, the
@@ -557,11 +557,11 @@ SWEEP_PATH = ("heat_kernels", "pallas_tile", "scan_bandwidth")
 BAND_TILE, SIDE, SIDE_TILE = 200, 4096, 256
 #: (rel L2, rel L∞) of each pwtk result from the f64 plain run.  ``auto`` is
 #: the blocked scan, whose local sums are cumsums over 4096-element blocks
-#: minus the cumsum before the segment's head; that cancellation costs
-#: ~1e-5 over pwtk's 25 iterations in the reference too (JAX's blocked scan
-#: on the CPU at a tenth of pwtk: 1.8e-5), so it is held to the engine's own
-#: pass bound (``apps/spmv_scan.py`` ``cpu_check``); ``blocked`` by name
-#: (phase 24) is the same scan.
+#: minus the cumsum before the segment's head, taken in float64 and rounded
+#: once; it is held to the engine's own pass bound (``apps/spmv_scan.py``
+#: ``cpu_check``), since an ill-conditioned segment can amplify any scan's
+#: rounding past 1e-5 (pwtk's shape at seed 3100000005, on an H100: 5.1e-5);
+#: ``blocked`` by name (phase 24) is the same scan.
 PWTK_TOL = {"pallas-fused": (1e-5, 1e-3), "pallas": (1e-5, 1e-3),
             "flat": (1e-5, 1e-3), "auto": (1e-4, 1e-3),
             "blocked": (1e-4, 1e-3)}
@@ -1826,8 +1826,9 @@ def workloads_phase(counted, only, paths, work, ident, calibration):
         # the suite's float32 iterations lose up to ~2e-3 against the f64
         # golden by rounding alone (rma10 at a tenth, 74 iterations: flat
         # 9.7e-4, JAX's flat the same; B7 2.0e-3, its plain version the
-        # same on the CPU), and the blocked scan's cancellation a few 1e-2
-        # (jonheart at a tenth: JAX's blocked 3.6e-2 on the CPU); a wrong
+        # same on the CPU), and the JAX package's blocked scan's
+        # cancellation a few 1e-2 (jonheart at a tenth: 3.6e-2 on the CPU;
+        # the port's blocked scan sums its blocks in float64); a wrong
         # scan is off by O(1).  So flat and pallas-fused rows are held to
         # 1e-2 and blocked rows finite; B7 against its plain version is
         # phase 7's, at 0 ULP

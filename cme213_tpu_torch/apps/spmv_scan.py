@@ -35,8 +35,9 @@ import torch
 
 from ..core import PhaseTimer, check_op, resolve_device, span
 from ..core.tune import dtype_name
-from ..ops.segmented import (head_flags_from_starts, scan_peak_bytes,
-                             segmented_scan, segmented_scan_blocked,
+from ..ops.segmented import (head_flags_from_starts, scan_form,
+                             scan_peak_bytes, segmented_scan,
+                             segmented_scan_blocked,
                              segmented_scan_dense, segmented_scan_flat,
                              validate_segments)
 from ..ops.segmented_pallas import segmented_scan_pallas, spmv_scan_pallas
@@ -69,11 +70,12 @@ class Problem:
         return self.x.shape[0]
 
     def validate(self) -> None:
-        """Loader invariants (aux/mp1-util.h:128-148)."""
+        """Loader invariants (aux/mp1-util.h:128-148); the gather indices
+        by their extremes, two passes that make no temporaries."""
         if self.s[-1] != self.n:
             raise ValueError("last segment entry must equal n (end sentinel)")
         validate_segments(self.s[:-1], self.n)
-        if ((self.k < 0) | (self.k >= self.q)).any():
+        if self.k.size and (self.k.min() < 0 or self.k.max() >= self.q):
             raise ValueError("gather index out of range")
 
     @property
@@ -209,6 +211,14 @@ def _scan_fn(scan: str, block_size: int | None):
     return lambda v, f: segmented_scan(v, f, block_size=block_size)
 
 
+def _scan_tag(rung: str, n: int) -> dict:
+    """``{"scan": form}`` for a rung that runs a plain torch scan: the form
+    ``auto`` dispatches at ``n``, or the one asked for; ``{}`` else."""
+    if rung == "auto":
+        return {"scan": scan_form(n)}
+    return {"scan": rung} if rung in ("flat", "blocked") else {}
+
+
 def _iterate(a, xx, flags, iters: int, scan: str = "auto",
              block_size: int | None = None):
     """``iters`` × ``a ← scan(a·xx)`` with a plain torch scan, along the
@@ -269,11 +279,14 @@ def _build_runner(kernel: str, iters: int, max_len: int | None = None,
 def problem_tensors(prob: Problem, dtype=torch.float32, device=None):
     """``(a, xx, flags, starts)`` of ``prob`` on ``device`` (``None``
     means ``cuda``): the values and ``xx`` in ``dtype``, int32 head flags,
-    int64 segment starts."""
+    int64 segment starts.  ``xx`` is gathered on the device from ``x`` and
+    ``k`` (``Problem.xx``'s values, bit for bit): the upload moves ``k``
+    in place of ``xx``, as many bytes, and the host does no gather."""
     dev = resolve_device(device)
     starts = torch.from_numpy(prob.s[:-1].astype(np.int64)).to(dev)
+    x = torch.from_numpy(prob.x).to(dev, dtype)
     return (torch.from_numpy(prob.a).to(dev, dtype),
-            torch.from_numpy(prob.xx).to(dev, dtype),
+            torch.index_select(x, 0, torch.from_numpy(prob.k).to(dev)),
             head_flags_from_starts(starts, prob.n), starts)
 
 
@@ -304,9 +317,11 @@ def ladder(kernel: str, device, plain_fallback: bool = False) -> tuple:
     ``FALLBACK_LADDERS[kernel]``.  A kernel on a CUDA device demotes only
     to the other kernel (``KERNEL_LADDERS``) and, when the caller asks for
     a plain rung (``plain_fallback``), then to ``flat``, the gate's
-    reference.  Not to ``blocked``: its block sums minus the sum before a
-    segment's head cancel, and on the generated example that misses the
-    engine's own check (rel L2 1e-4)."""
+    reference.  Not to ``blocked``, though it does not cancel (it sums
+    float32 blocks in float64, ``ops/segmented.segmented_scan_blocked``):
+    one plain rung behind the kernels is enough, and ``flat`` is the one
+    the gate holds every other rung to, so a demoted kernel serves what it
+    served before."""
     from ..core.resilience import allows_plain_rungs
 
     if kernel not in KERNEL_LADDERS or allows_plain_rungs(device):
@@ -406,18 +421,15 @@ def _conformance_gate(n: int, dtype, device):
     probe through that rung and through ``flat``, compares to the rung's
     declared tolerance and caches the verdict (``core/conformance.py``).
     ``auto`` is resolved to the scan the size dispatch picks for ``n``
-    (``ops.segmented.scan_threshold``), so the probed
-    kernel is the serving kernel."""
+    (``ops.segmented.scan_form``), so the probed kernel is the serving
+    kernel."""
     from ..core import conformance
     from ..core.platform import build_identity, resolve_device
-    from ..ops.segmented import scan_threshold
 
     dev = resolve_device(device)
 
     def gate(rung: str) -> bool:
-        kernel = rung
-        if kernel == "auto":
-            kernel = "flat" if n < scan_threshold() else "blocked"
+        kernel = scan_form(n) if rung == "auto" else rung
         if kernel == "flat":
             return True  # the reference rung needs no probe
         prob = _probe_problem()
@@ -526,9 +538,10 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     (``core/trace.host_range``), holding the ranges ``spmv_scan.validate``,
     ``spmv_scan.upload`` (``problem_tensors``) and ``spmv_scan.download``
     (the copy of the answer to the host) and each attempt's
-    ``spmv_scan.run`` span, so that the Chrome trace of a profiled sweep
-    (``bench/run_all`` under ``CME213_PROFILE_DIR``) names a solve's host
-    work on the card's timeline.
+    ``spmv_scan.run`` span (tagged ``scan=`` with the form a torch rung
+    runs, ``ops/segmented.scan_form``), so that the Chrome trace of a
+    profiled sweep (``bench/run_all`` under ``CME213_PROFILE_DIR``) names
+    a solve's host work on the card's timeline.
     """
     from ..core import programs, roofline, span, with_fallback
     from ..core.trace import host_range
@@ -561,7 +574,8 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
                                   p=prob.p, max_len=max_len,
                                   warm_args=lambda: args)
                 with span("spmv_scan.run", kernel=rung, n=prob.n,
-                          iters=prob.iters, shape_class=shape_class) as sp:
+                          iters=prob.iters, shape_class=shape_class,
+                          **_scan_tag(rung, prob.n)) as sp:
                     sp.roofline(cost.nbytes, cost.flops)
                     with timer.phase("spmv_scan") as ph:
                         out = runner(*args)

@@ -95,12 +95,14 @@ __all__ = [
 
 def _record_launches() -> None:
     """At exit, add the process's kernel launches to the metrics registry
-    as ``kernel.launches.<kernel>`` counters, and the heat solves' calls of
-    the C launch loop as ``kernel.launch_loops.<entry>``, so the final
+    as ``kernel.launches.<kernel>`` counters, the heat solves' calls of
+    the C launch loop as ``kernel.launch_loops.<entry>``, and the plain
+    torch segmented scans by form as ``kernel.scans.<form>``, so the final
     ``metrics-snapshot`` of a traced run names the kernels it launched.
     Registered after ``core/metrics`` registered its exit snapshot, so it
     runs first; a process that launched nothing adds nothing."""
-    from . import segmented_pallas, stencil_pallas, stencil_pipeline, transpose
+    from . import (segmented, segmented_pallas, stencil_pallas,
+                   stencil_pipeline, transpose)
 
     for counts in (stencil_pipeline.LAUNCHES, segmented_pallas.LAUNCHES,
                    stencil_pallas.LAUNCHES, transpose.LAUNCHES):
@@ -110,6 +112,9 @@ def _record_launches() -> None:
     for name, n in stencil_pipeline.LAUNCH_LOOPS.items():
         if n:
             metrics.counter(f"kernel.launch_loops.{name}").inc(n)
+    for name, n in segmented.SCANS.items():
+        if n:
+            metrics.counter(f"kernel.scans.{name}").inc(n)
 
 
 atexit.register(_record_launches)

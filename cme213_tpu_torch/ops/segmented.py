@@ -12,7 +12,13 @@ blocked 3-phase decomposition (``segmented_scan_blocked``, O(n) work).
 The flat form repeats the reference's arithmetic exactly and equals it bit
 for bit; the blocked and dense forms use ``torch.cumsum``, which associates
 differently from XLA's, so they agree with the reference to rounding (and
-exactly on integer-valued inputs).
+exactly on integer-valued inputs).  The port's blocked form sums float32
+blocks in float64, so a segment that starts deep in a block keeps its
+digits, where the reference's cancels them.
+
+``SCANS`` counts the calls of each form (one a call, whatever its length
+or lanes; the blocked form's carry scan is not counted); the exit
+snapshot publishes it as ``kernel.scans.<form>``.
 
 Segment descriptors match the reference's: ``s`` = sorted segment start
 indices with ``s[0] == 0``; ``segment_ids`` is the ``key[i]`` precompute of
@@ -29,6 +35,8 @@ import torch
 BLOCKED_SCAN_THRESHOLD = 1 << 16
 #: per-block extent of the blocked decomposition
 DEFAULT_SCAN_BLOCK = 4096
+#: calls of each scan form in this process, one a call
+SCANS = {"flat": 0, "blocked": 0}
 
 
 def head_flags_from_starts(seg_starts: torch.Tensor, n: int) -> torch.Tensor:
@@ -54,6 +62,11 @@ def scan_threshold() -> int:
     return BLOCKED_SCAN_THRESHOLD
 
 
+def scan_form(n: int) -> str:
+    """The form ``segmented_scan`` dispatches at length ``n``."""
+    return "blocked" if n >= scan_threshold() else "flat"
+
+
 def segmented_scan_flat(values: torch.Tensor,
                         head_flags: torch.Tensor) -> torch.Tensor:
     """Inclusive segmented sum scan — flat Hillis–Steele log-sweep: at
@@ -62,6 +75,11 @@ def segmented_scan_flat(values: torch.Tensor,
     0, so it equals ``cme213_tpu``'s flat scan bit for bit.  The scan runs
     along the last dimension; leading dimensions are independent lanes,
     each equal to its own 1-D scan bit for bit (elementwise ops only)."""
+    SCANS["flat"] += 1
+    return _flat(values, head_flags)
+
+
+def _flat(values: torch.Tensor, head_flags: torch.Tensor) -> torch.Tensor:
     n = values.shape[-1]
     steps = max(1, (n - 1).bit_length())
     idx = torch.arange(n, device=values.device)
@@ -82,7 +100,10 @@ def segmented_scan_blocked(values: torch.Tensor, head_flags: torch.Tensor,
     """Inclusive segmented sum scan — blocked O(n) form:
 
     1. per-block local scans as ``cumsum(v) − cumsum[last head − 1]``
-       (reset by subtraction: one cumsum, one gather);
+       (reset by subtraction: one cumsum, one gather), float32 blocks
+       summed and subtracted in float64 and rounded once to float32, so
+       that a segment starting deep in a block is not its difference of
+       two large float32 sums;
     2. a flat segmented scan of the per-block carries ``(last local value,
        block holds a head)``;
     3. each block's incoming carry added to its elements before its first
@@ -93,6 +114,7 @@ def segmented_scan_blocked(values: torch.Tensor, head_flags: torch.Tensor,
     dimensions are independent lanes, each equal to its own 1-D scan bit
     for bit (``_lane_cumsum``).
     """
+    SCANS["blocked"] += 1
     n = values.shape[-1]
     lead = values.shape[:-1]
     flags = head_flags.to(torch.int32)
@@ -109,7 +131,8 @@ def segmented_scan_blocked(values: torch.Tensor, head_flags: torch.Tensor,
     v2 = v.reshape(*lead, nblk, block_size)
     f2 = f.reshape(*lead, nblk, block_size)
 
-    cs = _lane_cumsum(v2)
+    wide = torch.float64 if v.dtype == torch.float32 else None
+    cs = _lane_cumsum(v2, wide)
     lane = torch.arange(block_size, device=v.device).expand(v2.shape)
     # index of the last head at or before each position (-1: none yet)
     hp = torch.cummax(torch.where(f2 > 0, lane, -1), dim=-1).values
@@ -117,10 +140,12 @@ def segmented_scan_blocked(values: torch.Tensor, head_flags: torch.Tensor,
                        torch.gather(cs, -1, (hp - 1).clamp(min=0)),
                        torch.zeros_like(cs))
     local = cs - base
+    if wide is not None:
+        local = local.to(v.dtype)
 
     carry_v = local[..., -1]
     carry_f = (hp[..., -1] >= 0).to(torch.int32)
-    inc_v = segmented_scan_flat(carry_v, carry_f)
+    inc_v = _flat(carry_v, carry_f)
     incoming = torch.cat([inc_v.new_zeros(*lead, 1), inc_v[..., :-1]], -1)
 
     out = local + torch.where(hp < 0, incoming[..., None],
@@ -128,20 +153,21 @@ def segmented_scan_blocked(values: torch.Tensor, head_flags: torch.Tensor,
     return out.reshape(*lead, padded)[..., :n]
 
 
-def _lane_cumsum(v2: torch.Tensor) -> torch.Tensor:
+def _lane_cumsum(v2: torch.Tensor, dtype=None) -> torch.Tensor:
     """``torch.cumsum`` of (..., nblk, block) blocks along the last
-    dimension, one call per lane of the leading dimensions.  On a CUDA
-    tensor torch picks the cumsum's association from the shape: a single
-    row goes to CUB, several rows to a row kernel whose thread layout
-    depends on the row count (``get_log_num_threads_x_inner_scan``).  So a
-    lane's blocks must be summed at the 1-D scan's own (nblk, block) shape
-    to equal it bit for bit: B calls, not one over B·nblk rows."""
+    dimension, accumulated and returned in ``dtype`` (torch's default
+    where ``None``), one call per lane of the leading dimensions.  On a
+    CUDA tensor torch picks the cumsum's association from the shape: a
+    single row goes to CUB, several rows to a row kernel whose thread
+    layout depends on the row count (``get_log_num_threads_x_inner_scan``).
+    So a lane's blocks must be summed at the 1-D scan's own (nblk, block)
+    shape to equal it bit for bit: B calls, not one over B·nblk rows."""
     if v2.dim() == 2:
-        return torch.cumsum(v2, dim=1)
-    out = torch.empty_like(v2)
+        return torch.cumsum(v2, dim=1, dtype=dtype)
+    out = torch.empty(v2.shape, dtype=dtype or v2.dtype, device=v2.device)
     for src, dst in zip(v2.reshape(-1, *v2.shape[-2:]),
                         out.view(-1, *v2.shape[-2:])):
-        torch.cumsum(src, dim=1, out=dst)
+        torch.cumsum(src, dim=1, dtype=dtype, out=dst)
     return out
 
 
@@ -151,7 +177,7 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor, *,
     below ``scan_threshold()`` elements, the blocked form (at
     ``block_size``, default ``DEFAULT_SCAN_BLOCK``) at or above it, along
     the last dimension (leading dimensions are lanes)."""
-    if values.shape[-1] >= scan_threshold():
+    if scan_form(values.shape[-1]) == "blocked":
         return segmented_scan_blocked(values, head_flags,
                                       block_size or DEFAULT_SCAN_BLOCK)
     return segmented_scan_flat(values, head_flags)
@@ -167,19 +193,24 @@ def scan_peak_bytes(n: int, elem: int, scan: str = "auto",
       previous stride's ``add``, the zeros and the new ``add`` (values),
       ``idx`` (int64), ``f`` and ``pf`` (int32), ``valid`` and the mask
       (bool);
-    - ``blocked``, at the birth of ``out``: ``cs``, ``base``, ``local``,
-      the zeros, the ``where`` and ``out`` (values), ``hp`` (int64) and
-      the mask (bool) over the padded length, and the padded copies of the
-      values and flags when ``n`` is not a block multiple; the carries'
-      scan over one value a block is left out;
+    - ``blocked``, over the padded length, with ``cs`` and ``base`` in
+      the running sums' width (8 bytes for 4-byte values, which sum in
+      float64), ``hp`` (int64) and a mask (bool), at the larger of two
+      births: ``base``'s ``where`` (``cs``, the gathered values, the zeros
+      and the ``where``, all four wide) and ``out`` (``cs`` and ``base``,
+      then ``local``, the zeros, the ``where`` and ``out`` in the values'
+      width); plus the padded copies of the values and flags when ``n`` is
+      not a block multiple; the carries' scan over one value a block is
+      left out;
     - ``auto``: the form ``segmented_scan`` dispatches at ``n``."""
     if scan == "auto":
-        scan = "blocked" if n >= scan_threshold() else "flat"
+        scan = scan_form(n)
     if scan == "flat":
         return n * (5 * elem + 8 + 2 * 4 + 2)
     padded = max(1, -(-n // block_size)) * block_size
     pad = (elem + 4) * padded if padded != n else 0
-    return padded * (6 * elem + 8 + 1) + pad
+    wide = 8 if elem == 4 else elem
+    return padded * (2 * wide + max(2 * wide, 4 * elem) + 8 + 1) + pad
 
 
 def segmented_scan_from_starts(values: torch.Tensor,

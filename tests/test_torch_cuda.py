@@ -1096,6 +1096,31 @@ def test_spmv_checkpointed_bitwise_on_card(cuda, kernel, tmp_path):
         out, spmv._iterate(a, xx, flags, 9, scan=kernel).cpu().numpy())
 
 
+@pytest.mark.parametrize("seed", [3_100_000_005, 3_300_000_004,
+                                  3_200_000_005])
+def test_pwtk_auto_within_the_check_on_card(cuda, seed):
+    """pwtk's shape through the default ``auto`` path (the blocked scan),
+    drawn as the benchmark's ``pwtk-spmv`` cell draws it, at the seeds
+    where the blocked scan's float32 block sums once read rel L2
+    1.09e-4–1.42e-4: within the configuration's 1e-4 of the float64
+    reference."""
+    from cme213_tpu_torch.ops import segmented
+    from perfbench import inputs
+    from perfbench.reference import compare
+    from perfbench.reference import spmv as ref
+
+    d = inputs.spmv_problem(n=11_634_424, p=217_919, q=217_918, iters=25,
+                            seed=seed, device=cuda)
+    prob = spmv.Problem(d["a"], d["s"], d["k"], d["x"], d["iters"])
+    assert segmented.scan_form(prob.n) == "blocked"
+    before = segmented.SCANS["blocked"]
+    out = spmv.run_spmv_scan(prob, kernel="auto", device=cuda)
+    assert segmented.SCANS["blocked"] - before >= prob.iters
+    want = ref.solve(d["a"], d["s"], d["k"], d["x"], d["iters"], device=cuda)
+    l2, linf = compare.relative_errors(want, out)
+    assert l2 <= 1e-4 and linf <= 1e-3
+
+
 # ------------------------------------------- the hw1, hw3 and hw4 workloads
 
 def _packed_model(data: np.ndarray, shift: int) -> np.ndarray:

@@ -308,8 +308,8 @@ def test_spmv_checkpointed_refuses_kernels_and_budget(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("n,kernel,want", [
     (1000, "flat", 1000 * 38),
-    (1 << 16, "auto", (1 << 16) * 33),          # blocked, a block multiple
-    (5000, "blocked", 8192 * 33 + 8192 * 8),    # padded: copies of v and f
+    (1 << 16, "auto", (1 << 16) * 41),          # blocked, a block multiple
+    (5000, "blocked", 8192 * 41 + 8192 * 8),    # padded: copies of v and f
     (5000, "auto", 5000 * 38),                  # flat below the threshold
 ])
 def test_scan_peak_bytes_counts_the_dispatched_form(n, kernel, want):

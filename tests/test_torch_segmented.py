@@ -554,9 +554,11 @@ def test_wrappers_refuse_bad_arguments():
 
 def test_blocked_cancellation_is_the_reference_s():
     """The blocked scan's local sums are a cumsum over the block minus the
-    cumsum before the segment's head; on pwtk's short segments (53
-    elements on average) that cancellation leaves it much further from
-    the f64 answer than the flat scan — in the reference as in the port."""
+    cumsum before the segment's head.  In the reference both are float32,
+    and on pwtk's short segments (53 elements on average) that
+    cancellation leaves it much further from the f64 answer than the flat
+    scan; the port sums float32 blocks in float64 and rounds once, so its
+    blocked scan is as close as its flat one."""
     prob = spmv.suite_problem("pwtk", scale=0.003)  # 34,903 values, N = 25
     f = _flags(prob.n, prob.s[:-1])
     ref = golden.host_spmv_scan(prob.a, prob.s[:-1], prob.xx, prob.iters,
@@ -571,9 +573,8 @@ def test_blocked_cancellation_is_the_reference_s():
         errs[scan_kind] = (relative_l2_error(ref, ours),
                            relative_l2_error(ref, theirs))
     assert errs["flat"][0] == errs["flat"][1]
-    for ours_or_theirs in (0, 1):
-        assert errs["blocked"][ours_or_theirs] \
-            > 5 * errs["flat"][ours_or_theirs]
+    assert errs["blocked"][0] <= 2 * errs["flat"][0]
+    assert errs["blocked"][1] > 5 * errs["flat"][1]
 
 
 def test_source_geometry_is_the_plain_versions():
