@@ -10,7 +10,9 @@ increasing, ``s[p-1]=n`` — the end-sentinel convention of the validating
 loader ``aux/mp1-util.h:81-169``), the reference's ``fp.cu``.  The scan is
 one of the plain torch scans of ``ops/segmented.py`` or the hand-written
 CUDA kernel of ``ops/segmented_pallas.py`` (``--kernel=pallas`` /
-``pallas-fused``, the reference's names).
+``pallas-fused``, the reference's names).  The default ``auto`` serves the
+fused kernel (B7) for float32 on a CUDA device, and the torch scans'
+size dispatch everywhere else (the CPU, float64).
 
 Problem file formats match the reference loader (fp.cu:91-107):
 ``a.txt`` = ``n p q N`` then ``a`` (n floats), ``s`` (p ints), ``k`` (n
@@ -69,13 +71,16 @@ class Problem:
     def q(self) -> int:
         return self.x.shape[0]
 
-    def validate(self) -> None:
+    def validate(self, gather: bool = True) -> None:
         """Loader invariants (aux/mp1-util.h:128-148); the gather indices
-        by their extremes, two passes that make no temporaries."""
+        by their extremes, two passes that make no temporaries, unless
+        ``gather`` is false (``problem_tensors`` checks them on the device
+        before it gathers)."""
         if self.s[-1] != self.n:
             raise ValueError("last segment entry must equal n (end sentinel)")
         validate_segments(self.s[:-1], self.n)
-        if self.k.size and (self.k.min() < 0 or self.k.max() >= self.q):
+        if gather and self.k.size and \
+                (self.k.min() < 0 or self.k.max() >= self.q):
             raise ValueError("gather index out of range")
 
     @property
@@ -281,13 +286,32 @@ def problem_tensors(prob: Problem, dtype=torch.float32, device=None):
     means ``cuda``): the values and ``xx`` in ``dtype``, int32 head flags,
     int64 segment starts.  ``xx`` is gathered on the device from ``x`` and
     ``k`` (``Problem.xx``'s values, bit for bit): the upload moves ``k``
-    in place of ``xx``, as many bytes, and the host does no gather."""
+    in place of ``xx``, as many bytes, and the host does no gather.  ``k``
+    is checked against ``[0, q)`` on the device first, by its extremes
+    (an index out of range would stop the card's gather)."""
     dev = resolve_device(device)
     starts = torch.from_numpy(prob.s[:-1].astype(np.int64)).to(dev)
     x = torch.from_numpy(prob.x).to(dev, dtype)
+    k = torch.from_numpy(prob.k).to(dev)
+    if k.numel():
+        lo, hi = torch.stack(torch.aminmax(k)).tolist()
+        if lo < 0 or hi >= prob.q:
+            raise ValueError("gather index out of range")
     return (torch.from_numpy(prob.a).to(dev, dtype),
-            torch.index_select(x, 0, torch.from_numpy(prob.k).to(dev)),
+            torch.index_select(x, 0, k),
             head_flags_from_starts(starts, prob.n), starts)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array of its own.  From a CUDA device the copy
+    lands in page-locked memory from torch's caching host allocator: one
+    DMA at the link's rate and no fresh pages to fault in, where a
+    pageable copy stages through CUDA's bounce buffers; the block goes
+    back to the cache when the array is dropped."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    return torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=True).copy_(t).numpy()
 
 
 #: demotion ladder per requested kernel, the JAX package's: the kernel
@@ -310,10 +334,14 @@ KERNEL_LADDERS = {
 }
 
 
-def ladder(kernel: str, device, plain_fallback: bool = False) -> tuple:
-    """The rungs ``run_spmv_scan`` tries for ``kernel`` on ``device``.
+def ladder(kernel: str, device, plain_fallback: bool = False,
+           dtype=torch.float32) -> tuple:
+    """The rungs ``run_spmv_scan`` tries for ``kernel`` on ``device`` in
+    ``dtype``.
 
-    On the CPU, and for a torch scan asked for by name, they are
+    ``auto`` in float32 on a CUDA device, where the fused kernel can serve
+    it, is ``pallas-fused``'s ladder.  On the CPU, and for a torch scan
+    asked for by name (``auto`` in float64 too), the rungs are
     ``FALLBACK_LADDERS[kernel]``.  A kernel on a CUDA device demotes only
     to the other kernel (``KERNEL_LADDERS``) and, when the caller asks for
     a plain rung (``plain_fallback``), then to ``flat``, the gate's
@@ -324,6 +352,9 @@ def ladder(kernel: str, device, plain_fallback: bool = False) -> tuple:
     served before."""
     from ..core.resilience import allows_plain_rungs
 
+    if kernel == "auto" and dtype == torch.float32 and \
+            torch.device(device).type == "cuda":
+        kernel = "pallas-fused"
     if kernel not in KERNEL_LADDERS or allows_plain_rungs(device):
         return FALLBACK_LADDERS[kernel]
     rungs = KERNEL_LADDERS[kernel]
@@ -504,8 +535,9 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
 
     ``kernel``:
 
-    - "auto" (default): the flat log-sweep below ``scan_threshold()``
-      elements, the blocked O(n) scan above;
+    - "auto" (default): in float32 on a CUDA device "pallas-fused", with
+      its ladder; elsewhere (the CPU, float64) the flat log-sweep below
+      ``scan_threshold()`` elements, the blocked O(n) scan above;
     - "flat"/"blocked": force the respective torch scan;
     - "pallas-fused": the hand-written kernel with the multiply fused into
       the scan's load (B7, ``ops/segmented_pallas.spmv_scan_pallas``);
@@ -514,14 +546,15 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     - "dense": the per-segment dense-matrix strawman.
 
     With ``fallback`` (default) the rungs of ``ladder(kernel, device,
-    plain_fallback)`` run behind ``core/resilience.with_fallback`` and the
-    conformance gate (``_conformance_gate``): an injected fault
+    plain_fallback, dtype)`` run behind ``core/resilience.with_fallback``
+    and the conformance gate (``_conformance_gate``): an injected fault
     (``fail:spmv_scan.<rung>``) or a diverging probe demotes the rung.  On
     a CUDA device a kernel demotes only to the other kernel, and to
     ``flat`` when ``plain_fallback`` asks for it; a ladder whose rungs are
     all refused raises.  A kernel that cannot build or launch raises
     (``KernelError``) and never demotes.  ``fallback=False`` runs the
-    requested kernel alone, ungated (bench rows are data).
+    ladder's first rung alone, ungated (bench rows are data): the
+    requested kernel, or the rung ``auto`` serves first.
 
     Each rung's program comes from the process-wide cache: a miss builds
     it and runs one untimed iteration (the kernel's build and the device's
@@ -530,14 +563,15 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     With ``canonical``, the problem is snapped to its power-of-two bucket
     first (``core/programs.canonical_size``): zero-padded with a
     quarantined tail segment (``pad_problem``) and the output sliced back.
-    Each (bucket, kernel, dtype, device) is probed once (``_bucket_gate``:
-    padded-then-sliced bitwise equal to unpadded); a failing probe keeps
-    the exact shape.
+    Each (bucket, kernel, dtype, device) is probed once (``_bucket_gate``,
+    with the ladder's first rung: padded-then-sliced bitwise equal to
+    unpadded); a failing probe keeps the exact shape.
 
     The call is a ``spmv_scan.solve`` host range on the profiler's clock
-    (``core/trace.host_range``), holding the ranges ``spmv_scan.validate``,
-    ``spmv_scan.upload`` (``problem_tensors``) and ``spmv_scan.download``
-    (the copy of the answer to the host) and each attempt's
+    (``core/trace.host_range``), holding the ranges ``spmv_scan.validate``
+    (the segment starts), ``spmv_scan.upload`` (``problem_tensors``, with
+    its check of ``k``) and ``spmv_scan.download`` (the copy of the answer
+    to the host, ``_to_host``) and each attempt's
     ``spmv_scan.run`` span (tagged ``scan=`` with the form a torch rung
     runs, ``ops/segmented.scan_form``), so that the Chrome trace of a
     profiled sweep (``bench/run_all`` under ``CME213_PROFILE_DIR``) names
@@ -550,11 +584,14 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
         raise ValueError(f"unknown kernel {kernel!r} ({'|'.join(KERNELS)})")
     with host_range("spmv_scan.solve"):
         with host_range("spmv_scan.validate"):
-            prob.validate()
+            prob.validate(gather=False)  # k: on the device, in the upload
         dev = resolve_device(device)
+        rungs = ladder(kernel, dev, plain_fallback, dtype)
+        if not fallback:
+            rungs = rungs[:1]
         if canonical:
             n_to = programs.canonical_size(prob.n)
-            if n_to != prob.n and _bucket_gate(n_to, kernel, dtype, dev):
+            if n_to != prob.n and _bucket_gate(n_to, rungs[0], dtype, dev):
                 out = run_spmv_scan(pad_problem(prob, n_to), timer=timer,
                                     dtype=dtype, kernel=kernel,
                                     fallback=fallback,
@@ -583,18 +620,17 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
                 return out
             return thunk
 
-        rungs = ladder(kernel, dev, plain_fallback) if fallback else (kernel,)
         gate = _conformance_gate(prob.n, dtype, dev) if fallback else None
         res = with_fallback("spmv_scan", [(r, attempt(r)) for r in rungs],
                             gate=gate)
         if res.demoted:
-            print(f"spmv_scan: kernel {kernel!r} demoted to {res.rung!r} "
+            print(f"spmv_scan: kernel {rungs[0]!r} demoted to {res.rung!r} "
                   f"(failed: {', '.join(f.rung for f in res.failures)})")
         ms = timer.last_ms("spmv_scan")
         print(f"The running time of my code for {prob.iters} iterations "
               f"is: {ms} milliseconds.")
         with host_range("spmv_scan.download"):
-            return res.value.cpu().numpy()
+            return _to_host(res.value)
 
 
 def run_spmv_scan_batched(probs: list[Problem], kernel: str = "flat",
@@ -958,6 +994,7 @@ def main(argv: list[str]) -> int:
         spmv_scan a.txt x.txt [cpu_check]
                   [--kernel=auto|flat|blocked|pallas|pallas-fused|dense]
                   [--device=cuda|cpu] [--distributed] [--canonical]
+                  (auto: B7 in float32 on the card, else flat/blocked)
         spmv_scan gen a.txt x.txt [n p q [iters]] [--seed=S]
         spmv_scan mtx matrix.mtx|dense2 [cpu_check] [--kernel=...]
                   [--seed=S] [--device=...]

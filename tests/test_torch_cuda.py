@@ -1096,14 +1096,16 @@ def test_spmv_checkpointed_bitwise_on_card(cuda, kernel, tmp_path):
         out, spmv._iterate(a, xx, flags, 9, scan=kernel).cpu().numpy())
 
 
+@pytest.mark.parametrize("kernel", ["auto", "blocked"])
 @pytest.mark.parametrize("seed", [3_100_000_005, 3_300_000_004,
                                   3_200_000_005])
-def test_pwtk_auto_within_the_check_on_card(cuda, seed):
-    """pwtk's shape through the default ``auto`` path (the blocked scan),
-    drawn as the benchmark's ``pwtk-spmv`` cell draws it, at the seeds
-    where the blocked scan's float32 block sums once read rel L2
-    1.09e-4–1.42e-4: within the configuration's 1e-4 of the float64
-    reference."""
+def test_pwtk_auto_within_the_check_on_card(cuda, seed, kernel):
+    """pwtk's shape, drawn as the benchmark's ``pwtk-spmv`` cell draws it,
+    at the seeds where the blocked scan's float32 block sums once read
+    rel L2 1.09e-4–1.42e-4: within the configuration's 1e-4 of the float64
+    reference.  ``auto`` (the cell's kernel) serves the fused kernel,
+    ``iters`` launches of it and no torch scan; ``blocked`` by name keeps
+    the guard on the blocked scan's float64 block sums."""
     from cme213_tpu_torch.ops import segmented
     from perfbench import inputs
     from perfbench.reference import compare
@@ -1113,12 +1115,59 @@ def test_pwtk_auto_within_the_check_on_card(cuda, seed):
                             seed=seed, device=cuda)
     prob = spmv.Problem(d["a"], d["s"], d["k"], d["x"], d["iters"])
     assert segmented.scan_form(prob.n) == "blocked"
-    before = segmented.SCANS["blocked"]
-    out = spmv.run_spmv_scan(prob, kernel="auto", device=cuda)
-    assert segmented.SCANS["blocked"] - before >= prob.iters
+    spmv.run_spmv_scan(prob, kernel=kernel, device=cuda)  # probe, warm-up
+    blocked, fused = segmented.SCANS["blocked"], segp.LAUNCHES["spmv_fused"]
+    out = spmv.run_spmv_scan(prob, kernel=kernel, device=cuda)
+    if kernel == "auto":
+        assert segp.LAUNCHES["spmv_fused"] - fused == prob.iters
+        assert segmented.SCANS["blocked"] == blocked
+    else:
+        assert segmented.SCANS["blocked"] - blocked == prob.iters
+        assert segp.LAUNCHES["spmv_fused"] == fused
     want = ref.solve(d["a"], d["s"], d["k"], d["x"], d["iters"], device=cuda)
     l2, linf = compare.relative_errors(want, out)
     assert l2 <= 1e-4 and linf <= 1e-3
+
+
+def test_auto_on_card_is_the_fused_kernel_bitwise(cuda):
+    """``auto`` in float32 on the card returns B7's answer, bit for bit."""
+    prob = spmv.generate_problem(70_001, 900, 899, iters=7, seed=4)
+    out = spmv.run_spmv_scan(prob, device=cuda)
+    a, xx, flags, _ = spmv.problem_tensors(prob, device=cuda)
+    want = segp.spmv_scan_pallas(a, xx, flags, prob.iters).cpu().numpy()
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+def test_auto_on_card_with_both_kernels_refused_raises_unless_plain(cuda):
+    """Both kernel rungs refused by injected faults: ``auto`` is
+    ``pallas-fused`` on the card, so the solve raises, and is served by
+    ``flat`` only when the caller asks for the plain rung."""
+    from cme213_tpu_torch.core import faults, trace
+    from cme213_tpu_torch.core.errors import FrameworkError
+
+    prob = spmv.generate_problem(70_001, 900, 899, iters=5, seed=6)
+    both = "fail:spmv_scan.pallas-fused,fail:spmv_scan.pallas"
+    with faults.injected(both):
+        with pytest.raises(FrameworkError, match="all 2 rungs"):
+            spmv.run_spmv_scan(prob, device=cuda)
+    with faults.injected(both):
+        out = spmv.run_spmv_scan(prob, plain_fallback=True, device=cuda)
+    served = trace.events("served")[-1]
+    assert (served["rung"], served["demoted"]) == ("flat", True)
+    assert spmv.external_check(prob, out)["rel_l2"] < 1e-5
+
+
+def test_answers_download_to_page_locked_memory_of_their_own(cuda):
+    """A solve's answer is copied from the card into page-locked memory
+    that the array owns: the next solve does not overwrite it."""
+    one = spmv.generate_problem(70_001, 900, 899, iters=5, seed=7)
+    two = spmv.generate_problem(70_001, 900, 899, iters=5, seed=8)
+    first = spmv.run_spmv_scan(one, device=cuda)
+    kept = first.copy()
+    second = spmv.run_spmv_scan(two, device=cuda)
+    assert torch.from_numpy(first).is_pinned()
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(first, second)
 
 
 # ------------------------------------------- the hw1, hw3 and hw4 workloads

@@ -412,8 +412,102 @@ def test_spmv_kernel_ladders_on_a_cuda_device():
     assert spmv.ladder("pallas-fused", cuda, plain_fallback=True) == \
         ("pallas-fused", "pallas", "flat")
     assert spmv.ladder("pallas", cuda) == ("pallas",)
-    # a torch scan asked for by name is the plain version by request
-    assert spmv.ladder("auto", cuda) == ("auto", "flat")
+    # auto in float32 is the fused kernel, with its ladder
+    assert spmv.ladder("auto", cuda) == ("pallas-fused", "pallas")
+    assert spmv.ladder("auto", cuda, plain_fallback=True) == \
+        ("pallas-fused", "pallas", "flat")
+    # the kernel takes float32 only: auto in float64, and on the CPU, is
+    # the torch dispatch, as is a torch scan asked for by name
+    assert spmv.ladder("auto", cuda, dtype=torch.float64) == ("auto", "flat")
+    assert spmv.ladder("auto", "cpu") == ("auto", "flat")
+    assert spmv.ladder("blocked", cuda) == ("blocked", "flat")
+
+
+@pytest.fixture
+def auto_on_card(monkeypatch):
+    """``auto``'s ladders as on a CUDA device, over CPU tensors (the kernel
+    rungs run their plain versions)."""
+    real = spmv.ladder
+    monkeypatch.setattr(
+        spmv, "ladder", lambda kernel, device, plain_fallback=False,
+        dtype=torch.float32: real(kernel, torch.device("cuda"),
+                                  plain_fallback, dtype))
+
+
+def test_auto_on_a_card_serves_the_fused_kernel(auto_on_card):
+    prob = spmv.generate_problem(1024, 32, 31, iters=4, seed=0)
+    out = spmv.run_spmv_scan(prob, device="cpu")
+    served = trace.events("served")[-1]
+    assert (served["rung"], served["demoted"]) == ("pallas-fused", False)
+    (end,) = [e for e in trace.events("span-end")
+              if e["span"] == "spmv_scan.run"]
+    assert end["kernel"] == "pallas-fused" and "scan" not in end
+    a, xx, flags, _ = spmv.problem_tensors(prob, device="cpu")
+    np.testing.assert_array_equal(
+        out, segmented_pallas.spmv_scan_pallas(a, xx, flags, 4).numpy())
+
+
+@pytest.mark.parametrize("spec,plain,rung", [
+    ("fail:spmv_scan.pallas-fused", False, "pallas"),
+    ("fail:spmv_scan.pallas-fused,fail:spmv_scan.pallas", False, None),
+    ("fail:spmv_scan.pallas-fused,fail:spmv_scan.pallas", True, "flat"),
+    ("wrong:spmv_scan,wrong:spmv_scan", False, None),
+    ("wrong:spmv_scan,wrong:spmv_scan", True, "flat")])
+def test_refused_kernels_demote_auto_as_pallas_fused(auto_on_card, spec,
+                                                     plain, rung, capsys):
+    """On the card ``auto`` is ``pallas-fused`` with its ladder: a refused
+    B7 demotes to B6, and with both refused the solve raises unless the
+    caller asks for the plain rung, so a wrong kernel is never served
+    unasked by a torch scan."""
+    prob = spmv.generate_problem(1024, 32, 31, iters=4, seed=0)
+    with faults.injected(spec):
+        if rung is None:
+            with pytest.raises(FrameworkError, match="all 2 rungs"):
+                spmv.run_spmv_scan(prob, device="cpu")
+            assert not trace.events("served")
+            return
+        out = spmv.run_spmv_scan(prob, plain_fallback=plain, device="cpu")
+    served = trace.events("served")[-1]
+    assert (served["rung"], served["demoted"]) == (rung, True)
+    assert f"kernel 'pallas-fused' demoted to {rung!r}" in \
+        capsys.readouterr().out
+    assert spmv.external_check(prob, out)["rel_l2"] < 1e-5
+
+
+def test_auto_on_a_card_raises_a_kernel_error(auto_on_card, monkeypatch):
+    """A kernel that cannot build or launch raises out of ``auto`` as out
+    of every kernel rung: no demotion."""
+    prob = spmv.generate_problem(512, 16, 15, iters=3, seed=1)
+
+    def broken(*a, **kw):
+        raise KernelError("segmented_scan launch failed: invalid argument "
+                          "(cudaError 1; ...)")
+
+    monkeypatch.setattr(spmv, "spmv_scan_pallas", broken)
+    with pytest.raises(KernelError):
+        spmv.run_spmv_scan(prob, device="cpu")
+    assert not trace.events("served")
+
+
+def test_auto_fallback_off_runs_the_rung_it_serves(auto_on_card):
+    prob = spmv.generate_problem(512, 16, 15, iters=3, seed=1)
+    spmv.run_spmv_scan(prob, fallback=False, device="cpu")
+    assert trace.events("served")[-1]["rung"] == "pallas-fused"
+    assert not trace.events("conformance-probe")
+    with faults.injected("fail:spmv_scan.pallas-fused"):
+        with pytest.raises(FrameworkError, match="1 rungs"):
+            spmv.run_spmv_scan(prob, fallback=False, device="cpu")
+
+
+def test_auto_canonical_probes_the_rung_that_serves(auto_on_card):
+    prob = spmv.generate_problem(1500, 24, 23, iters=3, seed=2)
+    out = spmv.run_spmv_scan(prob, canonical=True, device="cpu")
+    pads = [e for e in trace.events("conformance-probe")
+            if e["op"] == "spmv_scan.pad"]
+    assert [(e["rung"], e["ok"]) for e in pads] == [("pallas-fused", True)]
+    assert trace.events("served")[-1]["rung"] == "pallas-fused"
+    exact = spmv.run_spmv_scan(prob, device="cpu")
+    np.testing.assert_array_equal(out, exact)
 
 
 def test_spmv_refused_kernels_raise_unless_plain_is_asked(cuda_rules):

@@ -144,6 +144,31 @@ def test_below_the_threshold_auto_counts_flat():
     assert _delta(before) == {"flat": prob.iters, "blocked": 0}
 
 
+@pytest.mark.parametrize("device,dtype,rung", [
+    ("cpu", torch.float32, "auto"), ("cpu", torch.float64, "auto"),
+    ("cuda", torch.float64, "auto"), ("cuda", torch.float32, "pallas-fused")])
+def test_auto_keeps_the_torch_dispatch_but_in_float32_on_a_card(
+        monkeypatch, device, dtype, rung):
+    """``auto`` serves the torch dispatch on the CPU in either precision
+    and on a CUDA device in float64 (the kernel takes float32 only): warm,
+    a solve at n ≥ 2^16 adds its iterations to ``blocked``.  In float32 on
+    a CUDA device it serves the fused kernel and scans nothing in torch.
+    The ladder is decided as on ``device``, over CPU tensors (the kernel
+    rungs run their plain versions)."""
+    real = spmv.ladder
+    monkeypatch.setattr(
+        spmv, "ladder", lambda kernel, _dev, plain_fallback=False,
+        dtype=torch.float32: real(kernel, torch.device(device),
+                                  plain_fallback, dtype))
+    prob = _problem(5)
+    spmv.run_spmv_scan(prob, dtype=dtype, device=CPU)  # warms the program
+    before = dict(segmented.SCANS)
+    spmv.run_spmv_scan(prob, dtype=dtype, device=CPU)
+    blocked = prob.iters if rung == "auto" else 0
+    assert _delta(before) == {"flat": 0, "blocked": blocked}
+    assert trace.events("served")[-1]["rung"] == rung
+
+
 @pytest.mark.parametrize("kernel,n,form", [
     ("auto", 70_000, "blocked"), ("auto", 20_000, "flat"),
     ("flat", 70_000, "flat"), ("blocked", 20_000, "blocked")])
@@ -170,3 +195,18 @@ def test_validate_refuses_a_gather_index_out_of_range(bad):
     prob.k[1234] = bad
     with pytest.raises(ValueError, match="gather index"):
         prob.validate()
+    prob.validate(gather=False)  # the upload checks k
+    with pytest.raises(ValueError, match="gather index"):
+        spmv.problem_tensors(prob, device=CPU)
+
+
+@pytest.mark.parametrize("bad", [-1, 399])
+def test_a_solve_refuses_a_gather_index_out_of_range(bad):
+    """``run_spmv_scan`` leaves ``k`` to the upload's check, on the
+    device, and raises as the loader's check does, before any rung."""
+    prob = _problem(4, n=20_000, p=400, q=399)
+    prob.k[0] = bad
+    with pytest.raises(ValueError, match="gather index"):
+        spmv.run_spmv_scan(prob, device=CPU)
+    assert not [e for e in trace.events("span-begin")
+                if e["span"] == "spmv_scan.run"]
