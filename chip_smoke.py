@@ -341,10 +341,11 @@ fails:
    ``spmv_scan.load`` span must name each, the problems bitwise equal, the
    seconds of each printed.  The numbers go on a ``{"workloads": ...}``
    line.
-30. The hw5 solves as a gang of two processes on the one card (gloo, the
-   slabs staged through the host; 2000², order 8, 1000 steps, as phases 10
-   and 20), each through ``python -m cme213_tpu_torch.dist.launch`` with
-   every process's sink at ``{tag}-{rank}.jsonl``; a worker script runs
+30. The hw5 solves as a gang of two processes on the one card (gloo,
+   each exchange one plan-ordered batch whose slabs go through the host;
+   2000², order 8, 1000 steps, as phases 10 and 20), each through
+   ``python -m cme213_tpu_torch.dist.launch`` with every process's sink at
+   ``{tag}-{rank}.jsonl``; a worker script runs
    each rank's command (the heat CLI's ``main`` with the distributed grid
    caught at full precision, or the supervised SpMV-scan).  (a) ``--np 2
    --devices-per-proc 2`` of ``heat2d P --distributed
@@ -444,8 +445,9 @@ fails:
    bit the four shards of ``cuda:0``, ms an iteration.  (c) ``python -m
    cme213_tpu_torch.dist.launch --np 4``, one rank a card: ``heat2d P
    --distributed --local-kernel=pallas`` for gridMethod 2 and 1 on NCCL,
-   and gridMethod 2 again with ``--backend gloo`` (host-staged); every
-   rank names its backend, as the ``gang-launch`` span does, each rank's
+   and gridMethod 2 again with ``--backend gloo`` (the same batch, its
+   slabs through the host); every rank names its backend, as the
+   ``gang-launch`` span does, each rank's
    grid is bit for bit (a)'s, B3 launched ``iters`` + the probe's in each
    rank, ``solve_s`` and ``exchange_s`` by rank and backend.  (d) The
    supervised NCCL gang: ``--supervised --ckpt-every 250`` under
@@ -2109,7 +2111,7 @@ def gang_phase(counted, only, paths, work, dist_p, dist_ref, dist_rows,
                  / single_s}
     print(f"phase 30 (a): gang solve {[r['solve_s'] for r in per_rank.values()]}"
           f" s against phase 10's single-process {single_s:.6f} s; the "
-          f"host-staged exchange takes "
+          f"exchange (one batch through the host) takes "
           f"{[round(r['exchange_share'], 6) for r in per_rank.values()]} "
           f"of the bracket; backend gloo; bit for bit the 2x2 pallas solve")
 

@@ -14,20 +14,15 @@ every line of shards along the axis at once (``exchange_halo_lines``).
   shard's device (``Tensor.to(..., copy=True)``: the receiver owns its
   copy, as after a ``ppermute``), on the current stream of the devices
   involved; between two cards the copy goes peer to peer.
-- Between shards of different ranks, under NCCL and for shards on the CPU,
-  the slabs themselves travel as ONE ``dist.batch_isend_irecv`` list for
-  the whole exchange (card to card under NCCL, no host staging).  NCCL
-  ignores tags, and matches the messages between two ranks by their
-  order, so both sides post them in the order ``exchange_plan`` derives
-  from ``owners`` alone: every message of the exchange, receiving line,
-  shard and side ascending.  One batch posts every receive and send
-  together, so no order of blocking sends can deadlock the gang.
-- Across ranks whose shards lie on cards under gloo, whose ops take CPU
-  tensors, the sender copies its slab to the host (a synchronising copy,
-  so the slab is whole before it is sent) and the receiver copies the host
-  buffer to its device on the current stream; every receive and send of a
-  line is posted before any is waited on, and a message's tag names the
-  receiving shard and side.
+- Between shards of different ranks the slabs travel as ONE
+  ``dist.batch_isend_irecv`` list for the whole exchange, on every
+  backend.  NCCL ignores tags, and matches the messages between two ranks
+  by their order, so both sides post them in the order ``exchange_plan``
+  derives from ``owners`` alone: every message of the exchange, receiving
+  line, shard and side ascending.  One batch posts every receive and send
+  together, so no order of blocking sends can deadlock the gang.  Under
+  NCCL a slab goes card to card; under gloo, whose ops take CPU tensors, a
+  card's slab goes through the host (``_through_host``).
 
 A shard with no neighbour on a side lies on the physical boundary: its halo
 on that side is the Dirichlet fill, keyed on the shard's index along the
@@ -44,7 +39,8 @@ import torch
 from .multihost import backend
 
 #: the cross-rank exchanges of this process: their host-clock seconds
-#: (copies to and from the host included), messages and bytes sent
+#: (from the streams' sync to the halos on their devices, copies to and
+#: from the host included), messages and bytes sent
 EXCHANGE = {"seconds": 0.0, "messages": 0, "bytes": 0}
 
 
@@ -120,120 +116,83 @@ def _sync_streams(devices) -> None:
             torch.cuda.current_stream(d).synchronize()
 
 
+def _through_host(device) -> bool:
+    """Whether a cross-rank message to or from a tensor on ``device``
+    goes through a host buffer: under a backend other than NCCL (gloo,
+    whose ops take CPU tensors) for a CUDA device."""
+    return backend() != "nccl" and torch.device(device).type == "cuda"
+
+
 def _exchange_batched(lines, halos, border: int, dim: int, owners) -> None:
     """The cross-rank messages of every line as one batch of
     point-to-point ops in ``exchange_plan``'s order; fills the ``None``
-    entries of ``halos``.  The clock runs from the slabs being ready to the
-    received halos being on the card (the current streams synchronised
-    before and after)."""
+    entries of ``halos``.  A message whose shard lies on a card under gloo
+    goes through the host: its slab is copied there (a synchronising copy,
+    so it is whole before it is posted), its receive lands in a host
+    buffer copied to the card once the batch completes.  The clock runs
+    from the current streams being synchronised to the received halos
+    being on their devices (the host copies inside)."""
     import torch.distributed as dist
 
     from .multihost import collective, process_info
 
-    ops, received, sent = [], [], []
-    for op, peer, li, i, side in exchange_plan(owners, process_info()[0]):
-        line = lines[li]
+    plan = exchange_plan(owners, process_info()[0])
+    if not plan:
+        return
+    # each message's tensor, in plan order: the receive buffer or the slab
+    tensors = []
+    for op, _, li, i, side in plan:
         if op == "recv":
-            blk = line[i]
+            blk = lines[li][i]
             shape = list(blk.shape)
             shape[dim] = border
-            buf = torch.empty(shape, dtype=blk.dtype, device=blk.device)
-            received.append((li, i, side, buf))
-            ops.append(dist.P2POp(dist.irecv, buf, peer))
+            tensors.append(torch.empty(
+                shape, dtype=blk.dtype,
+                device="cpu" if _through_host(blk.device) else blk.device))
         else:
-            slab = _slab(line[i - 1 if side == 0 else i + 1], border, dim,
-                         side)
-            sent.append(slab)
-            ops.append(dist.P2POp(dist.isend, slab, peer))
-    if not ops:
-        return
+            tensors.append(_slab(lines[li][i - 1 if side == 0 else i + 1],
+                                 border, dim, side))
     devices = [b.device for line in lines for b in line if b is not None]
     _sync_streams(devices)
     t0 = time.perf_counter()
     with collective("halo exchange"):
-        for req in dist.batch_isend_irecv(ops):
+        posted = [t.cpu() if op == "send" and _through_host(t.device) else t
+                  for (op, *_), t in zip(plan, tensors)]
+        reqs = dist.batch_isend_irecv(
+            [dist.P2POp(dist.irecv if op == "recv" else dist.isend, t, peer)
+             for (op, peer, *_), t in zip(plan, posted)])
+        for req in reqs:
             req.wait()
+        for (op, _, li, i, side), t in zip(plan, posted):
+            if op == "recv":
+                halos[li][i][side] = t.to(lines[li][i].device)
         _sync_streams(devices)
     EXCHANGE["seconds"] += time.perf_counter() - t0
-    for li, i, side, buf in received:
-        halos[li][i][side] = buf
+    sent = [t for (op, *_), t in zip(plan, tensors) if op == "send"]
     EXCHANGE["messages"] += len(sent)
     EXCHANGE["bytes"] += sum(s.numel() * s.element_size() for s in sent)
 
 
-def _exchange_staged(blocks, halos, border: int, dim: int, owners,
-                     tag: int) -> None:
-    """One line's cross-rank messages through host buffers (gloo with
-    shards on a card), tagged ``tag + 2·shard + side``; fills the ``None``
-    entries of ``halos``."""
-    import torch.distributed as dist
-
-    n = len(blocks)
-    remote = []  # (shard, side, host buffer) received from another rank
-    for i, blk in enumerate(blocks):
-        if blk is None:
-            continue
-        for side in (0, 1):
-            if halos[i][side] is None:
-                shape = list(blk.shape)
-                shape[dim] = border
-                remote.append((i, side, torch.empty(shape, dtype=blk.dtype)))
-    sends = [(i, side) for i, blk in enumerate(blocks) if blk is not None
-             for side, j in ((0, i - 1), (1, i + 1))
-             if 0 <= j < n and blocks[j] is None]
-    if not (remote or sends):
-        return
-    t0 = time.perf_counter()
-    reqs = [dist.irecv(buf, src=int(owners[i - 1 if side == 0 else i + 1]),
-                       tag=tag + 2 * i + side)
-            for i, side, buf in remote]
-    staged = []
-    for i, side in sends:
-        # my first slices are the hi halo of shard i - 1, my last ones the
-        # lo halo of shard i + 1
-        j = i - 1 if side == 0 else i + 1
-        host = _slab(blocks[i], border, dim, 1 - side).cpu()
-        staged.append(host)
-        reqs.append(dist.isend(host, dst=int(owners[j]),
-                               tag=tag + 2 * j + (1 - side)))
-    for r in reqs:
-        r.wait()
-    for i, side, buf in remote:
-        halos[i][side] = buf.to(blocks[i].device, non_blocking=False)
-    EXCHANGE["seconds"] += time.perf_counter() - t0
-    EXCHANGE["messages"] += len(staged)
-    EXCHANGE["bytes"] += sum(h.numel() * h.element_size() for h in staged)
-
-
 def exchange_halo_lines(lines: list[list[torch.Tensor | None]], border: int,
-                        lo_fill, hi_fill, dim: int = 0, owners=None,
-                        tags=None
+                        lo_fill, hi_fill, dim: int = 0, owners=None
                         ) -> list[list[tuple[torch.Tensor, torch.Tensor]
                                        | None]]:
     """``exchange_halo_1d`` for every line of shards along one mesh axis
-    at once: ``lines[l]`` is a line's shards, ``owners[l]`` their ranks
-    and ``tags[l]`` its first message tag on the staged path.  Under NCCL,
-    and for shards on the CPU, the cross-rank messages of all lines form
-    one batch; on the staged path each line exchanges in turn.  Every rank
-    holding a shard of any line must call it with the same ``owners`` and
-    ``tags``."""
+    at once: ``lines[l]`` is a line's shards and ``owners[l]`` their
+    ranks.  The cross-rank messages of all lines form one batch
+    (``_exchange_batched``).  Every rank holding a shard of any line must
+    call it with the same ``owners``."""
     halos = [_local_halos(line, border, lo_fill, hi_fill, dim)
              for line in lines]
     own = [b for line in lines for b in line if b is not None]
     if own and len(own) < sum(map(len, lines)):
-        if backend() == "nccl" or own[0].device.type == "cpu":
-            _exchange_batched(lines, halos, border, dim, owners)
-        else:
-            tags = tags or [0] * len(lines)
-            for line, h, line_owners, tag in zip(lines, halos, owners, tags):
-                _exchange_staged(line, h, border, dim, line_owners, tag)
+        _exchange_batched(lines, halos, border, dim, owners)
     return [[None if h is None else tuple(h) for h in line]
             for line in halos]
 
 
 def exchange_halo_1d(blocks: list[torch.Tensor | None], border: int,
-                     lo_fill, hi_fill, dim: int = 0, owners=None,
-                     tag: int = 0
+                     lo_fill, hi_fill, dim: int = 0, owners=None
                      ) -> list[tuple[torch.Tensor, torch.Tensor] | None]:
     """Exchange ``border``-wide slabs along tensor dim ``dim`` between
     neighbouring shards of ``blocks``.
@@ -243,38 +202,31 @@ def exchange_halo_1d(blocks: list[torch.Tensor | None], border: int,
     ``border`` slices (``lo_fill`` for shard 0), ``hi_halo`` the upper
     neighbour's first ``border`` slices (``hi_fill`` for the last shard).
     Each halo lies on its shard's device.  ``owners[i]`` is the rank that
-    holds shard i where ``blocks[i]`` is ``None``; on the staged path the
-    exchange with those ranks uses message tags ``tag`` to ``tag +
-    2·len(blocks) - 1``, and every rank holding a neighbour of a shard here
-    must call this with the same ``tag``.
+    holds shard i where ``blocks[i]`` is ``None``.
     """
     return exchange_halo_lines([blocks], border, lo_fill, hi_fill, dim,
-                               None if owners is None else [owners],
-                               [tag])[0]
+                               None if owners is None else [owners])[0]
 
 
 def pad_lines_with_halos(lines: list[list[torch.Tensor | None]],
                          border: int, lo_fill, hi_fill, dim: int = 0,
-                         owners=None, tags=None
-                         ) -> list[list[torch.Tensor | None]]:
+                         owners=None) -> list[list[torch.Tensor | None]]:
     """Exchange every line along ``dim`` (``exchange_halo_lines``) and
     return each block this process holds extended by ``border`` slices on
     both sides (``None`` for the others)."""
-    halos = exchange_halo_lines(lines, border, lo_fill, hi_fill, dim, owners,
-                                tags)
+    halos = exchange_halo_lines(lines, border, lo_fill, hi_fill, dim, owners)
     return [[None if h is None else torch.cat([h[0], blk, h[1]], dim=dim)
              for blk, h in zip(line, hl)] for line, hl in zip(lines, halos)]
 
 
 def pad_with_halos(blocks: list[torch.Tensor | None], border: int, lo_fill,
-                   hi_fill, dim: int = 0, owners=None, tag: int = 0
+                   hi_fill, dim: int = 0, owners=None
                    ) -> list[torch.Tensor | None]:
     """Exchange along ``dim`` and return each block this process holds
     extended by ``border`` slices on both sides (``None`` for the
     others)."""
     return pad_lines_with_halos([blocks], border, lo_fill, hi_fill, dim,
-                                None if owners is None else [owners],
-                                [tag])[0]
+                                None if owners is None else [owners])[0]
 
 
 def gather_shards(shards: list[torch.Tensor | None], owners, shape, dtype,
@@ -282,10 +234,10 @@ def gather_shards(shards: list[torch.Tensor | None], owners, shape, dtype,
     """Every shard on every rank: each shard another rank holds is
     broadcast from its owner (``owners[i]``) and lands on ``device``; the
     shards of this process are returned as they are.  Under NCCL the
-    owner broadcasts its tensor on its card, card to card; under gloo
-    through the host.  Every shard has ``shape`` and ``dtype``.  In a gang
-    every rank must call it with the same shards' layout; outside one it
-    returns ``shards``."""
+    owner broadcasts its tensor on its card, card to card; under gloo a
+    card's shard goes through the host (``_through_host``).  Every shard
+    has ``shape`` and ``dtype``.  In a gang every rank must call it with
+    the same shards' layout; outside one it returns ``shards``."""
     from .multihost import collective, process_info
 
     rank, world = process_info()
@@ -293,18 +245,19 @@ def gather_shards(shards: list[torch.Tensor | None], owners, shape, dtype,
         return list(shards)
     import torch.distributed as dist
 
-    nccl = backend() == "nccl"
+    host = _through_host(device)
     out = []
     with collective("gather"):
         for s, owner in zip(shards, owners):
             owner = int(owner)
             if owner == rank:
-                dist.broadcast(s.contiguous() if nccl else s.contiguous().cpu(),
-                               src=owner)
+                payload = s.contiguous()
+                dist.broadcast(payload.cpu() if _through_host(s.device)
+                               else payload, src=owner)
                 out.append(s)
                 continue
             buf = torch.empty(tuple(shape), dtype=dtype,
-                              device=device if nccl else "cpu")
+                              device="cpu" if host else device)
             dist.broadcast(buf, src=owner)
-            out.append(buf if nccl else buf.to(device))
+            out.append(buf.to(device) if host else buf)
     return out

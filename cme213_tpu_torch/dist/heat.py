@@ -65,19 +65,16 @@ def _pad_axis(blocks: Blocks, dim: int, border: int, lo_fill, hi_fill,
     by its halos along tensor dim ``dim`` — the JAX package's
     ``_pad_axis0``, which transposes for x.  ``owners`` (the mesh's, shaped
     like ``blocks``) names the ranks of absent shards; all lines exchange
-    at once (``halo.pad_lines_with_halos``), each line's staged messages
-    under tags of their own."""
+    at once (``halo.pad_lines_with_halos``)."""
     y_size, x_size = len(blocks), len(blocks[0])
     if owners is None:
         owners = np.zeros((y_size, x_size), dtype=np.int64)
     if dim == 1:
-        return pad_lines_with_halos(
-            blocks, border, lo_fill, hi_fill, dim=1, owners=list(owners),
-            tags=[2 * y_size * (x_size + yi) for yi in range(y_size)])
+        return pad_lines_with_halos(blocks, border, lo_fill, hi_fill, dim=1,
+                                    owners=list(owners))
     cols = pad_lines_with_halos(
         [[row[xi] for row in blocks] for xi in range(x_size)], border,
-        lo_fill, hi_fill, dim=0, owners=[owners[:, xi] for xi in range(x_size)],
-        tags=[2 * y_size * xi for xi in range(x_size)])
+        lo_fill, hi_fill, dim=0, owners=[owners[:, xi] for xi in range(x_size)])
     return [[col[yi] for col in cols] for yi in range(y_size)]
 
 
