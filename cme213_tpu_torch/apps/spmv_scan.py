@@ -29,13 +29,14 @@ Runs on ``cuda`` unless the caller passes ``device="cpu"``
 
 from __future__ import annotations
 
+import atexit
 import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..core import PhaseTimer, check_op, resolve_device, span
+from ..core import PhaseTimer, check_op, metrics, resolve_device, span
 from ..core.tune import dtype_name
 from ..ops.segmented import (head_flags_from_starts, scan_form,
                              scan_peak_bytes, segmented_scan,
@@ -288,18 +289,83 @@ def problem_tensors(prob: Problem, dtype=torch.float32, device=None):
     ``k`` (``Problem.xx``'s values, bit for bit): the upload moves ``k``
     in place of ``xx``, as many bytes, and the host does no gather.  ``k``
     is checked against ``[0, q)`` on the device first, by its extremes
-    (an index out of range would stop the card's gather)."""
+    (an index out of range would stop the card's gather).  Every call
+    moves every array (``_to_device``: the large ones through page-locked
+    blocks); nothing is kept on the device between calls."""
     dev = resolve_device(device)
-    starts = torch.from_numpy(prob.s[:-1].astype(np.int64)).to(dev)
-    x = torch.from_numpy(prob.x).to(dev, dtype)
-    k = torch.from_numpy(prob.k).to(dev)
+    starts = _to_device(prob.s[:-1].astype(np.int64), dev)
+    x = _to_device(prob.x, dev, dtype)
+    k = _to_device(prob.k, dev)
+    # ``a`` before the check: its one sync then waits for every copy, so
+    # the caller's upload range holds all of them
+    a = _to_device(prob.a, dev, dtype)
     if k.numel():
         lo, hi = torch.stack(torch.aminmax(k)).tolist()
         if lo < 0 or hi >= prob.q:
             raise ValueError("gather index out of range")
-    return (torch.from_numpy(prob.a).to(dev, dtype),
-            torch.index_select(x, 0, k),
+    return (a, torch.index_select(x, 0, k),
             head_flags_from_starts(starts, prob.n), starts)
+
+
+#: host→card copies of at least this many bytes are staged through
+#: page-locked blocks (``_to_device``); smaller ones go as they are
+STAGE_MIN_BYTES = 4 << 20
+#: the bytes of one page-locked block of a staged copy
+STAGE_CHUNK_BYTES = 8 << 20
+
+#: ``_to_device`` calls by path, and the bytes staged (as they cross the
+#: link); ``transfer.uploads.<key>`` in the exit snapshot
+UPLOADS = {"staged": 0, "pageable": 0, "staged_bytes": 0}
+
+
+def chunk_plan(numel: int, chunk: int) -> list[tuple[int, int]]:
+    """``(start, stop)`` ranges of at most ``chunk`` elements that cover
+    ``range(numel)`` once, in order."""
+    return [(lo, min(lo + chunk, numel)) for lo in range(0, numel, chunk)]
+
+
+def _to_device(arr: np.ndarray, dev: torch.device,
+               dtype=None) -> torch.Tensor:
+    """``torch.from_numpy(arr).to(dev, dtype)``, in its own memory on a
+    card.  To a CUDA device an array of ``STAGE_MIN_BYTES`` or more is
+    staged: chunk by chunk into page-locked blocks from torch's caching
+    host allocator, each filled by one ``copy_`` on torch's CPU threads
+    (which also converts to ``dtype``), then copied to the card without
+    blocking on the current stream, so the host fills the next block
+    while the DMA engine moves this one.  A pageable copy stages through
+    CUDA's own bounce buffers on one thread.  The allocator records an
+    event on each non-blocking copy from its blocks and hands a block out
+    again only once that event has passed, so a block dropped here is not
+    refilled while its copy runs.  Float conversion rounds to nearest
+    even on either side of the link, so the card gets ``.to``'s bits."""
+    src = torch.from_numpy(arr)
+    if dev.type != "cuda" or src.nbytes < STAGE_MIN_BYTES:
+        UPLOADS["pageable"] += 1
+        return src.to(dev, dtype)
+    dtype = src.dtype if dtype is None else dtype
+    out = torch.empty(src.shape, dtype=dtype, device=dev)
+    UPLOADS["staged"] += 1
+    UPLOADS["staged_bytes"] += out.nbytes
+    flat, dst = src.reshape(-1), out.view(-1)
+    chunk = STAGE_CHUNK_BYTES // out.element_size()
+    for lo, hi in chunk_plan(flat.numel(), chunk):
+        block = torch.empty(hi - lo, dtype=dtype, pin_memory=True)
+        block.copy_(flat[lo:hi])
+        dst[lo:hi].copy_(block, non_blocking=True)
+    return out
+
+
+def _record_uploads() -> None:
+    """At exit, add the process's uploads to the metrics registry as
+    ``transfer.uploads.<key>`` counters, as ``ops._record_launches`` adds
+    its launches (registered after ``core/metrics``' exit snapshot, so it
+    runs first); a process that uploaded nothing adds nothing."""
+    for key, n in UPLOADS.items():
+        if n:
+            metrics.counter(f"transfer.uploads.{key}").inc(n)
+
+
+atexit.register(_record_uploads)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:

@@ -1170,6 +1170,78 @@ def test_answers_download_to_page_locked_memory_of_their_own(cuda):
     assert not np.array_equal(first, second)
 
 
+PWTK = dict(n=11_634_424, p=217_919, q=217_918)
+
+
+def _pwtk_problem(seed: int, host=np.float32, iters: int = 25):
+    """A problem of pwtk's shape drawn on the host, its values and ``x``
+    in ``host`` with every bit of the mantissa used (to upload, not to
+    solve: nothing bounds its growth)."""
+    rng = np.random.default_rng(seed)
+    n, p, q = PWTK["n"], PWTK["p"], PWTK["q"]
+    heads = np.sort(rng.choice(np.arange(1, n), p - 2, replace=False))
+    s = np.concatenate([[0], heads, [n]]).astype(np.int32)
+    return spmv.Problem(rng.uniform(-1, 1, n).astype(host), s,
+                        rng.integers(0, q, n, dtype=np.int32),
+                        rng.uniform(-1, 1, q).astype(host) / 8, iters)
+
+
+@pytest.mark.parametrize("host", [np.float32, np.float64])
+def test_staged_upload_equals_the_pageable_copy_bitwise(cuda, host):
+    """At pwtk's shape ``a`` and ``k`` cross the link through page-locked
+    blocks (two staged uploads), and ``a``, ``xx`` and the rest equal
+    the pageable ``.to`` copies bit for bit, a float64 host array solved
+    in float32 included."""
+    prob = _pwtk_problem(11, host)
+    before = dict(spmv.UPLOADS)
+    a, xx, flags, starts = spmv.problem_tensors(prob, torch.float32,
+                                                device=cuda)
+    assert spmv.UPLOADS["staged"] - before["staged"] == 2
+    assert spmv.UPLOADS["pageable"] - before["pageable"] == 2
+    assert (spmv.UPLOADS["staged_bytes"] - before["staged_bytes"]
+            == 8 * prob.n)
+    k = torch.from_numpy(prob.k).to(cuda)
+    x = torch.from_numpy(prob.x).to(cuda, torch.float32)
+    want_a = torch.from_numpy(prob.a).to(cuda, torch.float32)
+    for got, want in ((a, want_a), (xx, x[k])):
+        np.testing.assert_array_equal(got.view(torch.int32).cpu().numpy(),
+                                      want.view(torch.int32).cpu().numpy())
+    s = torch.from_numpy(prob.s[:-1].astype(np.int64)).to(cuda)
+    assert torch.equal(starts, s)
+    assert torch.equal(flags, spmv.head_flags_from_starts(s, prob.n))
+
+
+def test_solves_upload_every_time_and_see_in_place_changes(cuda):
+    """Each solve at pwtk's shape stages ``a`` and ``k`` anew (two staged
+    uploads a solve) and answers as B7 does on pageable ``.to`` copies,
+    bit for bit: after ``a`` and ``k`` change in place, the next solve
+    answers the changed problem, bit for bit a fresh copy's."""
+    from perfbench import inputs
+
+    d = inputs.spmv_problem(**PWTK, iters=25, seed=2_400_000_012,
+                            device=cuda)
+    prob = spmv.Problem(d["a"], d["s"], d["k"], d["x"], d["iters"])
+    spmv.run_spmv_scan(prob, device=cuda)  # probe, warm-up
+    staged = spmv.UPLOADS["staged"]
+    first = spmv.run_spmv_scan(prob, device=cuda)
+    k = torch.from_numpy(prob.k).to(cuda)
+    x = torch.from_numpy(prob.x).to(cuda)
+    s = torch.from_numpy(prob.s[:-1].astype(np.int64)).to(cuda)
+    want = segp.spmv_scan_pallas(
+        torch.from_numpy(prob.a).to(cuda), x[k],
+        spmv.head_flags_from_starts(s, prob.n), prob.iters).cpu().numpy()
+    np.testing.assert_array_equal(first.view(np.int32), want.view(np.int32))
+    prob.a[::3] *= -0.75
+    prob.k[:] = np.roll(prob.k, 1)
+    second = spmv.run_spmv_scan(prob, device=cuda)
+    fresh = spmv.run_spmv_scan(
+        spmv.Problem(prob.a.copy(), prob.s.copy(), prob.k.copy(),
+                     prob.x.copy(), prob.iters), device=cuda)
+    assert spmv.UPLOADS["staged"] - staged == 6
+    assert not np.array_equal(first, second)
+    np.testing.assert_array_equal(second.view(np.int32), fresh.view(np.int32))
+
+
 # ------------------------------------------- the hw1, hw3 and hw4 workloads
 
 def _packed_model(data: np.ndarray, shift: int) -> np.ndarray:

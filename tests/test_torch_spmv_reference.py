@@ -5,8 +5,9 @@ blocked scan, against ``perfbench/reference/spmv.solve`` (float64) on
 problems drawn by ``perfbench/inputs.spmv_problem``, the benchmark's own
 generator; a segment that starts deep in a scan block, the case that a
 float32 running sum less its value before the head loses; the count of
-scans by form and the span's tag; and the upload's gather of ``xx`` on
-the device and the check of the gather indices.  Imports no JAX.
+scans by form and the span's tag; the upload's gather of ``xx`` on the
+device, the check of the gather indices, the chunk plan of its staged
+copies and its plain copies on the CPU.  Imports no JAX.
 
 Tolerances: rel L2 ≤ 1e-5 for the solves, the conformance tolerance of
 ``apps/spmv_scan.py`` (float32 rounding over 6 iterations reads ~1e-7);
@@ -186,6 +187,48 @@ def test_the_upload_gathers_xx_bit_for_bit(dtype):
     a, xx, flags, starts = spmv.problem_tensors(prob, dtype, CPU)
     assert torch.equal(xx, torch.from_numpy(prob.xx).to(dtype))
     assert torch.equal(a, torch.from_numpy(prob.a).to(dtype))
+
+
+CHUNK = spmv.STAGE_CHUNK_BYTES // 4
+
+
+@pytest.mark.parametrize("numel", [0, 1, CHUNK - 1, CHUNK, CHUNK + 1,
+                                   5 * CHUNK + 12_345])
+def test_the_staging_chunk_plan_covers_every_element_once(numel):
+    plan = spmv.chunk_plan(numel, CHUNK)
+    assert len(plan) == -(-numel // CHUNK)
+    assert all(0 < hi - lo <= CHUNK for lo, hi in plan)
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in plan]
+                             + [np.arange(0)])
+    np.testing.assert_array_equal(covered, np.arange(numel))
+
+
+@pytest.mark.parametrize("host,dtype", [(np.float32, torch.float32),
+                                        (np.float64, torch.float32),
+                                        (np.float32, torch.float64),
+                                        (np.float64, torch.float64)])
+def test_the_cpu_upload_is_the_plain_copy_bit_for_bit(host, dtype):
+    """On the CPU ``problem_tensors`` is ``torch.from_numpy(...).to``, bit
+    for bit, a float64 host array solved in float32 included, and every
+    array takes the pageable path whatever its size."""
+    prob = _problem(4, n=2 * CHUNK, p=400, q=399)
+    rng = np.random.default_rng(5)
+    prob.a = rng.uniform(-1, 1, prob.n).astype(host)
+    prob.x = rng.uniform(-1, 1, prob.q).astype(host)
+    before = dict(spmv.UPLOADS)
+    got = spmv.problem_tensors(prob, dtype, CPU)
+    starts = torch.from_numpy(prob.s[:-1].astype(np.int64))
+    x = torch.from_numpy(prob.x).to(CPU, dtype)
+    k = torch.from_numpy(prob.k)
+    want = (torch.from_numpy(prob.a).to(CPU, dtype),
+            torch.index_select(x, 0, k),
+            segmented.head_flags_from_starts(starts, prob.n), starts)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert g.numpy().tobytes() == w.numpy().tobytes()
+    assert spmv.UPLOADS["pageable"] - before["pageable"] == 4
+    assert spmv.UPLOADS["staged"] == before["staged"]
+    assert spmv.UPLOADS["staged_bytes"] == before["staged_bytes"]
 
 
 @pytest.mark.parametrize("bad", [-1, 399])

@@ -690,6 +690,27 @@ def test_kernel_launches_reach_the_exit_snapshot(tmp_path):
     assert "kernel_launches_pipeline" in render_prometheus(snap)
 
 
+def test_uploads_reach_the_exit_snapshot(tmp_path):
+    """A process's SpMV uploads land in its last ``metrics-snapshot`` as
+    ``transfer.uploads.<path>`` counters: on the CPU the four arrays of a
+    problem take the pageable path, and nothing is staged."""
+    import subprocess
+    import sys
+
+    sink = tmp_path / "s.jsonl"
+    code = ("from cme213_tpu_torch.apps import spmv_scan as sp\n"
+            "prob = sp.generate_problem(4096, 64, 63, iters=2, seed=0)\n"
+            "sp.problem_tensors(prob, device='cpu')\n")
+    env = {k: v for k, v in os.environ.items() if k not in ENV}
+    env.update(CME213_TRACE_FILE=str(sink), PYTHONPATH=R.REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    snap = trace_cli.load_metrics_snapshot(str(sink))
+    assert {k: v for k, v in snap["counters"].items()
+            if k.startswith("transfer.")} == {"transfer.uploads.pageable": 4}
+
+
 def test_run_all_profile_dir_hook(tmp_path, monkeypatch, capsys):
     """``CME213_PROFILE_DIR`` wraps the sweeps in ``torch.profiler`` and
     writes a Chrome trace there; on the CPU there is no device memory to
