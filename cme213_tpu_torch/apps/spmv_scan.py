@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core import PhaseTimer, check_op, metrics, resolve_device, span
+from ..core.platform import to_host
 from ..core.tune import dtype_name
 from ..ops.segmented import (head_flags_from_starts, scan_form,
                              scan_peak_bytes, segmented_scan,
@@ -368,18 +369,6 @@ def _record_uploads() -> None:
 atexit.register(_record_uploads)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a numpy array of its own.  From a CUDA device the copy
-    lands in page-locked memory from torch's caching host allocator: one
-    DMA at the link's rate and no fresh pages to fault in, where a
-    pageable copy stages through CUDA's bounce buffers; the block goes
-    back to the cache when the array is dropped."""
-    if t.device.type != "cuda":
-        return t.cpu().numpy()
-    return torch.empty(t.shape, dtype=t.dtype,
-                       pin_memory=True).copy_(t).numpy()
-
-
 #: demotion ladder per requested kernel, the JAX package's: the kernel
 #: rungs degrade to the blocked O(n) torch scan, then to the flat
 #: log-sweep; the torch rungs degrade straight to flat
@@ -637,7 +626,7 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
     (``core/trace.host_range``), holding the ranges ``spmv_scan.validate``
     (the segment starts), ``spmv_scan.upload`` (``problem_tensors``, with
     its check of ``k``) and ``spmv_scan.download`` (the copy of the answer
-    to the host, ``_to_host``) and each attempt's
+    to the host, ``core/platform.to_host``) and each attempt's
     ``spmv_scan.run`` span (tagged ``scan=`` with the form a torch rung
     runs, ``ops/segmented.scan_form``), so that the Chrome trace of a
     profiled sweep (``bench/run_all`` under ``CME213_PROFILE_DIR``) names
@@ -696,7 +685,7 @@ def run_spmv_scan(prob: Problem, timer: PhaseTimer | None = None,
         print(f"The running time of my code for {prob.iters} iterations "
               f"is: {ms} milliseconds.")
         with host_range("spmv_scan.download"):
-            return _to_host(res.value)
+            return to_host(res.value)
 
 
 def run_spmv_scan_batched(probs: list[Problem], kernel: str = "flat",

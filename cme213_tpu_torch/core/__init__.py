@@ -11,7 +11,7 @@ _NAMES = {
     "KernelError": "errors", "check_op": "errors", "data_error": "errors",
     "BUILD_DIR": "platform", "card_identity": "platform",
     "device_preflight": "platform", "resolve_device": "platform",
-    "virtual_devices": "platform",
+    "to_host": "platform", "virtual_devices": "platform",
     "FailureKind": "resilience", "FallbackResult": "resilience",
     "NonFiniteError": "resilience", "RetryPolicy": "resilience",
     "all_finite": "resilience", "classify_failure": "resilience",

@@ -1,5 +1,5 @@
-"""Device choice, the device preflight, the kernel build directory and the
-card's identity.
+"""Device choice, the device preflight, the kernel build directory, the
+card's identity and a result's copy to the host.
 
 Counterpart of ``cme213_tpu/core/platform.py``.  The port's entry points run
 on ``cuda`` unless the caller asks for the CPU.  They never fall back to the
@@ -40,6 +40,19 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device available; pass device='cpu' (or --device=cpu) "
             "to run on the CPU")
     return dev
+
+
+def to_host(t: torch.Tensor):
+    """``t`` as a numpy array of its own.  From a CUDA device the copy
+    lands in page-locked memory from torch's caching host allocator: one
+    DMA at the link's rate and no fresh pages to fault in, where a
+    pageable copy stages through CUDA's bounce buffers; the block goes
+    back to the cache when the array is dropped, and no caller is handed
+    it while the array lives."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    return torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=True).copy_(t).numpy()
 
 
 def device_preflight(seconds: float = 90.0, device=None) -> bool:

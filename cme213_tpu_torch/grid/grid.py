@@ -48,17 +48,19 @@ def make_initial_grid(params: SimParams, dtype=torch.float32,
                       device=None) -> torch.Tensor:
     """(gy, gx) tensor: interior = ic, border bands = Dirichlet BC values.
 
-    Built in float64 numpy and then cast, as the JAX package does, so the
-    two agree bit for bit.  ``device`` defaults to ``cuda``
-    (``core.platform.resolve_device``).
+    Every value is one scalar rounded once to ``dtype``, the bits of the
+    JAX package's float64 grid cast to it; the grid is built on
+    ``device`` itself, so a grid for a card never crosses the link.
+    ``device`` defaults to ``cuda`` (``core.platform.resolve_device``).
     """
     b = params.border_size
-    g = np.full((params.gy, params.gx), params.ic, dtype=np.float64)
+    g = torch.full((params.gy, params.gx), params.ic, dtype=dtype,
+                   device=resolve_device(device))
     g[:b, :] = params.bc_bottom
     g[b + params.ny:, :] = params.bc_top
     g[:, :b] = params.bc_left
     g[:, b + params.nx:] = params.bc_right
-    return torch.from_numpy(g).to(device=resolve_device(device), dtype=dtype)
+    return g
 
 
 def interior(grid: torch.Tensor, border_size: int) -> torch.Tensor:

@@ -1547,6 +1547,97 @@ def test_nccl_gang_on_four_cards_bitwise(four_cards, tmp_path, capsys,
                f"{2 * (p.iters + 4)}" in out, out
 
 
+_NCCL_LOOP_WORKER = """
+import json
+import numpy as np
+import torch
+from cme213_tpu_torch.config import GridMethod, SimParams
+from cme213_tpu_torch.core import metrics
+from cme213_tpu_torch.dist import halo, heat, mesh_for_method
+from cme213_tpu_torch.dist.mesh import default_devices
+from cme213_tpu_torch.dist.multihost import (backend, initialize_multihost,
+                                             process_info)
+
+initialize_multihost()
+rank, world = process_info()
+p = SimParams(**HEAT, grid_method=GridMethod.BLOCKS_2D)
+mesh = mesh_for_method(p.grid_method, devices=default_devices())
+seen = {"loops": 0, "host_waits": 0, "syncs": 0}
+real_run = heat._run
+
+
+def counting(real):
+    def wait(*a, **k):
+        seen["syncs"] += 1
+        return real(*a, **k)
+    return wait
+
+
+def step_loop(*a, **k):
+    # the loop alone, up to (not including) the closing synchronise
+    patched = [(torch.cuda, "synchronize"), (torch.cuda.Stream, "synchronize"),
+               (torch.cuda.Event, "synchronize")]
+    saved = [getattr(o, n) for o, n in patched]
+    for (o, n), f in zip(patched, saved):
+        setattr(o, n, counting(f))
+    before = halo.EXCHANGE["host_waits"]
+    try:
+        return real_run(*a, **k)
+    finally:
+        for (o, n), f in zip(patched, saved):
+            setattr(o, n, f)
+        seen["loops"] += 1
+        seen["host_waits"] += halo.EXCHANGE["host_waits"] - before
+
+
+heat._run = step_loop
+g = heat.run_distributed_heat(p, mesh, local_kernel="pallas")
+np.save(f"{sys.argv[1]}/loop-rank{rank}.npy", g)
+with open(f"{sys.argv[1]}/loop-rank{rank}.json", "w") as fh:
+    json.dump(dict(seen, backend=backend(), pinned=torch.from_numpy(
+        g).is_pinned(), exchange_s=metrics.gauge("dist_heat.exchange_s").value,
+        solve_s=metrics.gauge("dist_heat.solve_s").value,
+        # the solve's two batches, beside those of the gate's small probes
+        graphs=sum(isinstance(b, halo._Batch) and b.tensors[0].numel() > 1000
+                   for b in halo._BATCHES.values())), fh)
+"""
+
+
+def test_nccl_gang_step_loop_makes_no_host_wait(four_cards, tmp_path,
+                                                capsys, monkeypatch):
+    """A 4-rank NCCL gang at 4000² (a 2000² block a card): no exchange of
+    the step loop waits on the host (``EXCHANGE["host_waits"]`` stays at
+    0, and nothing in the loop synchronises a stream, an event or a card),
+    the exchange clock still reads (CUDA events, inside the solve's
+    bracket), the exchanges replay as CUDA graphs once seen, the grid
+    comes back in page-locked memory, and every rank's grid is the
+    one-card solve's bit for bit."""
+    import json
+
+    from torch_gang import run_gang
+
+    monkeypatch.delenv("CME213_DIST_BACKEND", raising=False)
+    heat = dict(nx=4000, ny=4000, order=8, iters=40)
+    rc = run_gang(tmp_path, _NCCL_LOOP_WORKER, np_procs=4,
+                  devices_per_proc=None, backend="auto", timeout=600,
+                  HEAT=heat)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    p = SimParams(**heat)
+    want = run_heat(make_initial_grid(p, device=four_cards[0]), p.iters,
+                    p.order, p.xcfl, p.ycfl).cpu().numpy()
+    for rank in range(4):
+        seen = json.loads((tmp_path / f"loop-rank{rank}.json").read_text())
+        assert seen["backend"] == "nccl", seen
+        # the solve's loop, after those of the gate's probe solves
+        assert seen["loops"] >= 1, seen
+        assert seen["host_waits"] == 0 and seen["syncs"] == 0, seen
+        assert seen["pinned"] and seen["graphs"] == 2, seen
+        assert 0 < seen["exchange_s"] < seen["solve_s"], seen
+        np.testing.assert_array_equal(
+            np.load(tmp_path / f"loop-rank{rank}.npy"), want)
+
+
 def test_supervised_nccl_gang_on_four_cards_recovers_bitwise(
         four_cards, tmp_path, monkeypatch, capsys):
     """``--supervised`` as a 4-rank NCCL gang under ``rankkill:1:1``: the

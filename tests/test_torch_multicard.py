@@ -181,6 +181,47 @@ def test_host_staging_follows_backend_and_device(monkeypatch, name, device):
     assert halo._through_host(str(device)) == halo._through_host(device)
 
 
+@pytest.mark.parametrize("name", ["nccl", "gloo"])
+def test_an_exchange_waits_on_the_host_only_through_it(monkeypatch, name):
+    """An exchange synchronises with the card exactly where its messages
+    stage through the host: ``_through_host`` decides both, so under NCCL
+    on a card the exchange makes no host wait (``EXCHANGE["host_waits"]``
+    stays), and under gloo it waits before and after the batch and for
+    each slab it copies out.  (CPU tensors stand in for the card's: the
+    decision is patched to see a card.)"""
+    monkeypatch.setattr(halo, "backend", lambda: name)
+    monkeypatch.setattr(halo, "_through_host",
+                        lambda device: halo.backend() != "nccl")
+    waits = []
+    monkeypatch.setattr(halo, "_sync_streams",
+                        lambda devices: waits.append(len(devices)))
+    monkeypatch.setattr(multihost, "process_info", lambda: (0, 2))
+    posted = []
+
+    class Done:
+        def wait(self):
+            return True
+
+    def batch(ops):
+        posted.extend(ops)
+        return [Done() for _ in ops]
+
+    monkeypatch.setattr(torch.distributed, "batch_isend_irecv", batch)
+    monkeypatch.setattr(torch.distributed, "P2POp",
+                        lambda op, t, peer: (op, t, peer))
+    before = dict(halo.EXCHANGE)
+    blocks = [torch.ones(6, 5), None]
+    halos = [[[None, None], None]]
+    halo._exchange_batched([blocks], halos, 2, 0, [[0, 1]])
+    assert len(posted) == 2 and halos[0][0][1].shape == (2, 5)
+    host_waits = halo.EXCHANGE["host_waits"] - before["host_waits"]
+    if name == "nccl":
+        assert waits == [] and host_waits == 0
+    else:
+        assert waits == [1, 1] and host_waits == 1  # the slab sent
+    assert halo.EXCHANGE["seconds"] > before["seconds"]
+
+
 # ------------------------------------------------------- the message plan
 
 #: (mesh shape, shards a rank): rank-major owners, every rank a shard
@@ -248,16 +289,20 @@ def test_one_pair_carries_several_messages_in_one_batch():
 
 HEAT = dict(nx=46, ny=38, order=8, iters=4, bc_top=2.0, bc_left=0.5,
             bc_bottom=1.0, bc_right=3.0)
-#: (name, grid method, overlap, k, local kernel)
-CASES = [("2d-sync", 2, False, 1, "xla"), ("1d-sync", 1, False, 1, "xla"),
-         ("2d-overlap", 2, True, 1, "xla"), ("2d-k2-pallas", 2, False, 2,
-                                             "pallas")]
+#: (name, grid method, overlap, k, local kernel, sizes that replace
+#: HEAT's): the last grid divides over neither axis of the 2 x 2 mesh
+CASES = [("2d-sync", 2, False, 1, "xla", {}),
+         ("1d-sync", 1, False, 1, "xla", {}),
+         ("2d-overlap", 2, True, 1, "xla", {}),
+         ("2d-k2-pallas", 2, False, 2, "pallas", {}),
+         ("2d-ragged-pallas", 2, False, 1, "pallas", dict(nx=45, ny=37))]
 
 _WORKER = """
 import json
 import numpy as np
 import torch
 from cme213_tpu_torch.config import GridMethod, SimParams
+from cme213_tpu_torch.core import metrics
 from cme213_tpu_torch.dist import (distributed_segmented_scan, halo,
                                    mesh_for_method, make_mesh_1d,
                                    run_distributed_heat)
@@ -278,12 +323,15 @@ def counted(*a, **k):
 
 halo._exchange_batched = counted
 out = sys.argv[1]
-for name, method, overlap, k, kernel in CASES:
-    p = SimParams(**HEAT, grid_method=GridMethod(method))
+clocks = {}
+for name, method, overlap, k, kernel, sizes in CASES:
+    p = SimParams(**{**HEAT, **sizes}, grid_method=GridMethod(method))
     mesh = mesh_for_method(p.grid_method, devices=default_devices("cpu"))
     g = run_distributed_heat(p, mesh, overlap=overlap, steps_per_exchange=k,
                              local_kernel=kernel, conformance=False)
     np.save(f"{out}/{name}-rank{rank}.npy", g)
+    clocks[name] = [metrics.gauge(f"dist_heat.{what}_s").value
+                    for what in ("exchange", "solve")]
 n = 4 * 1000
 v = torch.from_numpy(np.sin(np.arange(n, dtype=np.float32)) + 0.5)
 f = torch.from_numpy((np.arange(n) % 37 == 0).astype(np.int32))
@@ -291,9 +339,89 @@ s = distributed_segmented_scan(v, f, make_mesh_1d(devices=default_devices(
     "cpu")))
 np.save(f"{out}/scan-rank{rank}.npy", s.numpy())
 with open(f"{out}/calls-rank{rank}.json", "w") as fh:
-    json.dump(dict(calls, backend=backend(),
-                   messages=halo.EXCHANGE["messages"]), fh)
+    json.dump(dict(calls, backend=backend(), clocks=clocks,
+                   messages=halo.EXCHANGE["messages"],
+                   host_waits=halo.EXCHANGE["host_waits"]), fh)
 """
+
+
+#: (interior ny, nx, mesh shape): grids that divide, and grids whose last
+#: blocks hold ghost rows, columns or both (one block wholly ghost)
+BLOCK_LAYOUTS = [(38, 46, (2, 2)), (37, 45, (2, 2)), (37, 46, (4, 1)),
+                 (9, 20, (4, 1)), (38, 45, (2, 4)), (30, 31, (3, 3))]
+
+
+@pytest.mark.parametrize("ny,nx,shape", BLOCK_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_initial_blocks_are_slices_of_the_padded_grid(ny, nx, shape, dtype):
+    """Each rank builds its own initial blocks on their devices
+    (``dist/heat._initial_blocks``), bit for bit the slices that
+    ``_scatter`` cuts from ``make_initial_grid``'s interior ghost-padded by
+    ``_pad_interior_for_mesh``; with owners, only the rank's own."""
+    from cme213_tpu_torch.dist import heat as dheat
+    from cme213_tpu_torch.grid import interior
+
+    p = SimParams(nx=nx, ny=ny, order=8, ic=1.37, bc_top=2.1, bc_left=0.5,
+                  bc_bottom=1.3, bc_right=3.7)
+    y_size, x_size = shape
+    ny_loc, nx_loc = -(-ny // y_size), -(-nx // x_size)
+    devices = np.array(virtual_devices(y_size * x_size, "cpu"),
+                       dtype=object).reshape(shape)
+    u = dheat._pad_interior_for_mesh(
+        interior(make_initial_grid(p, dtype=dtype, device="cpu"),
+                 p.border_size).numpy(), p, y_size, x_size)
+    want = dheat._scatter(torch.from_numpy(u), devices, ny_loc, nx_loc)
+    got = dheat._initial_blocks(p, dtype, devices, ny_loc, nx_loc)
+    for wrow, grow in zip(want, got):
+        for w, g in zip(wrow, grow):
+            assert g.dtype == dtype and g.device == w.device
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    owners = np.arange(y_size * x_size).reshape(shape) % 2
+    mine = dheat._initial_blocks(p, dtype, devices, ny_loc, nx_loc, owners,
+                                 rank=1)
+    for yi in range(y_size):
+        for xi in range(x_size):
+            if owners[yi, xi] == 1:
+                assert torch.equal(mine[yi][xi], got[yi][xi])
+            else:
+                assert mine[yi][xi] is None
+
+
+#: the host ranges of one distributed solve and the range each lies in
+SOLVE_RANGES = {"dist.solve": None, "dist.prepare": "dist.solve",
+                "dist.steps": "dist.solve", "dist.enqueue": "dist.steps",
+                "dist.gather": "dist.solve", "dist.download": "dist.solve"}
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+def test_a_solve_records_each_of_its_ranges_once(kernel):
+    """While a profiler records, every ``run_distributed_heat`` call
+    leaves one host range of each name, each inside its parent
+    (``dist.solve`` holds ``dist.prepare``, ``dist.steps``,
+    ``dist.gather`` and ``dist.download``; ``dist.steps`` holds
+    ``dist.enqueue``), never one a step; the ``dist.steps`` span's
+    records carry the kernel, the block and the steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = SimParams(nx=45, ny=37, order=8, iters=6, grid_method=GridMethod(2))
+    mesh = make_mesh_2d(2, 2, devices=virtual_devices(4, "cpu"))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            run_distributed_heat(p, mesh, local_kernel=kernel,
+                                 conformance=False)
+    found = {name: [] for name in SOLVE_RANGES}
+    for ev in prof.events():
+        if ev.name in found:
+            found[ev.name].append((ev.time_range.start, ev.time_range.end))
+    for name, parent in SOLVE_RANGES.items():
+        assert len(found[name]) == 2, (name, found[name])
+        if parent is not None:
+            for (s, e), (ps, pe) in zip(sorted(found[name]),
+                                        sorted(found[parent])):
+                assert ps <= s and e <= pe, (name, parent)
+    ends = [e for e in trace.events("span-end") if e["span"] == "dist.steps"]
+    assert [(e["kernel"], e["block"], e["iters"]) for e in ends] == \
+        [(kernel, "19x23", 6)] * 2
 
 
 def _check_cpu_gang(tmp_path, np_procs):
@@ -301,11 +429,11 @@ def _check_cpu_gang(tmp_path, np_procs):
     runs and the numpy golden, bit for bit, and each rank's record of its
     exchange and its backend."""
     cpu4 = virtual_devices(4, "cpu")
-    p1 = SimParams(**HEAT)
-    golden = host_heat(make_initial_grid(p1, device="cpu").numpy(),
-                       p1.iters, p1.order, p1.xcfl, p1.ycfl)
-    for name, method, overlap, k, kernel in CASES:
-        p = SimParams(**HEAT, grid_method=GridMethod(method))
+    for name, method, overlap, k, kernel, sizes in CASES:
+        p1 = SimParams(**{**HEAT, **sizes})
+        golden = host_heat(make_initial_grid(p1, device="cpu").numpy(),
+                           p1.iters, p1.order, p1.xcfl, p1.ycfl)
+        p = SimParams(**{**HEAT, **sizes}, grid_method=GridMethod(method))
         mesh = (make_mesh_2d(2, 2, devices=cpu4) if method == 2
                 else make_mesh_1d(4, devices=cpu4))
         single = run_distributed_heat(p, mesh, overlap=overlap,
@@ -329,6 +457,11 @@ def _check_cpu_gang(tmp_path, np_procs):
         assert calls["backend"] == "gloo"
         assert calls["batched"] > 0, calls
         assert calls["messages"] > 0, calls
+        # CPU shards: nothing to wait for; every solve still clocks its
+        # exchanges (the host clock) inside its timed bracket
+        assert calls["host_waits"] == 0, calls
+        for name, (exchange_s, solve_s) in calls["clocks"].items():
+            assert 0 < exchange_s <= solve_s, (name, calls["clocks"])
 
 
 @pytest.mark.parametrize("np_procs,per", [(2, 2), (4, 1)],
@@ -337,13 +470,64 @@ def test_gloo_gang_through_the_batched_exchange(tmp_path, capsys, np_procs,
                                                 per):
     """A gloo gang on the CPU posts every exchange as one batch in the
     plan's order and gives the single-process 4-shard mesh and the numpy
-    golden bit for bit on every rank; the sharded scan gives the
-    single-process scan's bits."""
+    golden bit for bit on every rank, with each rank's initial blocks
+    built on its own devices and a grid that does not divide over the
+    mesh among the cases; the sharded scan gives the single-process
+    scan's bits.  ``dist_heat.exchange_s`` is set by every solve."""
     rc = run_gang(tmp_path, _WORKER, np_procs=np_procs, devices_per_proc=per,
                   CASES=CASES, HEAT=HEAT)
     out = capsys.readouterr().out
     assert rc == 0, out
     _check_cpu_gang(tmp_path, np_procs)
+
+
+#: run first in each rank: every exchange takes the path of one card under
+#: NCCL (``halo._graphed``), and a batch's "graph" replays it by posting
+#: its buffers again; each rank leaves the count of replays
+_GRAPHED = """
+import atexit
+import json
+import sys
+from cme213_tpu_torch.dist import halo
+from cme213_tpu_torch.dist.multihost import process_info
+
+replays = []
+
+
+def capture(post):
+    def replay():
+        replays.append(1)
+        post()
+    return replay
+
+
+halo._graphed = lambda devices: True
+halo._capture = capture
+atexit.register(lambda: open(
+    f"{sys.argv[1]}/replays-rank{process_info()[0]}.json", "w").write(
+        json.dumps(len(replays))))
+"""
+
+
+@pytest.mark.parametrize("np_procs,per", [(2, 2), (4, 1)],
+                         ids=["2-ranks-x-2-shards", "4-ranks-x-1-shard"])
+def test_gloo_gang_replays_the_batches_it_has_seen(tmp_path, capsys,
+                                                   np_procs, per):
+    """Where a gang replays its exchanges (under NCCL on a card, here
+    stood in for on the CPU), a batch's first exchange runs as it is and
+    every later one copies its slabs into the batch's own buffers and
+    replays it: every case is still the single-process mesh's and the
+    numpy golden's bit for bit on every rank, and every rank replayed."""
+    import json
+
+    rc = run_gang(tmp_path, _GRAPHED + _WORKER, np_procs=np_procs,
+                  devices_per_proc=per, CASES=CASES, HEAT=HEAT)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    _check_cpu_gang(tmp_path, np_procs)
+    for rank in range(np_procs):
+        assert json.loads((tmp_path / f"replays-rank{rank}.json")
+                          .read_text()) > 0, rank
 
 
 #: run first in each rank: the host seems to have four cards
