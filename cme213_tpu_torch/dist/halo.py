@@ -43,6 +43,11 @@ A shard with no neighbour on a side lies on the physical boundary: its halo
 on that side is the Dirichlet fill, keyed on the shard's index along the
 axis, which replaces the reference's "-1 neighbour" case analysis
 (``2dHeat.cpp:407-450``).
+
+Given ``rings`` (``exchange_halo_lines``), the halos land in tensors the
+caller holds, such as the ring of a padded block: each is filled, or
+copied into from its neighbour or its receive buffer, and nothing is
+allocated for it.
 """
 
 from __future__ import annotations
@@ -61,6 +66,13 @@ from .multihost import backend
 #: synchronisations made inside them (none under NCCL);
 #: ``dist.exchanges.<key>`` in the exit snapshot
 EXCHANGE = {"seconds": 0.0, "messages": 0, "bytes": 0, "host_waits": 0}
+
+#: the padded assemblies of the distributed heat step, one a step of a
+#: process, by path: ``in_place`` (halos written into the ring of a padded
+#: block that persists, ``dist/heat._assemble_in_place``) or ``cat`` (new
+#: padded blocks concatenated, ``pad_lines_with_halos``);
+#: ``dist.pads.<path>`` in the exit snapshot
+PADS = {"in_place": 0, "cat": 0}
 
 #: the clocks of exchanges on a card not yet read: ``(start, end)`` CUDA
 #: events on the current stream (``settle_clock``)
@@ -94,10 +106,14 @@ def exchange_plan(owners, rank: int) -> list[tuple[str, int, int, int, int]]:
 
 
 def _local_halos(blocks: list[torch.Tensor | None], border: int, lo_fill,
-                 hi_fill, dim: int) -> list[list | None]:
+                 hi_fill, dim: int, rings=None) -> list[list | None]:
     """``[lo_halo, hi_halo]`` for each shard this process holds (``None``
     for the others): the fill at a physical edge, a copy of a neighbour
-    this process holds, ``None`` where another rank sends it."""
+    this process holds, ``None`` where another rank sends it.  With
+    ``rings`` (a ``(lo, hi)`` pair of tensors a shard held here) the fill
+    and the copy are written into the shard's pair, and the halos are
+    those tensors; where another rank sends the halo, its ring stands in
+    the list, for ``_exchange_batched`` to copy the halo into."""
     n = len(blocks)
     out: list[list | None] = []
     for i, blk in enumerate(blocks):
@@ -108,17 +124,19 @@ def _local_halos(blocks: list[torch.Tensor | None], border: int, lo_fill,
         shape[dim] = border
         halo = []
         for side, j in ((0, i - 1), (1, i + 1)):
+            ring = None if rings is None else rings[i][side]
             if j < 0 or j >= n:
                 fill = lo_fill if side == 0 else hi_fill
                 halo.append(torch.full(shape, fill, dtype=blk.dtype,
-                                       device=blk.device))
+                                       device=blk.device) if ring is None
+                            else ring.fill_(fill))
             elif blocks[j] is None:
-                halo.append(None)
+                halo.append(ring)
             else:
-                nb = blocks[j]
-                start = nb.shape[dim] - border if side == 0 else 0
-                halo.append(nb.narrow(dim, start, border).to(
-                    blk.device, non_blocking=True, copy=True))
+                slab = _slab(blocks[j], border, dim, side)
+                halo.append(slab.to(blk.device, non_blocking=True, copy=True)
+                            if ring is None
+                            else ring.copy_(slab, non_blocking=True))
         out.append(halo)
     return out
 
@@ -246,9 +264,10 @@ class _Batch:
 
     A received halo is the batch's buffer, which its next replay
     rewrites; every use of it is enqueued on the current stream before
-    that replay, and ``pad_lines_with_halos`` copies it at once.  The
-    buffers and the graph live as long as the process's group (their key
-    holds it) and are dropped at exit before the group is destroyed."""
+    that replay: ``pad_lines_with_halos``, or the copy into its ring,
+    copies it at once.  The buffers and the graph live as long as the
+    process's group (their key holds it) and are dropped at exit before
+    the group is destroyed."""
 
     def __init__(self, plan, shapes, dtype, device):
         if not any(_BATCHES.values()):
@@ -267,8 +286,9 @@ _BATCHES: dict = {}
 
 def _exchange_batched(lines, halos, border: int, dim: int, owners) -> None:
     """The cross-rank messages of every line as one batch of
-    point-to-point ops in ``exchange_plan``'s order; fills the ``None``
-    entries of ``halos``.
+    point-to-point ops in ``exchange_plan``'s order; sets each halo it
+    receives in ``halos``, or copies it into the tensor standing there (a
+    ring, ``exchange_halo_lines``).
 
     Under NCCL nothing here waits on the host.  ``batch_isend_irecv``
     orders NCCL's stream behind the current stream, where the slabs were
@@ -340,7 +360,9 @@ def _exchange_batched(lines, halos, border: int, dim: int, owners) -> None:
             _post(plan, posted)
         for (op, _, li, i, side), t in zip(plan, posted):
             if op == "recv":
-                halos[li][i][side] = t.to(lines[li][i].device)
+                ring = halos[li][i][side]
+                halos[li][i][side] = (t.to(lines[li][i].device)
+                                      if ring is None else ring.copy_(t))
         if waits:
             _sync_streams(devices)
     _clock_stop(devices[0], start)
@@ -351,16 +373,24 @@ def _exchange_batched(lines, halos, border: int, dim: int, owners) -> None:
 
 
 def exchange_halo_lines(lines: list[list[torch.Tensor | None]], border: int,
-                        lo_fill, hi_fill, dim: int = 0, owners=None
+                        lo_fill, hi_fill, dim: int = 0, owners=None,
+                        rings=None
                         ) -> list[list[tuple[torch.Tensor, torch.Tensor]
                                        | None]]:
     """``exchange_halo_1d`` for every line of shards along one mesh axis
     at once: ``lines[l]`` is a line's shards and ``owners[l]`` their
     ranks.  The cross-rank messages of all lines form one batch
     (``_exchange_batched``).  Every rank holding a shard of any line must
-    call it with the same ``owners``."""
-    halos = [_local_halos(line, border, lo_fill, hi_fill, dim)
-             for line in lines]
+    call it with the same ``owners``.
+
+    ``rings[l][i]``, for each shard this process holds, is a ``(lo, hi)``
+    pair of tensors of the halos' shape on its device: the halos are
+    written into them (filled at a physical edge, copied from a neighbour
+    or a receive buffer) and returned, so nothing is allocated for them.
+    No ring may overlap a shard of ``lines``, whose slabs are sent."""
+    halos = [_local_halos(line, border, lo_fill, hi_fill, dim,
+                          None if rings is None else rings[li])
+             for li, line in enumerate(lines)]
     own = [b for line in lines for b in line if b is not None]
     if own and len(own) < sum(map(len, lines)):
         _exchange_batched(lines, halos, border, dim, owners)
@@ -443,9 +473,13 @@ def gather_shards(shards: list[torch.Tensor | None], owners, shape, dtype,
 def _record_exchanges() -> None:
     """At exit, add the process's cross-rank exchanges to the metrics
     registry as ``dist.exchanges.<key>`` counters (the seconds read so
-    far as a gauge), as ``ops._record_launches`` adds its launches
-    (registered after ``core/metrics``' exit snapshot, so it runs first);
-    a process that exchanged nothing adds nothing."""
+    far as a gauge), and its padded assemblies as ``dist.pads.<path>``,
+    as ``ops._record_launches`` adds its launches (registered after
+    ``core/metrics``' exit snapshot, so it runs first); a process that
+    exchanged or assembled nothing adds nothing of that."""
+    if any(PADS.values()):
+        for path, n in PADS.items():
+            metrics.counter(f"dist.pads.{path}").inc(n)
     if not EXCHANGE["messages"]:
         return
     for key in ("messages", "bytes", "host_waits"):

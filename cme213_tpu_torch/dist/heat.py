@@ -25,7 +25,10 @@ Step variants, as in the JAX package:
   exchange, then k local steps with the Dirichlet bands re-imposed on
   global coordinates; ``local_kernel="pallas"`` runs those k steps of every
   shard a device holds as one launch of the hand-written kernel (B3,
-  ``ops/stencil_pipeline.stencil_local_multistep_shards``).
+  ``ops/stencil_pipeline.stencil_local_multistep_shards``).  There the
+  K-padded blocks live in place: each shard has two padded buffers for a
+  solve (``_padded``), the halos are written into the ring of one and B3
+  writes the other (``_assemble_in_place``).
 
 Every variant computes each cell with the same expression as
 ``ops.run_heat``, each operation rounded on its own, so every mesh, scheme,
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+from dataclasses import dataclass
 from functools import partial
 
 import numpy as np
@@ -59,7 +63,8 @@ from ..grid import interior, make_initial_grid
 from ..ops.stencil import stencil_interior
 from ..ops.stencil_pipeline import (stencil_local_multistep_plain,
                                     stencil_local_multistep_shards)
-from .halo import gather_shards, pad_lines_with_halos, settle_clock
+from .halo import (PADS, exchange_halo_lines, gather_shards,
+                   pad_lines_with_halos, settle_clock)
 from .mesh import Mesh
 from .multihost import barrier
 
@@ -98,8 +103,90 @@ def _assemble_padded(blocks: Blocks, params: SimParams,
     reads it.  So the y exchange completes (across ranks: every message
     waited on) before an x slab is cut."""
     b = params.border_size if border is None else border
+    PADS["cat"] += 1
     ypad = _pad_axis(blocks, 0, b, params.bc_bottom, params.bc_top, owners)
     return _pad_axis(ypad, 1, b, params.bc_left, params.bc_right, owners)
+
+
+@dataclass(frozen=True)
+class _Padded:
+    """One K-padded (ny_loc + 2K, nx_loc + 2K) buffer for each shard this
+    process holds, and every view of them an in-place step uses, made
+    once with the buffers: ``inner``, their interiors ``[K:-K, K:-K]``
+    (``None`` for another rank's shard), the blocks a step returns;
+    ``own``, the buffers in mesh order, with ``offsets`` the
+    global halo-grid coordinates of their element [0, 0] (B3's shard
+    table); ``y`` and ``x``, each phase's ``exchange_halo_lines``
+    arguments: the lines its slabs are cut from, their owners and the
+    ring slabs its halos land in."""
+
+    K: int
+    inner: Blocks
+    own: list
+    offsets: list
+    y: tuple
+    x: tuple
+
+
+def _padded(blocks: Blocks, K: int, border: int, owners=None) -> _Padded:
+    """New padded buffers shaped for ``blocks`` (``_Padded``).  The y
+    lines are the interiors, and the y halos land in rows ``[0, K)`` and
+    ``[H - K, H)`` over columns ``[K, W - K)``; the x lines are the
+    columns ``[K, W - K)`` over every row, so the x slabs hold the y
+    halos and a corner the diagonal neighbour's cells, and the x halos
+    land in columns ``[0, K)`` and ``[W - K, W)``."""
+    y_size, x_size = len(blocks), len(blocks[0])
+    if owners is None:
+        owners = np.zeros((y_size, x_size), dtype=np.int64)
+    ny_loc, nx_loc = _own(blocks)[0].shape
+    bufs = _per_shard(lambda blk, yi, xi: blk.new_empty(
+        (ny_loc + 2 * K, nx_loc + 2 * K)), blocks)
+
+    def views(fn, lines):
+        return [[None if p is None else fn(p) for p in line]
+                for line in lines]
+
+    cols = [[row[xi] for row in bufs] for xi in range(x_size)]
+    return _Padded(
+        K=K, inner=views(lambda p: p[K:-K, K:-K], bufs),
+        own=_own(bufs),
+        offsets=[(yi * ny_loc + border - K, xi * nx_loc + border - K)
+                 for yi, row in enumerate(bufs)
+                 for xi, p in enumerate(row) if p is not None],
+        y=(views(lambda p: p[K:-K, K:-K], cols),
+           [owners[:, xi] for xi in range(x_size)],
+           views(lambda p: (p[:K, K:-K], p[-K:, K:-K]), cols)),
+        x=(views(lambda p: p[:, K:-K], bufs), list(owners),
+           views(lambda p: (p[:, :K], p[:, -K:]), bufs)))
+
+
+def _padded_pair(blocks: Blocks, K: int, border: int,
+                 owners=None) -> tuple[_Padded, _Padded]:
+    """Two sets of padded buffers for ``blocks`` (``_padded``): an
+    in-place step assembles in one and B3 writes the other."""
+    return (_padded(blocks, K, border, owners),
+            _padded(blocks, K, border, owners))
+
+
+def _assemble_in_place(blocks: Blocks, pad: _Padded,
+                       params: SimParams) -> None:
+    """``_assemble_padded(blocks, params, pad.K)`` written into ``pad``'s
+    buffers, bit for bit: each block is placed in its buffer's interior
+    (unless it is that interior, as after an in-place step), then the
+    ring is rewritten whole, the y halos first, then the x halos (the
+    views ``_padded`` made).  Each halo is filled with its BC or copied
+    straight into the ring (``halo.exchange_halo_lines``'s ``rings``):
+    nothing is allocated or concatenated."""
+    for blk, inner in zip(_own(blocks), _own(pad.inner)):
+        if blk.data_ptr() != inner.data_ptr():
+            inner.copy_(blk)
+    lines, owners, rings = pad.y
+    exchange_halo_lines(lines, pad.K, params.bc_bottom, params.bc_top, 0,
+                        owners, rings)
+    lines, owners, rings = pad.x
+    exchange_halo_lines(lines, pad.K, params.bc_left, params.bc_right, 1,
+                        owners, rings)
+    PADS["in_place"] += 1
 
 
 def _reimpose_ghost(new_block: torch.Tensor, params: SimParams, yi: int,
@@ -235,35 +322,52 @@ def _multistep_local_step(blocks: Blocks, params: SimParams,
 
 
 def _multistep_local_step_pallas(blocks: Blocks, params: SimParams,
-                                 k: int, owners=None) -> Blocks:
+                                 k: int, owners=None,
+                                 pads: tuple[_Padded, _Padded] | None = None
+                                 ) -> Blocks:
     """``_multistep_local_step`` with the hand-written kernel: one launch
     (B3) a device for the k steps of every shard this process holds (the
     hw5 pattern of running the hw2 kernel under the communication layer;
     the JAX package's one ``pallas_call`` a device under ``shard_map``).
-    Bitwise equal to the plain steps."""
+    Bitwise equal to the plain steps.
+
+    The K-padded blocks are assembled in place in ``pads[0]``
+    (``_assemble_in_place``; a new pair without ``pads``) and B3 writes
+    ``pads[1]``; the new blocks are ``pads[1]``'s interiors, so the next
+    step, given the pair swapped, places nothing."""
     b = params.border_size
-    K = k * b
-    padded = _assemble_padded(blocks, params, border=K, owners=owners)
-    ny_loc, nx_loc = _own(blocks)[0].shape
-    own = [(yi, xi, p) for yi, row in enumerate(padded)
-           for xi, p in enumerate(row) if p is not None]
-    # global halo-grid coordinates of each padded block's element [0, 0]
-    outs = stencil_local_multistep_shards(
-        [p for _, _, p in own],
-        [(yi * ny_loc + b - K, xi * nx_loc + b - K) for yi, xi, _ in own],
-        params.ny, params.nx, params.order, params.xcfl, params.ycfl,
-        params.bc, k=k)
-    out: Blocks = [[None] * len(blocks[0]) for _ in blocks]
-    for (yi, xi, _), r in zip(own, outs):
-        out[yi][xi] = r[K:K + ny_loc, K:K + nx_loc]
-    return out
+    src, dst = pads or _padded_pair(blocks, k * b, b, owners)
+    _assemble_in_place(blocks, src, params)
+    stencil_local_multistep_shards(
+        src.own, src.offsets, params.ny, params.nx, params.order,
+        params.xcfl, params.ycfl, params.bc, k=k, out=dst.own)
+    return dst.inner
+
+
+def _in_place_steps(params: SimParams, k: int, owners=None):
+    """``_multistep_local_step_pallas`` over one pair of padded buffers a
+    shard (``_padded_pair``), made at the first step and swapped after
+    each: a solve's step allocates nothing.  Each call of ``_run`` makes
+    its own pair, so the blocks a solve returns (views of one of them)
+    alias nothing a later solve writes."""
+    pads = None
+
+    def step(blocks: Blocks) -> Blocks:
+        nonlocal pads
+        if pads is None:
+            b = params.border_size
+            pads = _padded_pair(blocks, k * b, b, owners)
+        out = _multistep_local_step_pallas(blocks, params, k, pads=pads)
+        pads = pads[::-1]
+        return out
+
+    return step
 
 
 def _local_step(params: SimParams, overlap: bool, k: int, local_kernel: str,
                 side: dict | None = None, owners=None):
     if local_kernel == "pallas":
-        return partial(_multistep_local_step_pallas, params=params, k=k,
-                       owners=owners)
+        return _in_place_steps(params, k, owners)
     if k > 1:
         return partial(_multistep_local_step, params=params, k=k,
                        owners=owners)

@@ -348,7 +348,8 @@ def stencil_local_multistep_shards(
         blocks: list[torch.Tensor], offsets: list[tuple[int, int]], ny: int,
         nx: int, order: int, xcfl, ycfl,
         bc: tuple[float, float, float, float], k: int = 1,
-        tile_y: int | None = None) -> list[torch.Tensor]:
+        tile_y: int | None = None,
+        out: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
     """``k`` fused timesteps on every shard's K-padded block (B3): one
     launch of ``csrc/heat_stencil.cu:heat_ksteps`` per device for all the
     blocks it holds (per ``MAX_SHARDS`` of them).
@@ -358,15 +359,20 @@ def stencil_local_multistep_shards(
     ``offsets[i]`` = (gy0, gx0) the global halo-grid coordinates of its
     element [0, 0]; ``(ny, nx)`` are the global interior extents, which
     place the Dirichlet bands.  Every block has one shape and dtype (a mesh
-    ghost-pads its shards to one shape); mixed ones raise.  Returns a new
-    (H, W) block per shard, views of one (n, H, W) tensor per launch, whose
-    rows and columns ``[K, H - K)`` hold the k-step result, equal bit for
-    bit to the plain version's; the ring outside them differs between the
-    two (the kernel's window reads 0 beyond the block) and is never read.
+    ghost-pads its shards to one shape); mixed ones raise.  Returns an
+    (H, W) block per shard whose rows and columns ``[K, H - K)`` hold the
+    k-step result, equal bit for bit to the plain version's; the ring
+    outside them differs between the two (the kernel's window reads 0
+    beyond the block) and is never read.  The blocks returned are ``out``,
+    a contiguous (H, W) tensor a shard on its block's device, none of them
+    a block's storage (on the CPU the plain result is copied into it), or
+    without ``out`` new views of one (n, H, W) tensor per launch.
     ``tile_y`` defaults to ``pick_pipeline_tile`` on the padded block.
     """
     if not blocks or len(blocks) != len(offsets):
         raise ValueError(f"{len(blocks)} blocks for {len(offsets)} offsets")
+    if out is not None and len(out) != len(blocks):
+        raise ValueError(f"{len(out)} destinations for {len(blocks)} blocks")
     first = blocks[0]
     _check_grid(first)
     dtype, shape = first.dtype, first.shape
@@ -378,30 +384,40 @@ def stencil_local_multistep_shards(
         if p.shape != shape:
             raise ValueError(f"shards of mixed shapes: {tuple(p.shape)} "
                              f"beside {tuple(shape)}")
+        if out is not None and (out[i].shape != shape
+                                or out[i].dtype != dtype
+                                or out[i].device != p.device
+                                or not out[i].is_contiguous()):
+            raise ValueError(
+                f"destination {i} is a {tuple(out[i].shape)} "
+                f"{out[i].dtype} tensor on {out[i].device}; its block is a "
+                f"contiguous {tuple(shape)} {dtype} tensor on {p.device}")
         by_device.setdefault(p.device, []).append(i)
-    out: list[torch.Tensor | None] = [None] * len(blocks)
+    res: list[torch.Tensor | None] = [None] * len(blocks)
     for dev, idx in by_device.items():
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"no kernel for device {dev}")
         if dev.type == "cpu":
             for i in idx:
-                out[i] = stencil_local_multistep_plain(
+                r = stencil_local_multistep_plain(
                     blocks[i], *offsets[i], ny, nx, order, xcfl, ycfl, bc,
                     k=k)
+                res[i] = r if out is None else out[i].copy_(r)
             continue
         for lo in range(0, len(idx), MAX_SHARDS):
             part = idx[lo:lo + MAX_SHARDS]
             plan = launch_plan(blocks[part[0]], len(part), k, order, tile_y)
-            res = torch.empty((len(part), *shape), dtype=dtype,
-                              device=dev).unbind(0)
+            dst = (torch.empty((len(part), *shape), dtype=dtype,
+                               device=dev).unbind(0) if out is None
+                   else [out[i] for i in part])
             _launch([(blocks[i].contiguous(), r, *offsets[i])
-                     for i, r in zip(part, res)], plan, order, k, ny, nx,
+                     for i, r in zip(part, dst)], plan, order, k, ny, nx,
                     xcfl, ycfl, bc)
             LAUNCHES["local"] += 1
             LOCAL_LAUNCHES[str(dev)] = LOCAL_LAUNCHES.get(str(dev), 0) + 1
-            for i, r in zip(part, res):
-                out[i] = r
-    return out
+            for i, r in zip(part, dst):
+                res[i] = r
+    return res
 
 
 def stencil_local_multistep(p: torch.Tensor, gy0: int, gx0: int, ny: int,

@@ -569,6 +569,30 @@ def test_local_kernel_nine_shards_in_one_launch(cuda, order, k, dtype):
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_local_kernel_writes_given_destinations(cuda, k):
+    """B3 given destinations (``out``, NaN-poisoned) writes each shard's k
+    steps there, the returned blocks are those tensors, and their interiors
+    equal the launch into fresh blocks bit for bit."""
+    p = SimParams(nx=401, ny=299, order=8, bc_top=1.5, bc_left=0.5,
+                  bc_bottom=2.0, bc_right=0.25)
+    K = k * p.border_size
+    shards = [_shard_block(p, K, yi, xi, 100, 134, torch.float32, cuda,
+                           seed=k) for yi in range(3) for xi in range(3)]
+    blocks = [blk for blk, _, _ in shards]
+    offsets = [(gy0, gx0) for _, gy0, gx0 in shards]
+    args = (p.ny, p.nx, p.order, p.xcfl, p.ycfl, p.bc)
+    dst = [torch.full_like(b, float("nan")) for b in blocks]
+    out = stencil_local_multistep_shards(blocks, offsets, *args, k=k,
+                                         out=dst)
+    ref = stencil_local_multistep_shards(blocks, offsets, *args, k=k)
+    torch.cuda.synchronize()
+    for got, d, want in zip(out, dst, ref):
+        assert got is d
+        torch.testing.assert_close(got[K:-K, K:-K], want[K:-K, K:-K],
+                                   rtol=0, atol=0)
+
+
 def test_local_kernel_splits_a_long_table(cuda):
     # 33 shards: two launches, the second of one shard
     p = SimParams(nx=401, ny=299, order=4)
@@ -1581,6 +1605,7 @@ def step_loop(*a, **k):
     for (o, n), f in zip(patched, saved):
         setattr(o, n, counting(f))
     before = halo.EXCHANGE["host_waits"]
+    pads = dict(halo.PADS)
     try:
         return real_run(*a, **k)
     finally:
@@ -1588,6 +1613,8 @@ def step_loop(*a, **k):
             setattr(o, n, f)
         seen["loops"] += 1
         seen["host_waits"] += halo.EXCHANGE["host_waits"] - before
+        # the padded assemblies of the last loop, the solve's
+        seen["pads"] = {path: halo.PADS[path] - pads[path] for path in pads}
 
 
 heat._run = step_loop
@@ -1609,9 +1636,10 @@ def test_nccl_gang_step_loop_makes_no_host_wait(four_cards, tmp_path,
     the step loop waits on the host (``EXCHANGE["host_waits"]`` stays at
     0, and nothing in the loop synchronises a stream, an event or a card),
     the exchange clock still reads (CUDA events, inside the solve's
-    bracket), the exchanges replay as CUDA graphs once seen, the grid
-    comes back in page-locked memory, and every rank's grid is the
-    one-card solve's bit for bit."""
+    bracket), the exchanges replay as CUDA graphs once seen, every step
+    assembles its padded block in place (``halo.PADS``: one ``in_place``
+    a step, no ``cat``), the grid comes back in page-locked memory, and
+    every rank's grid is the one-card solve's bit for bit."""
     import json
 
     from torch_gang import run_gang
@@ -1632,6 +1660,7 @@ def test_nccl_gang_step_loop_makes_no_host_wait(four_cards, tmp_path,
         # the solve's loop, after those of the gate's probe solves
         assert seen["loops"] >= 1, seen
         assert seen["host_waits"] == 0 and seen["syncs"] == 0, seen
+        assert seen["pads"] == {"in_place": p.iters, "cat": 0}, seen
         assert seen["pinned"] and seen["graphs"] == 2, seen
         assert 0 < seen["exchange_s"] < seen["solve_s"], seen
         np.testing.assert_array_equal(

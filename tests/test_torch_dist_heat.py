@@ -33,6 +33,7 @@ from cme213_tpu_torch.dist import (distributed_heat_step, make_mesh_1d,
                                    make_mesh_2d, mesh_for_method,
                                    prepare_distributed_heat,
                                    run_distributed_heat)
+from cme213_tpu_torch.dist import halo
 from cme213_tpu_torch.dist import heat as dheat
 from cme213_tpu_torch.dist.halo import exchange_halo_1d, pad_with_halos
 from cme213_tpu_torch.grid import make_initial_grid
@@ -146,6 +147,125 @@ def test_padded_blocks_are_windows_of_the_padded_grid(kind, border):
             window = g[yi * ny_loc:(yi + 1) * ny_loc + 2 * K,
                        xi * nx_loc:(xi + 1) * nx_loc + 2 * K]
             np.testing.assert_array_equal(padded[yi][xi].numpy(), window)
+
+
+#: mesh shapes for the in-place assembly: (y, x), one shard, a row, a
+#: column, a square
+PAD_MESHES = [(1, 1), (1, 4), (4, 1), (2, 2)]
+
+
+def _nan_pair(blocks, K):
+    """``_padded_pair`` with every cell NaN, so a ring cell the assembly
+    leaves unwritten shows."""
+    pair = dheat._padded_pair(blocks, K, 4)
+    for p in pair[0].own + pair[1].own:
+        p.fill_(float("nan"))
+    return pair
+
+
+@pytest.mark.parametrize("shape", PAD_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("ny,nx", [(48, 40), (46, 37)],
+                         ids=["divides", "ragged"])
+@pytest.mark.parametrize("kk", [1, 2], ids=["K=border", "K=2border"])
+def test_in_place_assembly_equals_assemble_padded(shape, ny, nx, kk):
+    """The K-padded blocks written in place (``_assemble_in_place``: the
+    block into its buffer's interior, the halos into its ring) equal
+    ``_assemble_padded``'s concatenated blocks bit for bit, corners
+    included, on buffers poisoned with NaN.  A second assembly, whose
+    blocks already are the other buffer's interiors (as after a B3 step),
+    places nothing and rewrites that buffer's whole ring."""
+    p = SimParams(nx=nx, ny=ny, order=8, **BCS)
+    K = kk * p.border_size
+    mesh = make_mesh_2d(*shape, devices=CPU8)
+    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+    devices = dheat._shard_devices(mesh, y_size, x_size)
+    rng = np.random.default_rng(7)
+
+    def blocks_of(seed_shift):
+        u = dheat._pad_interior_for_mesh(
+            rng.uniform(0, 1, (p.ny, p.nx)).astype(np.float32) + seed_shift,
+            p, y_size, x_size)
+        return dheat._scatter(torch.from_numpy(u), devices, ny_loc, nx_loc)
+
+    first = blocks_of(0)
+    src, dst = _nan_pair(first, K)
+    before = dict(halo.PADS)
+    dheat._assemble_in_place(first, src, p)
+    want = dheat._assemble_padded(first, p, border=K)
+    for g, w in zip(src.own, dheat._own(want)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    # the next step's blocks live in dst's interior, its ring still NaN
+    second = blocks_of(10)
+    for q, b in zip(dheat._own(dst.inner), dheat._own(second)):
+        q.copy_(b)
+    dheat._assemble_in_place(dst.inner, dst, p)
+    want = dheat._assemble_padded(second, p, border=K)
+    for g, w in zip(dst.own, dheat._own(want)):
+        assert not torch.isnan(g).any()
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert halo.PADS["in_place"] - before["in_place"] == 2
+    assert halo.PADS["cat"] - before["cat"] == 2  # the two references
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (3, 3)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("k", [1, 2])
+def test_in_place_steps_equal_the_plain_steps(shape, k):
+    """Several steps of B3's in-place path (``_in_place_steps``: one pair
+    of NaN-poisoned buffers a shard, swapped each step) equal as many
+    plain k-step steps (``_multistep_local_step``) bit for bit, on a grid
+    that divides over neither axis; every step's blocks are views of the
+    pair and each step counts one in-place assembly and no ``cat``."""
+    p = SimParams(nx=50, ny=46, order=8, **BCS)
+    mesh = make_mesh_2d(*shape, devices=virtual_devices(9, "cpu"))
+    y_size, x_size, ny_loc, nx_loc = dheat._mesh_layout(p, mesh)
+    u = dheat._pad_interior_for_mesh(
+        np.random.default_rng(3).uniform(0, 1, (p.ny, p.nx)).astype(
+            np.float32), p, y_size, x_size)
+    blocks = dheat._scatter(torch.from_numpy(u), dheat._shard_devices(
+        mesh, y_size, x_size), ny_loc, nx_loc)
+    K = k * p.border_size
+    pair = _nan_pair(blocks, K)
+    storages = {q.untyped_storage().data_ptr()
+                for side in pair for q in side.own}
+    got = want = blocks
+    before = dict(halo.PADS)
+    for step in range(3):
+        got = dheat._multistep_local_step_pallas(got, p, k, pads=pair)
+        pair = pair[::-1]
+        want = dheat._multistep_local_step(want, p, k)
+        for g, w in zip(dheat._own(got), dheat._own(want)):
+            assert g.untyped_storage().data_ptr() in storages
+            np.testing.assert_array_equal(g.numpy(), w.numpy(),
+                                          err_msg=f"step {step}")
+    assert halo.PADS["in_place"] - before["in_place"] == 3
+    assert halo.PADS["cat"] - before["cat"] == 3  # the plain steps' own
+    # a solve through `_run` counts one in-place assembly a step
+    before = dict(halo.PADS)
+    out = run_distributed_heat(SimParams(nx=50, ny=46, order=8, iters=4 * k,
+                                         **BCS), mesh, steps_per_exchange=k,
+                               local_kernel="pallas", conformance=False)
+    np.testing.assert_array_equal(
+        out, _run_heat(SimParams(nx=50, ny=46, order=8, iters=4 * k, **BCS)))
+    assert halo.PADS["in_place"] - before["in_place"] == 4
+    assert halo.PADS["cat"] == before["cat"]
+
+
+def test_pads_go_to_the_exit_snapshot(monkeypatch):
+    """At exit the padded assemblies join the metrics registry as
+    ``dist.pads.<path>`` counters, beside the exchanges' counters, also
+    in a process that exchanged nothing across ranks; a process that
+    assembled nothing adds none."""
+    from cme213_tpu_torch.core import metrics
+
+    monkeypatch.setitem(halo.EXCHANGE, "messages", 0)
+    for pads, want in (({"in_place": 0, "cat": 0}, {}),
+                       ({"in_place": 400, "cat": 0},
+                        {"dist.pads.in_place": 400})):
+        monkeypatch.setattr(halo, "PADS", pads)
+        before = metrics.snapshot()
+        halo._record_exchanges()
+        assert metrics.delta(before, metrics.snapshot())["counters"] == want
 
 
 # ---------------------------------------------------------------- solves

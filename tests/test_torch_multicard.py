@@ -341,7 +341,8 @@ np.save(f"{out}/scan-rank{rank}.npy", s.numpy())
 with open(f"{out}/calls-rank{rank}.json", "w") as fh:
     json.dump(dict(calls, backend=backend(), clocks=clocks,
                    messages=halo.EXCHANGE["messages"],
-                   host_waits=halo.EXCHANGE["host_waits"]), fh)
+                   host_waits=halo.EXCHANGE["host_waits"],
+                   pads=halo.PADS), fh)
 """
 
 
@@ -460,6 +461,13 @@ def _check_cpu_gang(tmp_path, np_procs):
         # CPU shards: nothing to wait for; every solve still clocks its
         # exchanges (the host clock) inside its timed bracket
         assert calls["host_waits"] == 0, calls
+        # one padded assembly a step on each rank: in place for B3, by
+        # concatenation for the plain steps
+        steps = {"pallas": 0, "xla": 0}
+        for _name, _method, _overlap, k, kernel, _sizes in CASES:
+            steps[kernel] += HEAT["iters"] // k
+        assert calls["pads"] == {"in_place": steps["pallas"],
+                                 "cat": steps["xla"]}, calls
         for name, (exchange_s, solve_s) in calls["clocks"].items():
             assert 0 < exchange_s <= solve_s, (name, calls["clocks"])
 

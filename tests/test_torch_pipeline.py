@@ -620,3 +620,26 @@ def test_shards_wrapper_refuses_mixed_shards():
         stencil_local_multistep_shards([a, a], [(0, 0)], *args)
     with pytest.raises(ValueError, match="offsets"):
         stencil_local_multistep_shards([], [], *args)
+    with pytest.raises(ValueError, match="destinations"):
+        stencil_local_multistep_shards([a, a], [(0, 0), (0, 14)], *args,
+                                       out=[a])
+    for bad in (torch.zeros(16, 17), a.double(), torch.zeros(16, 32)[:, ::2]):
+        with pytest.raises(ValueError, match="destination 0"):
+            stencil_local_multistep_shards([a], [(0, 0)], *args, out=[bad])
+
+
+@pytest.mark.parametrize("order,k", [(4, 2), (8, 1)])
+def test_shards_wrapper_writes_given_destinations(order, k):
+    """With ``out`` the k steps of each shard land in its destination,
+    which is returned, equal to the wrapper's own blocks bit for bit."""
+    p, _ = _probe(order, ny=62, nx=74)
+    K = k * p.border_size
+    _, blocks, offsets = _mesh_shards(p, K, 21, 25)
+    args = (p.ny, p.nx, order, p.xcfl, p.ycfl, p.bc)
+    dst = [torch.full_like(b, float("nan")) for b in blocks]
+    out = stencil_local_multistep_shards(blocks, offsets, *args, k=k,
+                                         out=dst)
+    ref = stencil_local_multistep_shards(blocks, offsets, *args, k=k)
+    for got, d, want in zip(out, dst, ref):
+        assert got is d
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
