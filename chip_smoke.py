@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It drives the
 port (``cme213_tpu_torch``) and imports nothing of JAX or of the JAX
 package.  ``--only GROUP[,GROUP]`` runs groups of phases alone:
 ``kernels`` (1-16), ``guarded`` (17-27), ``tooling`` (28-29), ``gang``
-(30), ``serving`` (31), ``fleet`` (32) and ``multicard`` (33); a phase
+(30), ``serving`` (31), ``fleet`` (32), ``multicard`` (33) and
+``pagerank`` (34); a phase
 number names its group.  Phase 1's identity always runs, and the build
 with any group but ``fleet``; a group run without ``kernels`` makes what
 it takes from phases 1-16 itself (``NEEDS``: pwtk and its f64 plain
@@ -456,9 +457,24 @@ fails:
    on 4 ranks uninterrupted and under ``rankkill:0:2`` (bit for bit the
    same); kill to verdict and each incarnation's start-up.  The numbers go
    on a ``{"multicard": ...}`` line.
+34. GAP ``pr`` on ``kron`` at the cell ``pr-kron26``'s size (scale 26,
+   edge factor 16, ``apps/pagerank.kronecker_edges`` from a fixed seed):
+   ``build_csr`` (seconds, peak bytes, the graph's bytes; the longest row
+   must span 100 pull tiles or more), then the first
+   ``solve_to_tolerance`` of the graph, every launch count set to 0 just
+   before it (``ops.segmented_pallas.PULL_LAUNCHES`` too): the pull and
+   the update launched once a sweep each and nothing else, and the scores
+   under GAP's verifier residual 1e-4.  At the solve's scores, on the same
+   card tensors: ``pull_sums`` against ``pull_sums_plain`` (run in chunks
+   of whole rows) and ``pull_update`` against ``pull_update_plain``, each
+   within 1 ULP (the change within 1e-9 relative); each kernel's and
+   each plain version's ms by CUDA events, and the sweep's bound
+   (``core/roofline.pagerank_pull_cost``).  The numbers go on a
+   ``{"pagerank": ...}`` line and both kernels' rows on the ``kernels``
+   line.
 
 The main paths are what phases 2, 4, 5, 6, 8, 10, 11, 14, 16, 17-20, 28,
-29, 30, 31 and 32 drive through the entry points a user calls: ``run_single``
+29, 30, 31, 32 and 34 drive through the entry points a user calls: ``run_single``
 at 512² and at 4000² (kernel B1, through the ladder), one solve of each of
 ``run_heat_pipeline`` and ``run_heat_pipeline2d`` (B2) at each k, the
 SpMV-scan runs (B6 through ``pallas``, B7 through ``pallas-fused``), the
@@ -469,8 +485,9 @@ measurement of phase 16 (B1), phase 28's traced runs (B1 through the
 ``heat2d`` CLI and the ladder's turns, B7 through the ``spmv_scan`` CLI,
 and B1, B2, B4, B5 and B8 through the profiled sweeps, whose counts are
 recorded but not predicted), phase 29's suite sweep (B7, recorded),
-phase 30's gang (B3 in each rank, read from its sink) and phase 33's
-four-card runs (B3 on each card, and in each rank of its gangs); phase
+phase 30's gang (B3 in each rank, read from its sink), phase 33's
+four-card runs (B3 on each card, and in each rank of its gangs) and phase
+34's solve (the pull and the update, once a sweep each); phase
 31's serving
 paths and phase 32's fleet launch none.  Every launch count
 (``ops.stencil_pipeline.LAUNCHES``, ``ops.segmented_pallas.LAUNCHES``,
@@ -499,8 +516,9 @@ times and bound (B1, B2, B4, B5: ms per step at 4000² order 8 f32, k = 1
 and for B5 k = 2, with every k in ``per_k``; B3: ms per step of the
 batched call, one launch on the 2-D pallas path's four 1008² blocks at
 2000²; the scan: ms per iteration or per
-scan at pwtk; B8: ms per 4096² f32 transpose); B1, B2, B6 and B7 also
-carry their rows of phase 16's headline (``headline``).  The last line:
+scan at pwtk; B8: ms per 4096² f32 transpose; the pull and the update:
+ms per sweep at kron scale 26, beside the whole sweep's bound); B1, B2,
+B6 and B7 also carry their rows of phase 16's headline (``headline``).  The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3619,18 +3637,178 @@ def flight_child(kind: str, keep: str) -> dict:
     return rows
 
 
+#: phase 34: the graph of the cell ``pr-kron26`` (GAP's ``kron`` at scale
+#: 26, edge factor 16), the seed of its draws, and the edges a chunk of
+#: the plain pull holds (whole rows: a chunk grows to hold a longer hub)
+PR_SCALE, PR_EDGE_FACTOR, PR_SEED = 26, 16, 2 ** 33 + 5
+PR_PLAIN_CHUNK = 1 << 28
+
+
+def pagerank_phase(counted, paths, peak):
+    """Phase 34: GAP ``pr`` on ``kron`` through ``apps/pagerank``'s normal
+    entry on the card (see the module's docstring).  ``counted`` and
+    ``paths`` are ``main``'s launch-count helper and table, ``peak`` the
+    card's figures.  Returns the numbers for the ``pagerank`` line and the
+    rows of the pull and the update for the ``kernels`` line."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from cme213_tpu_torch import core
+    from cme213_tpu_torch.apps import pagerank as pr
+    from cme213_tpu_torch.core import roofline
+    from cme213_tpu_torch.ops import gather
+    from cme213_tpu_torch.ops import segmented_pallas as segp
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n = 1 << PR_SCALE
+    t0 = time.perf_counter()
+    src, dst = pr.kronecker_edges(PR_SCALE, PR_EDGE_FACTOR, PR_SEED, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = pr.build_csr(src, dst, n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del src, dst
+    e, longest = g.num_edges, int(g.deg.max())
+    rows = {"scale": PR_SCALE, "nodes": n, "edges": e, "longest_row": longest,
+            "longest_row_tiles": longest / segp.PULL_TILE,
+            "isolated": int((g.deg == 0).sum()), "draw_s": draw_s,
+            "build_s": build_s, "build_peak_bytes": g.build_peak_bytes,
+            "graph_bytes": g.nbytes}
+    if longest < 100 * segp.PULL_TILE:
+        fail(f"pagerank: the longest row ({longest}) spans fewer than 100 "
+             f"tiles of {segp.PULL_TILE}")
+
+    # the main path: the first solve of the graph (it lays the graph out),
+    # every count set to 0 just before it
+    label = f"solve_to_tolerance kron{PR_SCALE}"
+    for key in segp.PULL_LAUNCHES:
+        segp.PULL_LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    score, sweeps = counted(label, None, lambda: pr.solve_to_tolerance(g))
+    rows["solve_s"] = time.perf_counter() - t0
+    paths[label].update(segp.PULL_LAUNCHES)
+    print(f"launches of {label}, with the pull's: {paths[label]}")
+    want = {key: 0 for key in paths[label]}
+    want.update(pr_pull=sweeps, pr_update=sweeps)
+    if paths[label] != want:
+        fail(f"{label}: launches {paths[label]}, expected {want}")
+    residual = pr.verifier_residual(g, score)
+    if not residual < 1e-4:
+        fail(f"{label}: GAP's verifier residual {residual} after {sweeps} "
+             f"sweeps")
+    rows.update(sweeps=sweeps, residual=residual, launches=paths[label])
+
+    # the pull and the update against their plain versions on the same
+    # card tensors, at the solve's own scores
+    plan = g.layout
+    contrib = torch.where(g.deg > 0, score / g.deg.to(torch.float32),
+                          torch.zeros_like(score))
+    off = plan.off
+    cuts = torch.searchsorted(off, torch.arange(
+        0, e, PR_PLAIN_CHUNK, device=dev)).unique().tolist()
+    cuts = [c for c in cuts if c < plan.rowmap.numel()] + \
+        [plan.rowmap.numel()]
+    chunks = []
+    for r0, r1 in zip(cuts, cuts[1:]):
+        e0, e1 = int(off[r0]), int(off[r1])
+        chunks.append(SimpleNamespace(
+            nbrs=plan.nbrs[e0:e1], num_nodes=n,
+            edge_rows=torch.repeat_interleave(
+                plan.rowmap[r0:r1].to(torch.int64), off[r0 + 1:r1 + 1]
+                - off[r0:r1])))
+
+    def plain_pull(c):
+        total = torch.zeros(n, dtype=torch.float32, device=dev)
+        for chunk in chunks:  # each row whole in one chunk: exact sums
+            total += gather.pull_sums_plain(chunk, c)
+        return total
+
+    got = gather.pull_sums(plan, contrib).clone()
+    ref = plain_pull(contrib)
+    ulp = core.ulp_distance(got.cpu().numpy(), ref.cpu().numpy())
+    pull_ulp, pull_off = int(ulp.max()), float((ulp > 0).mean())
+    if pull_ulp > 1:
+        fail(f"pull_sums: {pull_ulp} ULP from the plain pull")
+    base = 0.15 / n
+    runs = {}
+    for name, fn in (("kernel", lambda *a: gather.pull_update(plan, *a)),
+                     ("plain", gather.pull_update_plain)):
+        s, c = score.clone(), torch.empty_like(score)
+        runs[name] = (fn(got, g.deg, s, c, base, 0.85), s, c)
+    upd_ulp = max(int(core.ulp_distance(runs["kernel"][i].cpu().numpy(),
+                                        runs["plain"][i].cpu().numpy()).max())
+                  for i in (1, 2))
+    err_k, err_p = float(runs["kernel"][0]), float(runs["plain"][0])
+    if upd_ulp > 1 or abs(err_k - err_p) > 1e-9 * abs(err_p):
+        fail(f"pull_update: {upd_ulp} ULP from the plain update, change "
+             f"{err_k} against {err_p}")
+    del runs, got, ref
+
+    # times by CUDA events, and the sweep's least time
+    s, c = score.clone(), contrib.clone()
+    pull_ms = core.time_fn(lambda x: gather.pull_sums(plan, x), contrib,
+                           warmup=1, iters=5)
+    plain_ms = core.time_fn(plain_pull, contrib, warmup=1, iters=3)
+    update_ms = core.time_fn(lambda x: gather.pull_update(
+        plan, plan.sums, g.deg, x, c, base, 0.85), s, warmup=1, iters=5)
+    update_plain_ms = core.time_fn(lambda x: gather.pull_update_plain(
+        plan.sums, g.deg, x, c, base, 0.85), s, warmup=1, iters=5)
+    b_ms, b_by = roofline.bound_ms(roofline.pagerank_pull_cost(n, e), peak,
+                                   torch.float32)
+    rows.update(pull_ms=pull_ms, update_ms=update_ms,
+                sweep_bound_ms=b_ms, sweep_bound_by=b_by,
+                sweep_roofline_pct=100.0 * b_ms / (pull_ms + update_ms))
+    print(f"pagerank kron scale {PR_SCALE}: {n} nodes, {e} directed "
+          f"entries, longest row {longest} ({rows['longest_row_tiles']:.0f} "
+          f"tiles), draw {draw_s:.2f} s, build {build_s:.2f} s (peak "
+          f"{g.build_peak_bytes} B, graph {g.nbytes} B); {sweeps} sweeps, "
+          f"residual {residual:.3e}; pull {pull_ms:.3f} ms (plain "
+          f"{plain_ms:.3f}, {pull_ulp} ULP, {pull_off:.2e} of rows off), "
+          f"update {update_ms:.3f} ms (plain {update_plain_ms:.3f}, "
+          f"{upd_ulp} ULP); the sweep's bound {b_ms:.3f} ms by {b_by}")
+    unit = (f"ms per sweep, kron scale {PR_SCALE} ({n} nodes, {e} entries) "
+            f"f32; bound_ms is the whole sweep's (pull + update, "
+            f"core/roofline.pagerank_pull_cost)")
+    kernels = [
+        {"name": f"segmented_scan ({name})", "route": "cuda",
+         "source": "cme213_tpu_torch/csrc/segmented_scan.cu",
+         "replaces": None, "replaces_note": "no TPU kernel: the JAX "
+         "package's PageRank runs hw1's slot layout only",
+         "launches": paths[label][name], "main_path": label,
+         "launches_by_path": {p: seen[name] for p, seen in paths.items()
+                              if seen.get(name)},
+         "max_ulp": ulp_, "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": None, "library_note": note,
+         "unit": unit}
+        for name, ulp_, ms, p_ms, note in (
+            ("pr_pull", pull_ulp, pull_ms, plain_ms, NO_LIBRARY),
+            ("pr_update", upd_ulp, update_ms, update_plain_ms,
+             "elementwise: its plain version is torch's (plain_ms)"))]
+    rows["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 34: {rows['seconds']:.1f} s")
+    del plan, chunks, contrib, score, s, c
+    g.layout = None
+    torch.cuda.empty_cache()
+    return rows, kernels
+
+
 #: the groups of phases ``--only`` selects, in the order a run takes them
 GROUPS = {"kernels": range(1, 17), "guarded": range(17, 28),
           "tooling": range(28, 30), "gang": range(30, 31),
           "serving": range(31, 32), "fleet": range(32, 33),
-          "multicard": range(33, 34)}
+          "multicard": range(33, 34), "pagerank": range(34, 35)}
 #: what a group takes from phases 1-16, made for it when they do not run:
 #: pwtk and its f64 plain solve (phase 8), phase 10's hw5 set-up, B1's
 #: 4000² time (phase 4), the headline lines (16), the sweeps' CSVs (14)
 NEEDS = {"kernels": set(), "guarded": {"pwtk", "dist", "b1"},
          "tooling": {"pwtk", "headline", "sweeps"},
          "gang": {"pwtk", "dist"}, "serving": {"pwtk"}, "fleet": set(),
-         "multicard": {"pwtk"}}
+         "multicard": {"pwtk"}, "pagerank": set()}
 #: host-clock seconds of each phase that ran, in order ("set-up": what a
 #: group run alone makes for itself)
 PHASE_SECONDS: dict[str, float] = {}
@@ -5281,6 +5459,12 @@ def main(argv=None) -> int:
         phase(33)
         lines["multicard"] = multicard_phase(counted, only, paths, work,
                                              ident, prob, ref64)
+
+    # ---------------------------------------------------- 34. GAP pr on kron
+    pr_kernels = []
+    if "pagerank" in groups:
+        phase(34)
+        lines["pagerank"], pr_kernels = pagerank_phase(counted, paths, peak)
     phase(None)
 
     # ---------------------------------------------------- summary lines
@@ -5404,6 +5588,8 @@ def main(argv=None) -> int:
             row["segmented_scan (spmv_fused)"]["guarded"] = spmv_guarded
         if "gang" in groups:
             row["heat_ksteps (local)"]["gang"] = gang["a"]["ranks"]
+    if pr_kernels:
+        kernels = (kernels or []) + pr_kernels
     for name, value in lines.items():
         print(json.dumps({name: value, "card": ident} if name == "gang"
                          else {name: value}))

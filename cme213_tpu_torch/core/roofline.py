@@ -187,6 +187,18 @@ def pagerank_cost(num_nodes: int, num_edges: int, iters: int) -> Cost:
                 (2 * num_edges + 2 * num_nodes) * iters)
 
 
+def pagerank_pull_cost(num_nodes: int, num_edges: int,
+                      sweeps: int = 1) -> Cost:
+    """GAP ``pr`` by the pull (``apps/pagerank.solve_to_tolerance``), a
+    sweep: each of the ``num_edges`` directed slots reads its 4 B
+    neighbour id once, the int64 offsets are read once, and each vertex's
+    contribution is read once, its int32 degree read, its score read and
+    written — ``4e + 8(n+1) + 16n`` bytes, however the pull is
+    implemented; one add a slot."""
+    return Cost((4 * num_edges + 8 * (num_nodes + 1) + 16 * num_nodes)
+                * sweeps, num_edges * sweeps)
+
+
 def cipher_cost(length: int, iters: int = 1) -> Cost:
     """hw1 shift cipher: read and write one byte a character (the packed
     variants move the same useful bytes, hence one count for all three);

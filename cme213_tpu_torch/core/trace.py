@@ -602,13 +602,16 @@ class SpanHandle:
     (``cudaEventSynchronize`` before ``stop_timer``).  ``.roofline(nbytes,
     flops)`` declares the op's cost-model traffic so the ``span-end``
     record carries ``achieved_gbs``/``pct_peak``/``bound`` computed from
-    the measured duration (``core/roofline.py``)."""
+    the measured duration (``core/roofline.py``); ``.tag(**tags)`` adds
+    tags known only at the end (a count of sweeps) to the ``span-end``
+    record."""
 
-    __slots__ = ("_blocked", "_roofline")
+    __slots__ = ("_blocked", "_roofline", "_end_tags")
 
     def __init__(self) -> None:
         self._blocked: list = []
         self._roofline: tuple | None = None
+        self._end_tags: dict = {}
 
     def block(self, *tensors) -> None:
         for t in tensors:
@@ -618,6 +621,9 @@ class SpanHandle:
         """Declare this span's useful traffic (bytes moved, flops) so its
         end record gains roofline attribution once the duration is known."""
         self._roofline = (float(nbytes), float(flops))
+
+    def tag(self, **tags) -> None:
+        self._end_tags.update(tags)
 
 
 def current_span_id() -> str | None:
@@ -799,7 +805,8 @@ def span(name: str, **tags):
         if mirror is not None:
             mirror.__exit__(None, None, None)
         _SPAN_STACK.reset(token)
-        end = dict(span=name, id=sid, parent=parent, ms=ms, **tags)
+        end = dict(span=name, id=sid, parent=parent, ms=ms,
+                   **{**tags, **handle._end_tags})
         if err is not None:
             end["error"] = err
         if handle._roofline is not None and err is None and ms > 0:

@@ -81,6 +81,12 @@
 // (out == v): tile t's elements are read and written by tile t's block
 // only.
 //
+// PageRank's pull (pagerank_pull_f32) is a third use of the look-back: a
+// segmented sum over the CSR's neighbour slots whose load gathers
+// contrib[nbr], in float64, writing only each row's total; the per-vertex
+// update after it (pagerank_update_f32) is an ordinary grid-stride kernel.
+// Their note is before their code, below B6/B7's, which they do not touch.
+//
 // Host interface: plain C, loaded with ctypes by ops/_kernels.py.  One call
 // enqueues the one launch of one scan on the given stream, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -497,6 +503,427 @@ int segmented_scan_f32(const void* v, const void* xx, const void* flags,
 
 const char* segmented_scan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ pull
+//
+// out[row] = sum over the row's slots i of contrib[nbrs[i]], for every
+// non-empty row of a CSR graph (GAP pr_spmv's incoming_total), in float64.
+//
+// Load balance.  A tile is kPullTile consecutive slots, whatever rows they
+// hold, so a hub of 10^6 neighbours spans hundreds of tiles and a tile may
+// hold a thousand short rows: the work is balanced over slots, not rows.
+// The rows run over the slots as segments, so a row's total is the value
+// of the inclusive segmented scan at the row's last slot, and the scan's
+// carry across tiles is B6's: the same single-pass look-back, tickets and
+// fold, on float64 summaries.  Only the row ends are stored.
+//
+// Rows.  The caller compacts the empty rows away (off: the offsets of the
+// R non-empty rows, int64, R + 1 of them; rowmap: each one's vertex) and
+// gives tile_row[t], the compacted row holding slot t * kPullTile (and
+// tile_row[ntiles] = R - 1).  A tile's rows are tile_row[t] ..
+// tile_row[t + 1], at most kPullTile + 1 of them; their offsets go to
+// shared memory in one coalesced read, and each thread finds the row of its
+// first slot by a binary search there.  A slot is a head where a row
+// starts, and a row end where the next row starts, so no per-slot flag is
+// read: a sweep reads 4 bytes a slot (its neighbour id), the gathered
+// contribution, and 12 bytes a row.
+//
+// Status words.  A float64 summary does not fit B6's word beside its
+// state, so a tile has two: the value's high and low 32 bits, each beside
+// the same state bits and epoch as B6's word.  A reader takes the pair only
+// when both halves carry the call's epoch and the same state, so it never
+// pairs a half of a tile's aggregate with a half of its inclusive prefix;
+// otherwise it reads again.  A tile whose first slot is a head publishes
+// its prefix at once (it needs no carry); any other publishes its
+// aggregate, looks back, then publishes its prefix.
+//
+// Rounding.  Every add is __dadd_rn in the fixed order of the
+// decomposition (thread, warp, tile, the serial fold of tile summaries), so
+// the totals do not depend on which block took which tile; each is rounded
+// to float32 once, when stored.  The update rounds score = base + d * sum
+// to float32 once, sums |score - old| in float64 per block and then over
+// the blocks in block order (the last block to finish), and writes
+// contrib = score / degree (0 for an isolated vertex).
+
+namespace {
+
+constexpr int kPullThreads = 256;
+constexpr int kPullItems = 8;
+constexpr int kPullTile = kPullThreads * kPullItems;
+constexpr int kPullWarps = kPullThreads / kWarp;
+constexpr int kUpdateThreads = 256;
+constexpr int kUpdateMaxBlocks = 1024;
+
+static_assert(kPullItems % 4 == 0, "the vector loads move 4 ids each");
+static_assert(kPullWarps <= kWarp, "warp 0 scans the warp summaries");
+
+__device__ __forceinline__ void warp_scan_f64(double& v, int& f, int lane) {
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const double pv = __shfl_up_sync(kFullMask, v, d);
+    const int pf = __shfl_up_sync(kFullMask, f, d);
+    if (lane >= d) {
+      v = f ? v : __dadd_rn(pv, v);
+      f |= pf;
+    }
+  }
+}
+
+__device__ __forceinline__ void publish_f64(unsigned long long* status,
+                                            int t, double v, int head,
+                                            unsigned long long state,
+                                            unsigned long long mark) {
+  const unsigned long long bits =
+      static_cast<unsigned long long>(__double_as_longlong(v));
+  const unsigned long long tag = state | (head ? kHead : 0ull) | mark;
+  store_status(status + 2 * t, (bits >> 32) | tag);
+  store_status(status + 2 * t + 1, (bits & 0xffffffffull) | tag);
+}
+
+// the pair of tile i: true once both halves carry mark and one state
+__device__ __forceinline__ bool read_f64(const unsigned long long* status,
+                                         int i, unsigned long long mark,
+                                         double& v, int& stop) {
+  const unsigned long long hi = load_status(status + 2 * i);
+  const unsigned long long lo = load_status(status + 2 * i + 1);
+  v = __longlong_as_double(static_cast<long long>(
+      (hi << 32) | (lo & 0xffffffffull)));
+  stop = (hi & (kInclusive | kHead)) != 0;
+  return (hi & kEpochMask) == mark && (lo & kEpochMask) == mark &&
+         ((hi ^ lo) & (kInclusive | kHead)) == 0;
+}
+
+__device__ __forceinline__ double fold_window_f64(double v, int stop,
+                                                  double e, int hi) {
+#pragma unroll
+  for (int l = kWarp - 1; l >= 0; --l) {
+    const double vl = __shfl_sync(kFullMask, v, l);
+    const int sl = __shfl_sync(kFullMask, stop, l);
+    if (l <= hi) e = sl ? vl : __dadd_rn(e, vl);
+  }
+  return e;
+}
+
+// look_back on the float64 pairs; called by all of warp 0
+__device__ double look_back_f64(const unsigned long long* status, int t,
+                                unsigned long long mark, int lane) {
+  int top = t - 1;
+  double v = 0.0;
+  int stop = 1;
+  unsigned stops;
+  for (;;) {
+    unsigned pending;
+    do {
+      const int i = top - lane;
+      bool ready = true;
+      if (i >= 0) {
+        ready = read_f64(status, i, mark, v, stop);
+      } else {
+        v = 0.0;
+        stop = 1;
+      }
+      stops = __ballot_sync(kFullMask, ready && stop);
+      const unsigned upto =
+          stops ? ((stops & (0u - stops)) << 1) - 1u : kFullMask;
+      pending = __ballot_sync(kFullMask, !ready) & upto;
+    } while (pending);
+    if (stops) break;
+    top -= kWarp;
+  }
+  double e = fold_window_f64(v, stop, 0.0, __ffs(stops) - 1);
+  while (top < t - 1) {
+    top += kWarp;
+    // every pair here was seen published; one caught between its
+    // aggregate and its prefix is read again
+    bool torn;
+    do {
+      torn = !read_f64(status, top - lane, mark, v, stop);
+    } while (__any_sync(kFullMask, torn));
+    e = fold_window_f64(v, stop, e, kWarp - 1);
+  }
+  return e;
+}
+
+__global__ void __launch_bounds__(kPullThreads)
+    pull_tiles(const int* __restrict__ nbrs, const float* __restrict__ contrib,
+               const long long* __restrict__ off,
+               const int* __restrict__ rowmap,
+               const int* __restrict__ tile_row, long long nnz, int ntiles,
+               unsigned* __restrict__ counters, unsigned long long* status,
+               unsigned long long mark, float* __restrict__ sums) {
+  __shared__ long long off_s[kPullTile + 2];
+  __shared__ double wv_s[kPullWarps];
+  __shared__ int wf_s[kPullWarps];
+  __shared__ int tile_s;
+  __shared__ double carry_s;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const bool vec = (reinterpret_cast<uintptr_t>(nbrs) & 15u) == 0;
+  for (;;) {
+    if (tid == 0) tile_s = static_cast<int>(atomicAdd(counters, 1u));
+    __syncthreads();
+    const int t = tile_s;
+    if (t >= ntiles) break;
+    const long long e0 = static_cast<long long>(t) * kPullTile;
+    const long long e1 = e0 + kPullTile < nnz ? e0 + kPullTile : nnz;
+    const int r0 = tile_row[t];
+    const int cnt = tile_row[t + 1] - r0 + 2;
+    for (int k = tid; k < cnt; k += kPullThreads) off_s[k] = off[r0 + k];
+    __syncthreads();
+    const long long base = e0 + static_cast<long long>(tid) * kPullItems;
+    int ids[kPullItems];
+    if (vec && base + kPullItems <= e1) {
+#pragma unroll
+      for (int h = 0; h < kPullItems / 4; ++h) {
+        const int4 q = reinterpret_cast<const int4*>(nbrs + base)[h];
+        ids[4 * h + 0] = q.x;
+        ids[4 * h + 1] = q.y;
+        ids[4 * h + 2] = q.z;
+        ids[4 * h + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPullItems; ++j)
+        ids[j] = base + j < e1 ? nbrs[base + j] : -1;
+    }
+    float x[kPullItems];
+#pragma unroll
+    for (int j = 0; j < kPullItems; ++j)
+      x[j] = ids[j] >= 0 ? contrib[ids[j]] : 0.0f;
+    // the row of the first slot: the last k with off_s[k] <= base
+    int k = 0;
+    if (base < e1) {
+      int hi = cnt - 1;
+      while (hi - k > 1) {
+        const int mid = (k + hi) / 2;
+        if (off_s[mid] <= base)
+          k = mid;
+        else
+          hi = mid;
+      }
+    }
+    double loc[kPullItems];
+    int rk[kPullItems];
+    unsigned seen = 0, ends = 0;
+    int any = 0;
+#pragma unroll
+    for (int j = 0; j < kPullItems; ++j) {
+      const long long i = base + j;
+      const bool in = i < e1;
+      if (in && j > 0 && off_s[k + 1] <= i) ++k;
+      const int head = in && off_s[k] == i;
+      const double w = static_cast<double>(x[j]);
+      loc[j] = (j == 0 || head) ? w : __dadd_rn(loc[j - 1], w);
+      any |= head;
+      seen |= static_cast<unsigned>(any) << j;
+      if (in && off_s[k + 1] == i + 1) ends |= 1u << j;
+      rk[j] = k;
+    }
+    double tv = loc[kPullItems - 1];
+    int tf = any;
+    warp_scan_f64(tv, tf, lane);
+    const double xv = __shfl_up_sync(kFullMask, tv, 1);
+    const int xf = __shfl_up_sync(kFullMask, tf, 1);
+    if (lane == kWarp - 1) {
+      wv_s[warp] = tv;
+      wf_s[warp] = tf;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      double sv = lane < kPullWarps ? wv_s[lane] : 0.0;
+      int sf = lane < kPullWarps ? wf_s[lane] : 0;
+      warp_scan_f64(sv, sf, lane);
+      if (lane < kPullWarps) {
+        wv_s[lane] = sv;
+        wf_s[lane] = sf;
+      }
+      const double av = __shfl_sync(kFullMask, sv, kPullWarps - 1);
+      const int af = __shfl_sync(kFullMask, sf, kPullWarps - 1);
+      double e = 0.0;
+      if (off_s[0] == e0) {  // a row starts the tile: no carry in
+        if (lane == 0) publish_f64(status, t, av, 1, kInclusive, mark);
+      } else {
+        if (lane == 0) publish_f64(status, t, av, af, 0ull, mark);
+        e = look_back_f64(status, t, mark, lane);
+        if (lane == 0)
+          publish_f64(status, t, af ? av : __dadd_rn(e, av), af, kInclusive,
+                      mark);
+      }
+      if (lane == 0) carry_s = e;
+    }
+    __syncthreads();
+    if (ends) {
+      const double carry = carry_s;
+      const double win =
+          warp == 0 ? carry
+                    : (wf_s[warp - 1] ? wv_s[warp - 1]
+                                      : __dadd_rn(carry, wv_s[warp - 1]));
+      const double tin = lane == 0 ? win : (xf ? xv : __dadd_rn(win, xv));
+#pragma unroll
+      for (int j = 0; j < kPullItems; ++j)
+        if ((ends >> j) & 1u)
+          sums[rowmap[r0 + rk[j]]] = __double2float_rn(
+              (seen >> j) & 1u ? loc[j] : __dadd_rn(tin, loc[j]));
+    }
+    __syncthreads();  // off_s, the summaries and tile_s are reused
+  }
+  if (tid == 0 && atomicAdd(counters + 1, 1u) == gridDim.x - 1) {
+    counters[0] = 0;
+    counters[1] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kUpdateThreads)
+    update_scores(const float* __restrict__ sums,
+                  const int* __restrict__ deg, float* score, float* contrib,
+                  long long n, double base, double damp, double* partials,
+                  unsigned* counter, double* err) {
+  __shared__ double red_s[kUpdateThreads / kWarp];
+  __shared__ bool last_s;
+  double acc = 0.0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       v < n; v += stride) {
+    const float s = __double2float_rn(
+        __dadd_rn(base, __dmul_rn(damp, static_cast<double>(sums[v]))));
+    const float old = score[v];
+    acc = __dadd_rn(acc, fabs(__dsub_rn(static_cast<double>(s),
+                                        static_cast<double>(old))));
+    score[v] = s;
+    const int d = deg[v];
+    contrib[v] = d > 0 ? __fdiv_rn(s, static_cast<float>(d)) : 0.0f;
+  }
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+#pragma unroll
+  for (int d = kWarp / 2; d > 0; d >>= 1)
+    acc = __dadd_rn(acc, __shfl_down_sync(kFullMask, acc, d));
+  if (lane == 0) red_s[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double b = 0.0;
+    for (int w = 0; w < kUpdateThreads / kWarp; ++w)
+      b = __dadd_rn(b, red_s[w]);
+    partials[blockIdx.x] = b;
+    __threadfence();
+    last_s = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last_s) {  // the whole last block sums the partials in a fixed order
+    __threadfence();
+    const volatile double* p = partials;
+    double b = 0.0;
+    for (unsigned i = threadIdx.x; i < gridDim.x; i += blockDim.x)
+      b = __dadd_rn(b, p[i]);
+#pragma unroll
+    for (int d = kWarp / 2; d > 0; d >>= 1)
+      b = __dadd_rn(b, __shfl_down_sync(kFullMask, b, d));
+    if (lane == 0) red_s[warp] = b;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double total = 0.0;
+      for (int w = 0; w < kUpdateThreads / kWarp; ++w)
+        total = __dadd_rn(total, red_s[w]);
+      *err = total;
+      *counter = 0;
+    }
+  }
+}
+
+int pull_resident_blocks() {
+  static int cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, pull_tiles, kPullThreads, 0) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    cached[dev] = per_sm * sms;
+  }
+  return cached[dev];
+}
+
+}  // namespace
+
+extern "C" {
+
+// slots per thread, threads per tile, the update's most blocks (its
+// partials buffer holds that many doubles)
+void pagerank_pull_geometry(int* out3) {
+  out3[0] = kPullItems;
+  out3[1] = kPullThreads;
+  out3[2] = kUpdateMaxBlocks;
+}
+
+// sums[rowmap[r]] = sum of contrib[nbrs[i]] over off[r] <= i < off[r + 1],
+// for r < rows (each row non-empty), rounded to float32 once.  nbrs: nnz
+// int32 ids; off: rows + 1 int64 offsets, off[0] = 0, off[rows] = nnz;
+// tile_row: ntiles + 1 int32, ntiles = ceil(nnz / tile), tile_row[t] the
+// row holding slot t * tile, tile_row[ntiles] = rows - 1.  workspace: 8-byte
+// aligned, workspace_words >= 2 + 4 * ntiles 32-bit words, zero before its
+// first call; epoch as segmented_scan_f32's.
+int pagerank_pull_f32(const void* nbrs, const void* contrib, const void* off,
+                      const void* rowmap, const void* tile_row, void* sums,
+                      long long nnz, long long rows, void* workspace,
+                      long long workspace_words, unsigned epoch,
+                      void* stream) {
+  if (nnz < 1 || rows < 1 || nbrs == nullptr || contrib == nullptr ||
+      off == nullptr || rowmap == nullptr || tile_row == nullptr ||
+      sums == nullptr || workspace == nullptr || epoch < 1 ||
+      epoch > kMaxEpoch || (reinterpret_cast<uintptr_t>(workspace) & 7u) != 0)
+    return cudaErrorInvalidValue;
+  const long long nt = (nnz + kPullTile - 1) / kPullTile;
+  if (nt > 0x7fffffffLL || rows > 0x7fffffffLL ||
+      workspace_words < 2 + 4 * nt)
+    return cudaErrorInvalidValue;
+  const int resident = pull_resident_blocks();
+  if (resident < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
+  }
+  const int ntiles = static_cast<int>(nt);
+  const int grid = resident < ntiles ? resident : ntiles;
+  pull_tiles<<<grid, kPullThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(nbrs), static_cast<const float*>(contrib),
+      static_cast<const long long*>(off), static_cast<const int*>(rowmap),
+      static_cast<const int*>(tile_row), nnz, ntiles,
+      static_cast<unsigned*>(workspace),
+      static_cast<unsigned long long*>(workspace) + 1,
+      static_cast<unsigned long long>(epoch) << kEpochShift,
+      static_cast<float*>(sums));
+  return cudaGetLastError();
+}
+
+// score = float32(base + damp * sums); *err = sum of |score - old| in
+// float64; contrib = score / deg (0 where deg is 0).  partials: at least
+// min(ceil(n / 256), 1024) doubles; counter: one 32-bit word, zero before
+// the first call (the last block resets it).
+int pagerank_update_f32(const void* sums, const void* deg, void* score,
+                        void* contrib, long long n, double base, double damp,
+                        void* partials, void* counter, void* err,
+                        void* stream) {
+  if (n < 1 || sums == nullptr || deg == nullptr || score == nullptr ||
+      contrib == nullptr || partials == nullptr || counter == nullptr ||
+      err == nullptr)
+    return cudaErrorInvalidValue;
+  const long long want = (n + kUpdateThreads - 1) / kUpdateThreads;
+  const int grid =
+      static_cast<int>(want < kUpdateMaxBlocks ? want : kUpdateMaxBlocks);
+  update_scores<<<grid, kUpdateThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sums), static_cast<const int*>(deg),
+      static_cast<float*>(score), static_cast<float*>(contrib), n, base, damp,
+      static_cast<double*>(partials), static_cast<unsigned*>(counter),
+      static_cast<double*>(err));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -29,7 +29,11 @@ def _cipher(argv: list[str]) -> int:
 def _pagerank(argv: list[str]) -> int:
     from .apps import pagerank
 
-    known = ("num_nodes", "avg_edges", "iterations", "seed", "device")
+    known = ("num_nodes", "avg_edges", "iterations", "seed", "device",
+             "graph", "scale", "edge_factor", "damping", "tolerance",
+             "max_iters")
+    kind = {"device": str, "graph": str, "damping": float,
+            "tolerance": float}
     kwargs: dict = {}
     for a in argv:
         if not (a.startswith("--") and "=" in a):
@@ -42,7 +46,7 @@ def _pagerank(argv: list[str]) -> int:
         if key not in known:
             print(f"pagerank: unknown option --{key}", file=sys.stderr)
             return 2
-        kwargs[key] = value if key == "device" else int(value)
+        kwargs[key] = kind.get(key, int)(value)
     return 0 if pagerank.main(**kwargs) else 1
 
 

@@ -105,7 +105,8 @@ def _record_launches() -> None:
                    stencil_pipeline, transpose)
 
     for counts in (stencil_pipeline.LAUNCHES, segmented_pallas.LAUNCHES,
-                   stencil_pallas.LAUNCHES, transpose.LAUNCHES):
+                   segmented_pallas.PULL_LAUNCHES, stencil_pallas.LAUNCHES,
+                   transpose.LAUNCHES):
         for name, n in counts.items():
             if n:
                 metrics.counter(f"kernel.launches.{name}").inc(n)

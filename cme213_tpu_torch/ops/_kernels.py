@@ -164,6 +164,17 @@ def _bind_segmented_scan(lib: ctypes.CDLL) -> None:
                                  ctypes.c_longlong, ctypes.c_uint,
                                  ctypes.c_void_p])
     lib.segmented_scan_f32.restype = ctypes.c_int
+    lib.pagerank_pull_geometry.argtypes = [ctypes.c_void_p]
+    lib.pagerank_pull_geometry.restype = None
+    lib.pagerank_pull_f32.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_uint, ctypes.c_void_p])
+    lib.pagerank_pull_f32.restype = ctypes.c_int
+    lib.pagerank_update_f32.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_double,
+                                 ctypes.c_double] + [ctypes.c_void_p] * 4)
+    lib.pagerank_update_f32.restype = ctypes.c_int
     lib.segmented_scan_error_string.argtypes = [ctypes.c_int]
     lib.segmented_scan_error_string.restype = ctypes.c_char_p
 
@@ -437,6 +448,104 @@ def segmented_scan(values: torch.Tensor, xx: torch.Tensor | None,
             f"{lib.segmented_scan_error_string(err).decode()} (cudaError "
             f"{err}; n={n} fused={xx is not None} "
             f"workspace={workspace.shape[0]} words, epoch {epoch})")
+
+
+def pagerank_pull_geometry() -> tuple[int, int, int]:
+    """(slots per thread, threads per tile, the update's most blocks) as
+    compiled into ``csrc/segmented_scan.cu``."""
+    buf = (ctypes.c_int * 3)()
+    library("segmented_scan").pagerank_pull_geometry(buf)
+    return tuple(buf)
+
+
+def _one_cuda_device(what: str, tensors) -> torch.device:
+    device = tensors[0].device
+    if not all(t.is_cuda and t.device == device for t in tensors):
+        raise ValueError(f"{what} takes tensors on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} takes contiguous tensors")
+    return device
+
+
+def _raise_on(err: int, what: str, detail: str) -> None:
+    if err != 0:
+        lib = library("segmented_scan")
+        raise KernelError(
+            f"{what} launch failed: "
+            f"{lib.segmented_scan_error_string(err).decode()} (cudaError "
+            f"{err}; {detail})")
+
+
+def pagerank_pull(nbrs: torch.Tensor, contrib: torch.Tensor,
+                  off: torch.Tensor, rowmap: torch.Tensor,
+                  tile_row: torch.Tensor, sums: torch.Tensor,
+                  workspace: torch.Tensor, epoch: int) -> None:
+    """Enqueue the one launch of ``csrc/segmented_scan.cu``'s pull on the
+    current stream: ``sums[rowmap[r]] = Σ contrib[nbrs[i]]`` over each
+    compacted row ``r``'s slots ``off[r] ≤ i < off[r+1]``.
+
+    int32 ``nbrs`` (nnz ≥ 1), float32 ``contrib`` and ``sums``, int64
+    ``off`` (rows + 1), int32 ``rowmap`` (rows) and ``tile_row`` (tiles +
+    1), a 32-bit ``workspace`` of at least 2 + 4 words a tile, zero before
+    its first call, and an ``epoch`` new to it, as ``segmented_scan``'s.
+    Raises ``KernelError`` when the call or the launch is refused."""
+    tensors = [nbrs, contrib, off, rowmap, tile_row, sums, workspace]
+    device = _one_cuda_device("pagerank_pull", tensors)
+    if (nbrs.dtype, contrib.dtype, off.dtype, rowmap.dtype, tile_row.dtype,
+            sums.dtype) != (torch.int32, torch.float32, torch.int64,
+                            torch.int32, torch.int32, torch.float32) \
+            or workspace.element_size() != 4:
+        raise TypeError("pagerank_pull takes int32 nbrs, rowmap and "
+                        "tile_row, float32 contrib and sums, int64 off and "
+                        "a 32-bit workspace")
+    rows = rowmap.shape[0]
+    if off.shape[0] != rows + 1:
+        raise ValueError("pagerank_pull takes rows + 1 offsets")
+    lib = library("segmented_scan")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with contextlib.nullcontext() if device.index == \
+            torch.cuda.current_device() else torch.cuda.device(device.index):
+        err = lib.pagerank_pull_f32(
+            nbrs.data_ptr(), contrib.data_ptr(), off.data_ptr(),
+            rowmap.data_ptr(), tile_row.data_ptr(), sums.data_ptr(),
+            nbrs.shape[0], rows, workspace.data_ptr(), workspace.shape[0],
+            epoch, stream)
+    _raise_on(err, "pagerank_pull", f"nnz={nbrs.shape[0]} rows={rows} "
+              f"workspace={workspace.shape[0]} words, epoch {epoch}")
+
+
+def pagerank_update(sums: torch.Tensor, deg: torch.Tensor,
+                    score: torch.Tensor, contrib: torch.Tensor, base: float,
+                    damping: float, partials: torch.Tensor,
+                    counter: torch.Tensor, err: torch.Tensor) -> None:
+    """Enqueue the one launch of ``csrc/segmented_scan.cu``'s per-vertex
+    update on the current stream: ``score = float32(base + damping·sums)``,
+    ``err[0] = Σ |score − old score|`` in float64, ``contrib = score /
+    deg`` (0 where ``deg`` is 0).  float32 ``sums``, ``score`` and
+    ``contrib``, int32 ``deg``, float64 ``partials`` (the geometry's most
+    blocks) and ``err``, an int32 ``counter`` zero before the first call.
+    Raises ``KernelError`` when the call or the launch is refused."""
+    tensors = [sums, deg, score, contrib, partials, counter, err]
+    device = _one_cuda_device("pagerank_update", tensors)
+    if (sums.dtype, deg.dtype, score.dtype, contrib.dtype, partials.dtype,
+            counter.dtype, err.dtype) != (
+            torch.float32, torch.int32, torch.float32, torch.float32,
+            torch.float64, torch.int32, torch.float64):
+        raise TypeError("pagerank_update takes float32 sums, score and "
+                        "contrib, int32 deg and counter, float64 partials "
+                        "and err")
+    n = score.shape[0]
+    if any(t.shape[0] != n for t in (sums, deg, contrib)):
+        raise ValueError("pagerank_update takes vectors of one length")
+    lib = library("segmented_scan")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with contextlib.nullcontext() if device.index == \
+            torch.cuda.current_device() else torch.cuda.device(device.index):
+        rc = lib.pagerank_update_f32(
+            sums.data_ptr(), deg.data_ptr(), score.data_ptr(),
+            contrib.data_ptr(), n, float(base), float(damping),
+            partials.data_ptr(), counter.data_ptr(), err.data_ptr(), stream)
+    _raise_on(rc, "pagerank_update", f"n={n}")
 
 
 def heat_band_launchers(pairs, *, order: int, k: int, tile_y: int,

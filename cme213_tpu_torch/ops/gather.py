@@ -137,12 +137,8 @@ def pagerank_plan(row_ids: torch.Tensor, edges: torch.Tensor,
 
 
 def _propagate(plan: PageRankPlan, rank: torch.Tensor) -> torch.Tensor:
-    c = rank.index_select(0, plan.src.view(-1)).view(plan.src.shape) \
-        * plan.weight
-    sums = fold(plan.segments, c)
     # 0.5/n rounded in float32 first, as the reference and the golden
-    base = float(np.float32(0.5) / np.float32(plan.num_nodes))
-    return base + 0.5 * sums
+    return slot_sweep(plan, rank, 0.5)
 
 
 def pagerank_propagate(row_ids, edges, rank_in, inv_deg, num_nodes: int,
@@ -167,3 +163,117 @@ def pagerank_iterate(row_ids, edges, rank0, inv_deg, num_nodes: int,
     for _ in range(nr_iterations):
         rank = _propagate(plan, rank)
     return rank
+
+
+# ------------------------------------------------------- the pull (GAP pr)
+
+@dataclass
+class PullPlan:
+    """A CSR graph laid out for :func:`pull_sums`, once a graph.
+
+    The empty rows are compacted away: ``off`` (int64) holds the offsets of
+    the ``rows`` non-empty rows and ``rowmap`` (int32) the vertex of each,
+    so a row's total lands at ``sums[rowmap[r]]`` and an isolated vertex's
+    stays 0.  ``tile_row`` (int32) is the compacted row holding the first
+    slot of each kernel tile; on the card ``workspace`` holds the
+    look-back's ticket and status words with their last ``epoch`` and
+    ``update`` the update's buffers, on the CPU ``edge_rows`` (int64) each
+    slot's vertex."""
+
+    nbrs: torch.Tensor
+    off: torch.Tensor
+    rowmap: torch.Tensor
+    sums: torch.Tensor
+    num_nodes: int
+    tile_row: torch.Tensor | None = None
+    edge_rows: torch.Tensor | None = None
+    workspace: torch.Tensor | None = None
+    epoch: int = 0
+    update: tuple | None = None
+
+
+def pull_plan(offsets: torch.Tensor, nbrs: torch.Tensor,
+              num_nodes: int) -> PullPlan:
+    """Lay out the CSR graph (``offsets`` n + 1 int64, ``nbrs`` int32) for
+    :func:`pull_sums`."""
+    from . import segmented_pallas as segp
+
+    dev = nbrs.device
+    offsets = offsets.to(torch.int64)
+    deg = offsets[1:] - offsets[:-1]
+    rowmap = torch.nonzero(deg > 0).flatten()
+    off = torch.cat([offsets[:-1][rowmap], offsets[-1:]])
+    sums = torch.zeros(num_nodes, dtype=torch.float32, device=dev)
+    plan = PullPlan(nbrs, off, rowmap.to(torch.int32), sums, num_nodes)
+    if rowmap.numel():
+        starts = torch.arange(0, nbrs.shape[0], segp.PULL_TILE,
+                              dtype=torch.int64, device=dev)
+        first = torch.searchsorted(off, starts, right=True) - 1
+        plan.tile_row = torch.cat([first, first.new_full(
+            (1,), rowmap.numel() - 1)]).to(torch.int32)
+    if dev.type == "cpu":
+        plan.edge_rows = torch.repeat_interleave(rowmap, deg[rowmap])
+    return plan
+
+
+def pull_sums_plain(plan: PullPlan, contrib: torch.Tensor) -> torch.Tensor:
+    """The pull in plain PyTorch: each row's ``Σ contrib[nbr]`` in float64,
+    rounded to float32 once (an isolated vertex's is 0)."""
+    vals = contrib.index_select(0, plan.nbrs.to(torch.int64)).double()
+    total = torch.zeros(plan.num_nodes, dtype=torch.float64,
+                        device=contrib.device)
+    total.index_add_(0, plan.edge_rows, vals)
+    return total.to(torch.float32)
+
+
+def pull_sums(plan: PullPlan, contrib: torch.Tensor) -> torch.Tensor:
+    """Each row's ``Σ contrib[nbr]`` over its neighbours, summed in float64
+    and rounded to float32 once: on a CUDA tensor one launch of the pull
+    kernel into ``plan.sums``, on the CPU :func:`pull_sums_plain`."""
+    if contrib.device.type == "cpu":
+        return pull_sums_plain(plan, contrib)
+    from . import segmented_pallas as segp
+
+    if plan.rowmap.numel():
+        segp.pagerank_pull(plan, contrib)
+    return plan.sums
+
+
+def pull_update_plain(sums: torch.Tensor, deg: torch.Tensor,
+                      score: torch.Tensor, contrib: torch.Tensor, base: float,
+                      damping: float) -> torch.Tensor:
+    """:func:`pull_update` in plain PyTorch, on any device."""
+    new = (base + damping * sums.double()).to(torch.float32)
+    err = (new.double() - score.double()).abs().sum()
+    score.copy_(new)
+    contrib.copy_(torch.where(deg > 0, new / deg.to(torch.float32),
+                              torch.zeros_like(new)))
+    return err
+
+
+def pull_update(plan: PullPlan, sums: torch.Tensor, deg: torch.Tensor,
+                score: torch.Tensor, contrib: torch.Tensor, base: float,
+                damping: float):
+    """GAP's per-vertex step after the pull: ``score = float32(base +
+    damping·sums)`` in place, ``contrib = score / deg`` (0 where ``deg`` is
+    0) in place; returns ``Σ |score − old|`` in float64 as a 0-d device
+    tensor.  One kernel launch on a card."""
+    if score.device.type == "cpu":
+        return pull_update_plain(sums, deg, score, contrib, base, damping)
+    from . import segmented_pallas as segp
+
+    return segp.pagerank_update(plan, sums, deg, score, contrib, base,
+                                damping)
+
+
+def slot_sweep(plan: PageRankPlan, rank: torch.Tensor,
+               damping: float) -> torch.Tensor:
+    """One sweep of the slot layout with damping ``damping``: ``(1−d)/n``
+    rounded in float32, plus ``d`` times each row's sum of
+    ``rank[src]·inv_deg[src]`` in ``np.add.reduceat``'s order.  At
+    ``damping`` 0.5 it is :func:`pagerank_propagate` bit for bit."""
+    c = rank.index_select(0, plan.src.view(-1)).view(plan.src.shape) \
+        * plan.weight
+    sums = fold(plan.segments, c)
+    base = float(np.float32(1.0 - damping) / np.float32(plan.num_nodes))
+    return base + damping * sums

@@ -243,3 +243,58 @@ def spmv_scan_pallas(a: torch.Tensor, xx: torch.Tensor,
         _scan(work, xx, flags, work)
         LAUNCHES["spmv_fused"] += 1
     return work
+
+
+# ---------------------------------------------------- PageRank's pull
+
+#: launches of the pull and of the update after it
+#: (``kernel.launches.pr_pull`` / ``.pr_update`` in the exit snapshot)
+PULL_LAUNCHES = {"pr_pull": 0, "pr_update": 0}
+
+#: the pull's geometry (``csrc/segmented_scan.cu``: slots a thread,
+#: threads a tile, the update's most blocks)
+PULL_GEOMETRY = (8, 256, 1024)
+PULL_TILE = PULL_GEOMETRY[0] * PULL_GEOMETRY[1]
+
+
+def _check_pull_geometry() -> None:
+    built = _kernels.pagerank_pull_geometry()
+    if built != PULL_GEOMETRY:
+        raise FrameworkError(
+            f"csrc/segmented_scan.cu's pull is built with geometry {built}, "
+            f"the plan assumes {PULL_GEOMETRY}")
+
+
+def pagerank_pull(plan, contrib: torch.Tensor) -> None:
+    """One launch of the pull into ``plan.sums`` (``ops/gather.pull_sums``
+    on a card): the plan's workspace is made zeroed at its first launch
+    and each launch takes its next epoch."""
+    if plan.workspace is None or plan.epoch >= MAX_EPOCH:
+        _check_pull_geometry()
+        words = 2 + 4 * (plan.tile_row.shape[0] - 1)
+        plan.workspace = torch.zeros(words, dtype=torch.int32,
+                                     device=contrib.device)
+        plan.epoch = 0
+    plan.epoch += 1
+    _kernels.pagerank_pull(plan.nbrs, contrib, plan.off, plan.rowmap,
+                           plan.tile_row, plan.sums, plan.workspace,
+                           plan.epoch)
+    PULL_LAUNCHES["pr_pull"] += 1
+
+
+def pagerank_update(plan, sums, deg, score, contrib, base: float,
+                    damping: float) -> torch.Tensor:
+    """One launch of the per-vertex update (``ops/gather.pull_update`` on a
+    card); returns its float64 error scalar on the device, which the next
+    launch on the plan overwrites."""
+    if plan.update is None:
+        dev = score.device
+        plan.update = (
+            torch.empty(PULL_GEOMETRY[2], dtype=torch.float64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.float64, device=dev))
+    partials, counter, err = plan.update
+    _kernels.pagerank_update(sums, deg, score, contrib, base, damping,
+                             partials, counter, err)
+    PULL_LAUNCHES["pr_update"] += 1
+    return err[0]

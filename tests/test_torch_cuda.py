@@ -1776,3 +1776,112 @@ def test_chaos_campaign_on_the_card_holds_every_invariant(cuda, tmp_path):
                               handicaps=("drift-compensation",))
     _, expected, observed = chaos.replay_fixture(path, device="cuda")
     assert expected == observed == ["conformance"]
+
+
+# ------------------------------------------------- PageRank's pull (GAP pr)
+
+def _pull_graph(n: int, hub_len: int, seed: int):
+    """A CSR on the CPU: vertex 0 a hub of ``hub_len`` neighbours, random
+    rows of 0 to 40, every tenth vertex from 5 on isolated."""
+    from cme213_tpu_torch.apps import pagerank as pr
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 41, n)
+    deg[5::10] = 0
+    src = [np.repeat(np.arange(n), deg), np.zeros(hub_len, np.int64)]
+    dst = [rng.integers(0, n, int(deg.sum())),
+           rng.integers(1, n, hub_len)]
+    s = torch.from_numpy(np.concatenate(src)).to(torch.int32)
+    d = torch.from_numpy(np.concatenate(dst)).to(torch.int32)
+    keep = (s % 10 != 5) & (d % 10 != 5)
+    return pr.build_csr(s[keep], d[keep], n)
+
+
+@pytest.mark.parametrize("n,hub_len", [(7, 0), (300, 5),
+                                        (5000, 3 * segp.PULL_TILE + 1),
+                                        (200_000, 600_000)])
+def test_pull_kernel_vs_plain(cuda, n, hub_len):
+    """Each row's sum in float64, rounded once: the kernel's association
+    differs from the plain index_add's, so a total may round to the float32
+    beside it; the plain version and the kernel are each within half an
+    ULP of the exact sum but for that."""
+    from cme213_tpu_torch.ops import gather
+
+    g = _pull_graph(n, hub_len, n)
+    rng = np.random.default_rng(n + 1)
+    contrib = torch.from_numpy(rng.uniform(0, 1e-3, n).astype(np.float32))
+    want = gather.pull_sums(gather.pull_plan(g.offsets, g.nbrs, n), contrib)
+    plan = gather.pull_plan(g.offsets.to(cuda), g.nbrs.to(cuda), n)
+    before = segp.PULL_LAUNCHES["pr_pull"]
+    got = [gather.pull_sums(plan, contrib.to(cuda)).clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert segp.PULL_LAUNCHES["pr_pull"] - before == 3
+    assert all(torch.equal(got[0], g2) for g2 in got[1:])    # deterministic
+    assert ulp_distance(got[0].cpu().numpy(), want.numpy()).max() <= 1
+    assert float((got[0].cpu() != want).float().mean()) < 1e-3
+
+
+def test_pull_update_kernel_vs_plain(cuda):
+    from cme213_tpu_torch.ops import gather
+
+    n = 100_003
+    g = _pull_graph(n, 10_000, 3)
+    rng = np.random.default_rng(4)
+    sums = torch.from_numpy(rng.uniform(0, 1e-4, n).astype(np.float32))
+    score = torch.from_numpy(rng.uniform(0, 1e-4, n).astype(np.float32))
+    plan = gather.pull_plan(g.offsets.to(cuda), g.nbrs.to(cuda), n)
+    cpu = [score.clone(), torch.empty(n)]
+    err_cpu = gather.pull_update(None, sums, g.deg, cpu[0], cpu[1],
+                                 0.15 / n, 0.85)
+    card = [score.to(cuda), torch.empty(n, device=cuda)]
+    errs = [float(gather.pull_update(plan, sums.to(cuda), g.deg.to(cuda),
+                                     card[0], card[1], 0.15 / n, 0.85))
+            for _ in range(2)]
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1].cpu(), cpu[1])
+    assert errs[0] == pytest.approx(float(err_cpu), rel=1e-12)
+    assert errs[1] == 0.0  # the same sums again: no change
+
+
+@pytest.mark.parametrize("scale", [12, 16])
+def test_solve_to_tolerance_on_card_vs_cpu(cuda, scale):
+    from cme213_tpu_torch.apps import pagerank as pr
+
+    src, dst = pr.kronecker_edges(scale, 16, 7, "cpu")
+    cpu = pr.build_csr(src, dst, 1 << scale)
+    card = pr.build_csr(src.to(cuda), dst.to(cuda), 1 << scale)
+    assert torch.equal(card.offsets.cpu(), cpu.offsets)
+    assert torch.equal(card.nbrs.cpu(), cpu.nbrs)
+    assert card.build_peak_bytes > 0
+    want, k_cpu = pr.solve_to_tolerance(cpu)
+    before = dict(segp.PULL_LAUNCHES)
+    got, k = pr.solve_to_tolerance(card)
+    assert k == k_cpu
+    assert segp.PULL_LAUNCHES["pr_pull"] - before["pr_pull"] == k
+    assert segp.PULL_LAUNCHES["pr_update"] - before["pr_update"] == k
+    rel = float((got.cpu().double() - want.double()).abs().sum()
+                / want.double().abs().sum())
+    assert rel < 1e-6
+    assert pr.verifier_residual(card, got) < 1e-4
+
+
+def test_segscan_after_the_pull_is_bit_for_bit(cuda):
+    """B6 and B7 keep their own workspace and bits beside the pull."""
+    from cme213_tpu_torch.ops import gather
+
+    g = _pull_graph(20_000, 9_000, 5)
+    plan = gather.pull_plan(g.offsets.to(cuda), g.nbrs.to(cuda), 20_000)
+    rng = np.random.default_rng(6)
+    n = 3 * T + 17
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    xx = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    f = torch.from_numpy(_flags(n, "random", rng)).to(cuda)
+    for _ in range(2):
+        gather.pull_sums(plan, torch.rand(20_000, device=cuda))
+        out = segp.segmented_scan_pallas(v, f)
+        fused = segp.spmv_scan_pallas(v, xx, f, 3)
+        bits = lambda t: t.view(torch.int32)  # noqa: E731
+        assert torch.equal(bits(out),
+                           bits(segp.segmented_scan_pallas_plain(v, f)))
+        assert torch.equal(bits(fused),
+                           bits(segp.spmv_scan_pallas_plain(v, xx, f, 3)))
